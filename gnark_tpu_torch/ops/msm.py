@@ -1,0 +1,430 @@
+"""Multi-scalar multiplication: the signed windowed Pippenger plan of
+gnark_tpu/ops/msm.py (``MSM._run_window_pallas``) and its double-and-add
+ladder (``MSM._run_ladder_pallas``), in PyTorch with six kernels in CUDA.
+
+``msm`` sends fewer than LADDER_MAX points to the ladder: per point, s * P
+by MSB-first double-and-add                                     [kernel]
+then the sum of those points                                    [kernel].
+It sends the rest to the windowed plan.
+
+Per window of c-bit signed digits (|d| <= 2^(c-1), negatives by free EC
+negation):
+  1. sort the points by (|digit|, sign) and gather them into R lanes of
+     C = n/R sorted points each;
+  2. leaf: per lane, the running sum of complete mixed adds    [kernel]
+  3. lane offsets: exclusive scan of the R lane totals          [kernel]
+  4. bucket sums as differences of global prefixes at the digit
+     boundaries (searchsorted and row gathers, plain torch);
+  5. S_w = sum_b b * bucket_b by a halving fold                 [kernel]
+then a Horner fold over the windows                             [kernel].
+
+Each kernel wrapper runs its plain PyTorch version when given CPU tensors
+and launches the CUDA kernel (ops/_cuda.py) when given CUDA tensors; any
+other device raises.  There is no fallback from a kernel to its plain
+version.  ``plain_on_cuda`` counts plain versions run on CUDA tensors (by
+a comparison, never by the MSM itself).
+
+Field elements are int64 limb planes (ops/limbs.py).  A kernel's stacked
+point tensor is [3L, ...]: X over Y over Z.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from gnark_tpu_torch.ops import _cuda
+from gnark_tpu_torch.ops.ec import CurveOps
+from gnark_tpu_torch.ops.ec_complete import CompleteOps
+
+plain_on_cuda = {k: 0 for k in _cuda.KERNELS}
+
+
+def window_digits(scalars, c: int, nwin: int | None = None):
+    """int64[Ls, n] regular-form 16-bit scalar limbs -> int64[nwin, n]
+    unsigned c-bit window digits."""
+    Ls, n = scalars.shape[0], scalars.shape[1:]
+    if nwin is None:
+        nwin = -(-(Ls * 16) // c)
+    pad_limbs = -(-(nwin * c) // 16) + 1 - Ls
+    padded = torch.cat([scalars, scalars.new_zeros((max(1, pad_limbs),) + n)])
+    bit = torch.arange(nwin, device=scalars.device) * c
+    q, sh = bit // 16, (bit % 16).reshape((nwin,) + (1,) * len(n))
+    d = (padded[q] >> sh) | (padded[q + 1] << (16 - sh))
+    return d & ((1 << c) - 1)
+
+
+def window_digits_signed(scalars, c: int):
+    """Signed-digit recoding: scalar = sum_w d_w 2^(cw), d_w in
+    (-2^(c-1), 2^(c-1)].  Returns (|d| int64[nwin, n], sign int64[nwin, n]);
+    nwin has one slack bit so the final carry is never dropped."""
+    nwin = -(-(scalars.shape[0] * 16 + 1) // c)
+    u = window_digits(scalars, c, nwin)
+    half, full = 1 << (c - 1), 1 << c
+    carry = torch.zeros_like(u[0])
+    absd, signs = [], []
+    for w in range(nwin):
+        t = u[w] + carry
+        neg = t > half
+        absd.append(torch.where(neg, full - t, t))
+        signs.append(neg.to(torch.int64))
+        carry = signs[-1]
+    return torch.stack(absd), torch.stack(signs)
+
+
+def choose_c(n: int, total_bits: int, lanes: int) -> int:
+    """gnark_tpu's signed-plan cost model (msm.py:211-219), in field muls."""
+    def cost(cc):
+        nwin = -(-(total_bits + 1) // cc)
+        nb = 1 << (cc - 1)
+        lane = max(1, (lanes - 1).bit_length()) * lanes * 26
+        bucket = 4 * nb * 26
+        return nwin * (n * 11 + lane + bucket)
+
+    return min(range(6, 15), key=cost)
+
+
+def split_points(t, L):
+    """[3L, ...] stacked point tensor -> (X, Y, Z)."""
+    return t[:L], t[L:2 * L], t[2 * L:]
+
+
+def _device_route(t: torch.Tensor, name: str) -> bool:
+    """True for a kernel launch, False for the plain version; raises on a
+    device that has neither."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for {t.device}")
+
+
+def _count_plain(t, name):
+    if t.is_cuda:
+        plain_on_cuda[name] += 1
+
+
+# ---- kernel 1: leaf prefix ------------------------------------------------
+
+def leaf_prefix_plain(sx, sy, GC: CompleteOps):
+    """sx, sy: [nw, C, L, R], sorted position r*C + cs at [w, cs, :, r];
+    bit 16 of y limb 0 flags infinity, bit 17 a negative digit.
+    Returns rows [nw, C*R, 3L]: row cs*R + r is the running sum of lane r
+    after step cs."""
+    _count_plain(sx, "leaf_prefix")
+    F = GC.F
+    nw, C, L, R = sx.shape
+    acc = GC.inf((nw, R), sx.device)
+    out = []
+    for cs in range(C):
+        px = sx[:, cs].permute(1, 0, 2)
+        yr = sy[:, cs].permute(1, 0, 2)
+        flags = yr[0] >> 16
+        py = torch.cat([yr[:1] & 0xFFFF, yr[1:]])
+        py = F.select((flags & 2) != 0, F.neg(py), py)
+        acc = GC.add_mixed(acc, (px, py), (flags & 1) != 0)
+        out.append(torch.cat(acc).permute(1, 2, 0))        # [nw, R, 3L]
+    return torch.stack(out, 1).reshape(nw, C * R, 3 * L)
+
+
+def leaf_prefix(sx, sy, GC: CompleteOps):
+    if _device_route(sx, "leaf_prefix"):
+        return _cuda.leaf_prefix(sx, sy, _cuda.kind_of(GC))
+    return leaf_prefix_plain(sx, sy, GC)
+
+
+# ---- kernel 2: lane offsets -------------------------------------------------
+
+def lane_offsets_plain(tot, GC: CompleteOps):
+    """tot: [3L, nw, R] lane totals -> [3L, nw, R] exclusive prefix sums
+    over the lane axis (Hillis-Steele; rolled-in lanes and lane 0 of the
+    result are the identity class (0 : 1 : 0))."""
+    _count_plain(tot, "lane_offsets")
+    F = GC.F
+    L = F.L
+    P = split_points(tot, L)
+    R = tot.shape[-1]
+    ident = GC.inf(tot.shape[1:], tot.device)
+    s = 1
+    while s < R:
+        Q = tuple(torch.cat([i[..., :s], a[..., :R - s]], -1)
+                  for i, a in zip(ident, P))
+        P = GC.add(P, Q)
+        s *= 2
+    return torch.cat([torch.cat([i[..., :1], a[..., :R - 1]], -1)
+                      for i, a in zip(ident, P)])
+
+
+def lane_offsets(tot, GC: CompleteOps):
+    if _device_route(tot, "lane_offsets"):
+        return _cuda.lane_offsets(tot, _cuda.kind_of(GC))
+    return lane_offsets_plain(tot, GC)
+
+
+# ---- kernel 3: weighted bucket sum ------------------------------------------
+
+def weighted_sum_plain(bk, GC: CompleteOps):
+    """bk: [3L, nw, nb] buckets (bucket j holds digit j + 1; nb a power of
+    two) -> [3L, nw] with S_w = sum_j (j+1) * B_j, by the halving fold
+
+      sum_{j<m} (j+1) B_j = sum_{j<H} (j+1)(B_j + B_{H+j}) + H sum_{j<H} B_{H+j}
+
+    (gnark_tpu msm.py:623-702, carried down to one lane)."""
+    _count_plain(bk, "weighted_sum")
+    L = GC.F.L
+    nb = bk.shape[-1]
+    assert nb & (nb - 1) == 0, "bucket count must be a power of two"
+    B = split_points(bk, L)
+    W = None
+    m = nb
+    while m > 1:
+        H = m // 2
+        low = tuple(a[..., :H] for a in B)
+        high = tuple(a[..., H:m] for a in B)
+        T, t = high, H
+        while t > 1:
+            T = GC.add(tuple(a[..., :t // 2] for a in T),
+                       tuple(a[..., t // 2:t] for a in T))
+            t //= 2
+        for _ in range(H.bit_length() - 1):            # T *= H
+            T = GC.double(T)
+        W = T if W is None else GC.add(W, T)
+        B = GC.add(low, high)
+        m = H
+    S = B if W is None else GC.add(B, W)
+    return torch.cat([a[..., 0] for a in S])
+
+
+def weighted_sum(bk, GC: CompleteOps):
+    if _device_route(bk, "weighted_sum"):
+        return _cuda.weighted_sum(bk, _cuda.kind_of(GC))
+    return weighted_sum_plain(bk, GC)
+
+
+# ---- kernel 4: Horner fold ----------------------------------------------------
+
+def horner_fold_plain(S, c: int, GC: CompleteOps):
+    """S: [3L, nw] window sums -> [3L, 1] = sum_w 2^(cw) S_w (most
+    significant window first: c doublings, then one add)."""
+    _count_plain(S, "horner_fold")
+    L = GC.F.L
+    X, Y, Z = split_points(S, L)
+    nw = S.shape[1]
+    acc = (X[:, nw - 1:], Y[:, nw - 1:], Z[:, nw - 1:])
+    for w in range(nw - 2, -1, -1):
+        for _ in range(c):
+            acc = GC.double(acc)
+        acc = GC.add(acc, (X[:, w:w + 1], Y[:, w:w + 1], Z[:, w:w + 1]))
+    return torch.cat(acc)
+
+
+def horner_fold(S, c: int, GC: CompleteOps):
+    if _device_route(S, "horner_fold"):
+        return _cuda.horner_fold(S, c, _cuda.kind_of(GC))
+    return horner_fold_plain(S, c, GC)
+
+
+# ---- kernel 5: the double-and-add ladder ------------------------------------
+
+def ladder_plain(xs, ys, inf_mask, scalars, G: CurveOps):
+    """Per point, s_i * P_i by MSB-first Jacobian double-and-add over the
+    16 * Ls scalar bits (gnark_tpu msm.py:354-367).  The accumulator is
+    not doubled while it is the identity (0 : 1 : 0), so steps above the
+    batch's highest set bit change nothing and are left out.  xs, ys:
+    [L, n] affine; inf_mask: [n] bool; scalars: [Ls, n] regular-form
+    limbs.  Returns [3L, n]."""
+    _count_plain(xs, "ladder")
+    acc = G.inf(xs.shape[-1], xs.device)
+    live = torch.where(inf_mask.unsqueeze(0), 0, scalars)
+    rows = torch.nonzero(live.any(1)).flatten().tolist()
+    top = rows[-1] if rows else -1
+    for k in range(top, -1, -1):
+        hi = int(live[k].max()).bit_length() - 1 if k == top else 15
+        for b in range(hi, -1, -1):
+            acc = G.select(G.is_inf(acc), acc, G.double(acc))
+            skip = (((scalars[k] >> b) & 1) == 0) | inf_mask
+            acc = G.add_mixed(acc, (xs, ys), skip)
+    return torch.cat(acc)
+
+
+def ladder(xs, ys, inf_mask, scalars, G: CurveOps):
+    if _device_route(xs, "ladder"):
+        return _cuda.ladder(xs, ys, inf_mask, scalars, _cuda.kind_of(G))
+    return ladder_plain(xs, ys, inf_mask, scalars, G)
+
+
+# ---- kernel 6: the sum of the ladder's points ---------------------------------
+
+def reduce_plain(pts, G: CurveOps):
+    """pts: [3L, n] Jacobian points -> [3L, 1], their sum (the ladder's
+    reduction; gnark_tpu's ``_reduce``, msm.py:124, is XLA).  Lane t of
+    REDUCE_LANES sums points t, t + 256, ... in order, then a halving tree
+    over the lanes; padding is the identity (0 : 1 : 0)."""
+    _count_plain(pts, "reduce")
+    L, T = G.F.L, _cuda.REDUCE_LANES
+    n = pts.shape[-1]
+    pad = -n % T
+    if pad:
+        pts = torch.cat([pts, torch.cat(G.inf(pad, pts.device))], -1)
+    cols = split_points(pts.reshape(3 * L, -1, T), L)
+    acc = tuple(a[:, 0] for a in cols)
+    for j in range(1, cols[0].shape[1]):
+        acc = G.add(acc, tuple(a[:, j] for a in cols))
+    t = T
+    while t > 1:
+        t //= 2
+        acc = G.add(tuple(a[:, :t] for a in acc),
+                    tuple(a[:, t:2 * t] for a in acc))
+    return torch.cat(acc)
+
+
+def reduce(pts, G: CurveOps):
+    if _device_route(pts, "reduce"):
+        return _cuda.reduce(pts, _cuda.kind_of(G))
+    return reduce_plain(pts, G)
+
+
+def ladder_msm(G: CurveOps, xs, ys, inf_mask, scalars):
+    """The ladder MSM: per-point ladder, then the reduction.  Returns one
+    Jacobian point (coordinates [L, 1])."""
+    P = ladder(xs.contiguous(), ys.contiguous(), inf_mask.contiguous(),
+               scalars.contiguous(), G)
+    return split_points(reduce(P, G), G.F.L)
+
+
+# ---- the windowed plan ---------------------------------------------------------
+
+class MSM:
+    """A signed windowed MSM plan for a fixed (curve ops, n, c, lanes).
+
+    The plan holds no device: it runs where its inputs live."""
+
+    def __init__(self, G: CurveOps, n: int, scalar_limbs: int,
+                 c: int | None = None, lanes: int | None = None):
+        self.G = G
+        self.GC = CompleteOps(G.F, G.b)
+        self.n = n
+        self.scalar_limbs = scalar_limbs
+        total_bits = scalar_limbs * 16
+        # 512 lanes of C = 128 points at 2^16; below 2^12 points, lanes
+        # of 8 points (a short leaf chain)
+        self.R = lanes or min(512, _next_pow2(max(1, n // 8)))
+        self.c = c or choose_c(n, total_bits, self.R)
+        self.nwin = -(-(total_bits + 1) // self.c)
+        self.nb = 1 << (self.c - 1)
+        self.C = -(-n // self.R)
+        self.n_pad = self.C * self.R
+
+    def __call__(self, xs, ys, inf_mask, scalars):
+        """xs, ys: [L, n] affine Montgomery coordinates; inf_mask: [n]
+        bool; scalars: [Ls, n] regular-form limbs.  Returns one Jacobian
+        point (coordinates [L, 1])."""
+        return self.run(xs, ys, inf_mask, scalars, WRAPPERS)
+
+    def run(self, xs, ys, inf_mask, scalars, impl):
+        """The plan with the four steps taken from ``impl`` (WRAPPERS, or
+        PLAIN to time the plain versions on a device)."""
+        leaf, lanes, wsum, horner = impl
+        ptrows, digits, signs = self._prep_window(xs, ys, inf_mask, scalars)
+        sx, sy, d_sorted = self._sort_gather(ptrows, digits, signs)
+        rows = leaf(sx, sy, self.GC)
+        offs = lanes(self.lane_totals(rows), self.GC)
+        S = wsum(self._buckets(rows, offs, d_sorted), self.GC)
+        P = horner(S, self.c, self.GC)
+        return self.GC.to_jacobian(split_points(P, self.G.F.L))
+
+    def lane_totals(self, rows):
+        """Leaf rows -> [3L, nw, R] lane totals (the rows of step C-1)."""
+        return rows[:, (self.C - 1) * self.R:, :].permute(2, 0, 1).contiguous()
+
+    def _prep_window(self, xs, ys, inf_mask, scalars):
+        """Pad to n_pad, recode the scalars, and build the row-major point
+        mirror [n_pad, 2L] with the infinity flag in bit 16 of y limb 0."""
+        pad = self.n_pad - xs.shape[-1]
+        if pad:
+            xs = torch.cat([xs, xs.new_zeros(xs.shape[0], pad)], 1)
+            ys = torch.cat([ys, ys.new_zeros(ys.shape[0], pad)], 1)
+            inf_mask = torch.cat([inf_mask, inf_mask.new_ones(pad)])
+            scalars = torch.cat(
+                [scalars, scalars.new_zeros(scalars.shape[0], pad)], 1)
+        digits, signs = window_digits_signed(scalars, self.c)
+        digits = torch.where(inf_mask.unsqueeze(0), 0, digits)
+        ysf = ys.clone()
+        ysf[0] += inf_mask.to(torch.int64) << 16
+        return torch.cat([xs.T, ysf.T], 1), digits, signs
+
+    def _sort_gather(self, ptrows, dg, signs):
+        """Sort each window by the packed key (|digit|, sign, index) and
+        gather the point rows into the leaf's [nw, C, L, R] layout (sorted
+        position r*C + cs at [w, cs, :, r]); the sorted sign goes to bit 17
+        of y limb 0.  Returns (sx, sy, d_sorted [nw, n_pad])."""
+        n_pad, R, C = self.n_pad, self.R, self.C
+        nw = dg.shape[0]
+        L = ptrows.shape[1] // 2
+        idx_bits = max(1, (n_pad - 1).bit_length())
+        iota = torch.arange(n_pad, device=dg.device)
+        key = (dg << (idx_bits + 1)) | (signs << idx_bits) | iota
+        skey = torch.sort(key, dim=1).values
+        orders = skey & ((1 << idx_bits) - 1)
+        d_sorted = skey >> (idx_bits + 1)
+        ssgn = (skey >> idx_bits) & 1
+        g = ptrows[orders]                                  # [nw, n_pad, 2L]
+        g = g.reshape(nw, R, C, 2 * L).permute(0, 2, 3, 1)
+        sx = g[:, :, :L].contiguous()
+        sy = g[:, :, L:].contiguous()
+        sy[:, :, 0, :] += ssgn.reshape(nw, R, C).permute(0, 2, 1) << 17
+        return sx, sy, d_sorted
+
+    def _buckets(self, rows, offs, d_sorted):
+        """Bucket b = (global prefix at the end of digit b) minus (at the
+        end of digit b - 1): one boundary array E_b, b = 0..nb, from
+        searchsorted; a global prefix is a leaf row plus its lane's
+        offset.  Returns [3L, nw, nb]."""
+        GC, C, R = self.GC, self.C, self.R
+        L = self.G.F.L
+        nw = rows.shape[0]
+        bvals = torch.arange(self.nb + 1, device=rows.device).expand(
+            nw, self.nb + 1).contiguous()
+        ends = torch.searchsorted(d_sorted, bvals, right=True) - 1
+        gi = ends.clamp(min=0)
+        w = torch.arange(nw, device=rows.device).unsqueeze(1)
+        P = split_points(rows[w, (gi % C) * R + gi // C].permute(2, 0, 1), L)
+        orows = offs.permute(1, 2, 0)                       # [nw, R, 3L]
+        O = split_points(orows[w, gi // C].permute(2, 0, 1), L)
+        T = GC.add(P, O)
+        # nothing at or below this digit -> the identity class (X = Z = 0;
+        # Y is a point's Y, nonzero)
+        valid = (ends >= 0).unsqueeze(0)
+        PE = (torch.where(valid, T[0], 0), T[1], torch.where(valid, T[2], 0))
+        bk = GC.add(tuple(a[..., 1:] for a in PE),
+                    GC.neg(tuple(a[..., :-1] for a in PE)))
+        return torch.cat(bk).contiguous()
+
+
+WRAPPERS = (leaf_prefix, lane_offsets, weighted_sum, horner_fold)
+PLAIN = (leaf_prefix_plain, lane_offsets_plain, weighted_sum_plain,
+         horner_fold_plain)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+# Below this many points the ladder: gnark_tpu routes G1 so on the TPU
+# (msm.py:171), and G2 so when the windowed fp2 route is on (msm.py:165).
+LADDER_MAX = 8192
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(G, n, scalar_limbs):
+    return MSM(G, n, scalar_limbs)
+
+
+def msm(G: CurveOps, xs, ys, inf_mask, scalars):
+    """One-shot MSM: the ladder below LADDER_MAX points, else the windowed
+    plan (cached per (G, n)).  Returns one Jacobian point."""
+    n = xs.shape[-1]
+    if n < LADDER_MAX:
+        return ladder_msm(G, xs, ys, inf_mask, scalars)
+    return _plan(G, n, scalars.shape[0])(xs, ys, inf_mask, scalars)

@@ -1,0 +1,161 @@
+"""gnark_tpu_torch on a CUDA card (marker ``cuda``; every test skips
+without a card).
+
+The file imports no jax, so it runs where the port runs:
+
+    python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
+
+(``--noconftest`` leaves out tests/conftest.py, which imports jax.)
+
+  * each of the four windowed-MSM kernels, the ladder kernel and the
+    reduction kernel against its plain version on the same CUDA tensors,
+    G1 and G2, bit for bit, one launch each;
+  * the kernel-path MSM, through ``msm`` (the ladder at this size) and
+    through the windowed plan, against the host oracle (point
+    i = 2^(i mod 64) G);
+  * setup and prove on the card give the same key and proof as on the CPU
+    for the same rng, and the proof verifies.
+
+Tolerance: none.  Limbs compare exactly; points compare as Python ints.
+"""
+
+import gnark_tpu_torch  # noqa: F401  (first: keeps gnark_tpu from loading jax)
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from gnark_tpu.curves import BN254
+from gnark_tpu.frontend.compile import compile_circuit
+from gnark_tpu.frontend.schema import Circuit, Public, Secret
+from gnark_tpu_torch.backend import groth16 as tg
+from gnark_tpu_torch.ops import _cuda
+from gnark_tpu_torch.ops import msm as M
+from gnark_tpu_torch.ops.ec import CurveOps, points_to_host
+from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs
+from gnark_tpu_torch.ops.towers import fp2_ops
+
+R_MOD = BN254.fr.modulus
+N = 4096
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _group(kind):
+    if kind == "g1":
+        return (CurveOps(field_ops(BN254.fp), b=BN254.b), BN254.host_g1,
+                BN254.g1_gen)
+    return (CurveOps(fp2_ops(BN254.fp, BN254.fp2_beta), b=BN254.b2),
+            BN254.host_g2, BN254.g2_gen)
+
+
+def _oracle_inputs(kind, dev, seed):
+    """n points 2^(i mod 64) G (every 17th flagged infinite), random
+    scalars, and the expected MSM."""
+    G, H, gen = _group(kind)
+    base, P = [], gen
+    for _ in range(64):
+        base.append(P)
+        P = H.double(P)
+    xs = G.F.pack([q[0] for q in base], dev).repeat(1, N // 64)
+    ys = G.F.pack([q[1] for q in base], dev).repeat(1, N // 64)
+    inf = torch.zeros(N, dtype=torch.bool, device=dev)
+    inf[::17] = True
+    rng = np.random.default_rng(seed)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % R_MOD
+               for _ in range(N)]
+    sc = torch.from_numpy(
+        ints_to_limbs(scalars, BN254.fr.L).astype(np.int64)).to(dev)
+    total = sum(s << (i % 64) for i, s in enumerate(scalars)
+                if i % 17) % R_MOD
+    return G, (xs, ys, inf, sc), H.scalar_mul(gen, total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_kernels_match_plain_on_cuda(dev, kind):
+    G, (xs, ys, inf, sc), _ = _oracle_inputs(kind, dev, 5)
+    plan = M.MSM(G, N, BN254.fr.L)
+    GC = plan.GC
+    ptrows, dg, sg = plan._prep_window(xs, ys, inf, sc)
+    sx, sy, d_sorted = plan._sort_gather(ptrows, dg, sg)
+    before = dict(_cuda.launches)
+    rows = M.leaf_prefix(sx, sy, GC)
+    tot = plan.lane_totals(rows)
+    offs = M.lane_offsets(tot, GC)
+    bk = plan._buckets(rows, offs, d_sorted)
+    S = M.weighted_sum(bk, GC)
+    P = M.horner_fold(S, plan.c, GC)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _cuda.launches.items()
+            if k.endswith(kind)} == {f"{k}_{kind}": 1 if k in
+                                     _cuda.WINDOW_KERNELS else 0
+                                     for k in _cuda.KERNELS}
+    assert torch.equal(rows, M.leaf_prefix_plain(sx, sy, GC))
+    assert torch.equal(offs, M.lane_offsets_plain(tot, GC))
+    assert torch.equal(S, M.weighted_sum_plain(bk, GC))
+    assert torch.equal(P, M.horner_fold_plain(S, plan.c, GC))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_ladder_matches_plain_on_cuda(dev, kind):
+    G, (xs, ys, inf, sc), _ = _oracle_inputs(kind, dev, 7)
+    before = dict(_cuda.launches)
+    out = M.ladder(xs, ys, inf, sc, G)
+    tot = M.reduce(out, G)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _cuda.launches.items()
+            if k.endswith(kind) and v != before[k]} == {
+                f"ladder_{kind}": 1, f"reduce_{kind}": 1}
+    assert torch.equal(out, M.ladder_plain(xs, ys, inf, sc, G))
+    assert torch.equal(tot, M.reduce_plain(out, G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_msm_on_cuda_matches_host_oracle(dev, kind):
+    G, args, want = _oracle_inputs(kind, dev, 6)
+    assert N < M.LADDER_MAX
+    assert points_to_host(G, M.msm(G, *args)) == [want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_windowed_msm_on_cuda_matches_host_oracle(dev, kind):
+    G, args, want = _oracle_inputs(kind, dev, 8)
+    assert points_to_host(G, M.MSM(G, N, BN254.fr.L)(*args)) == [want]
+
+
+class Cubic(Circuit):
+    x = Secret()
+    y = Public()
+
+    def define(self, api):
+        x3 = api.mul(self.x, self.x, self.x)
+        api.assert_is_equal(self.y, api.add(x3, self.x, 5))
+
+
+@pytest.mark.cuda
+def test_setup_and_prove_on_cuda_equal_cpu(dev):
+    cs = compile_circuit(Cubic(), BN254)
+    keys = {d: tg.setup(cs, BN254, rng=random.Random(3), device=d)
+            for d in ("cpu", dev)}
+    (cpk, cvk), (gpk, gvk) = keys["cpu"], keys[dev]
+    for name in ("A", "B1", "B2", "K", "Z"):
+        for c, g in zip(getattr(cpk, name), getattr(gpk, name)):
+            assert torch.equal(c, g.cpu()), name
+    M.plain_on_cuda.update({k: 0 for k in M.plain_on_cuda})
+    want = tg.prove(cs, cpk, [35, 3], rng=random.Random(4))
+    got = tg.prove(cs, gpk, [35, 3], rng=random.Random(4))
+    assert not any(M.plain_on_cuda.values())
+    assert (got.ar, got.bs, got.krs) == (want.ar, want.bs, want.krs)
+    assert tg.verify(got, gvk, [35])
+    assert not tg.verify(got, gvk, [36])
