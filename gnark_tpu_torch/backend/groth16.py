@@ -3,15 +3,15 @@ gnark_tpu/backend/groth16.py, BN254 device path).
 
   * setup: the native-core QAP at tau, then the key points on the device
     with the plain-torch fixed-base tables and a batch ``to_affine``;
-  * prove: the shared witness solver, the quotient by NTT on the device,
+  * prove: the witness solver (backend/solver.py), the quotient by NTT on the device,
     five MSMs (four G1, one G2 over fp2) through ``ops.msm.msm``: the
     ladder below 8192 points, the windowed plan from there (the MSM
     kernels run on a CUDA device), and the host assembly with the
     blinding terms r and s, drawn in the same order as gnark_tpu's;
   * verify: the host pairing check.
 
-``gnark_tpu/backend/groth16.py`` imports jax, so its protocol pieces are
-copied here: the key and proof dataclasses, ``_sampler``,
+The protocol pieces of ``gnark_tpu/backend/groth16.py`` have their
+counterparts here: the key and proof dataclasses, ``_sampler``,
 ``_qap_at_tau_native``, the blinding assembly and ``verify``
 (``_next_pow2`` comes from ops/msm.py).
 """
@@ -25,10 +25,11 @@ import time
 import numpy as np
 import torch
 
-from gnark_tpu.backend.native_field import nat_for
-from gnark_tpu.backend.solver import solve
-from gnark_tpu.curves.pairing import pairing_for
-from gnark_tpu.fields.spec import W
+from gnark_tpu_torch.backend.native_field import nat_for
+from gnark_tpu_torch.backend.solver import solve
+from gnark_tpu_torch.curves import ALL_CURVES
+from gnark_tpu_torch.curves.pairing import pairing_for
+from gnark_tpu_torch.fields.spec import W
 from gnark_tpu_torch.ops.ec import CurveOps, points_to_device
 from gnark_tpu_torch.ops.fixed_base import FixedBaseTable
 from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs, limbs_to_ints
@@ -85,6 +86,16 @@ class Proof:
     krs: tuple              # host affine G1
 
 
+def _device(device) -> torch.device:
+    """The device an entry point was given; the default, the card, must
+    be there."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "stay on the host")
+    return device
+
+
 def _sampler(rng):
     """rng: None (secure default) or a random.Random (test determinism)."""
     if rng is None:
@@ -134,8 +145,10 @@ def _qap_at_tau_native(cs, fr_spec, tau: int, n: int, nat):
     return A, B, C, zt
 
 
-def setup(cs, curve, rng=None, *, device):
-    """-> (ProvingKey, VerifyingKey) with the key points on ``device``."""
+def setup(cs, curve, rng=None, *, device="cuda"):
+    """-> (ProvingKey, VerifyingKey) with the key points on ``device``:
+    the card unless the caller names another (raises when there is none)."""
+    device = _device(device)
     q = curve.fr.modulus
     rnd = _sampler(rng)
 
@@ -152,8 +165,6 @@ def setup(cs, curve, rng=None, *, device):
     nb_pub = cs.nb_public
 
     nat = nat_for(q)
-    if not nat.available:
-        raise RuntimeError("the native field core (g++) is required")
     A64, B64, C64, zt = _qap_at_tau_native(cs, curve.fr, tau, n, nat)
     vk_k = nat.unpack(nat.lincomb3(
         A64[:nb_pub], B64[:nb_pub], C64[:nb_pub], beta, alpha, gamma_inv))
@@ -213,8 +224,10 @@ def proving_key_from_jax(pk, device) -> ProvingKey:
 
     Reads the dataclass fields only (no jax import): host point lists
     (``host=True``) are packed; device arrays are expected as numpy
-    arrays already (Montgomery uint32 limb planes and bool masks)."""
-    K = _Groups(pk.curve)
+    arrays already (Montgomery uint32 limb planes and bool masks).  The
+    curve becomes this package's own spec of the same name."""
+    curve = ALL_CURVES[pk.curve.name]
+    K = _Groups(curve)
 
     def g1(v):
         if pk.host:
@@ -227,7 +240,7 @@ def proving_key_from_jax(pk, device) -> ProvingKey:
         return _planes_from_numpy(v, device)
 
     return ProvingKey(
-        curve=pk.curve, domain_n=pk.domain_n, n_pad=pk.n_pad,
+        curve=curve, domain_n=pk.domain_n, n_pad=pk.n_pad,
         alpha_g1=pk.alpha_g1, beta_g1=pk.beta_g1, delta_g1=pk.delta_g1,
         beta_g2=pk.beta_g2, delta_g2=pk.delta_g2,
         A=g1(pk.A), B1=g1(pk.B1), B2=g2(pk.B2), K=g1(pk.K), Z=g1(pk.Z))
@@ -260,6 +273,38 @@ def compute_h(domain: Domain, a, b, c):
     return domain.ifft(h, "DIF", coset=True)
 
 
+def _host_ntt(vals, omega, q, inverse=False):
+    """Iterative radix-2 NTT on host ints (tiny-circuit / host-path use)."""
+    n = len(vals)
+    a = [v % q for v in vals]
+    # bit-reversal permutation
+    j = 0
+    for i in range(1, n):
+        bit = n >> 1
+        while j & bit:
+            j ^= bit
+            bit >>= 1
+        j |= bit
+        if i < j:
+            a[i], a[j] = a[j], a[i]
+    w_base = pow(omega, -1, q) if inverse else omega
+    length = 2
+    while length <= n:
+        wl = pow(w_base, n // length, q)
+        for start in range(0, n, length):
+            w = 1
+            for k in range(start, start + length // 2):
+                u, v = a[k], a[k + length // 2] * w % q
+                a[k] = (u + v) % q
+                a[k + length // 2] = (u - v) % q
+                w = w * wl % q
+        length <<= 1
+    if inverse:
+        ninv = pow(n, -1, q)
+        a = [x * ninv % q for x in a]
+    return a
+
+
 _domains = {}
 
 
@@ -272,7 +317,8 @@ def _domain(spec, n, device):
 
 class _Phases:
     """Seconds per prover phase, synchronised with the device, into
-    ``timings`` when the caller passes a dict."""
+    ``timings`` when the caller passes a dict (a phase marked more than
+    once adds up)."""
 
     def __init__(self, timings, device):
         self.timings, self.device = timings, device
@@ -284,7 +330,7 @@ class _Phases:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.timings[name] = now - self.t
+        self.timings[name] = self.timings.get(name, 0.0) + now - self.t
         self.t = now
 
 

@@ -1,13 +1,17 @@
-"""Build and bind the CUDA MSM kernels (csrc/msm_kernels.cu).
+"""Build and bind the CUDA kernels (csrc/msm_kernels.cu, csrc/microbench.cu).
 
-On first use, nvcc compiles the sources in this checkout into a shared
-library with a plain C interface under ``gnark_tpu_torch/_build/`` (the
-file name carries a hash of the sources, so an edit rebuilds), and ctypes
-loads it.  No torch headers are compiled in.  Every launcher returns
-``cudaGetLastError()``; a nonzero code raises.
+On first use, nvcc compiles a library's sources in this checkout into a
+shared library with a plain C interface under ``gnark_tpu_torch/_build/``
+(the file name carries a hash of the sources, so an edit rebuilds), and
+ctypes loads it.  The two libraries are separate translation units, so
+that the short microbenchmark build does not wait for the MSM kernels';
+``build_all`` runs both compilers at once.  No torch headers are
+compiled in.  Every launcher returns ``cudaGetLastError()``; a nonzero
+code raises.
 
-``launches`` counts kernel launches by name (``leaf_prefix_g1``, ...);
-only the wrappers here add to it, where they launch.
+``launches`` counts kernel launches by name (``leaf_prefix_g1``, ...,
+``microbench_mul_u32``, ...); only the wrappers here add to it, where they
+launch.
 """
 
 from __future__ import annotations
@@ -18,23 +22,33 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_SOURCES = ("field.cuh", "ec_complete.cuh", "ec.cuh", "msm_kernels.cu")
+# library -> the sources its hash covers; the last one is compiled
+_SOURCES = {
+    "msm": ("field.cuh", "ec_complete.cuh", "ec.cuh", "msm_kernels.cu"),
+    "microbench": ("field.cuh", "microbench.cu"),
+}
 
 WINDOW_KERNELS = ("leaf_prefix", "lane_offsets", "weighted_sum", "horner_fold")
 KERNELS = WINDOW_KERNELS + ("ladder", "reduce")
 REDUCE_LANES = 256       # msm_kernels.cu's reduce_kernel
 KINDS = ("g1", "g2")
 _L16 = {"g1": 16, "g2": 32}     # 16-bit limb planes of one coordinate
+# microbench.cu's enum Op, in order; then the two kernels of their own
+MICROBENCH_U32_OPS = ("mul_u32", "mul16_u32", "add_u32", "mad_wide_u32",
+                      "mad_lo_hi_u32")
+MICROBENCH_OPS = MICROBENCH_U32_OPS + ("fma_f32", "montmul_bn254")
 
 launches = {f"{k}_{kind}": 0 for k in KERNELS for kind in KINDS}
-build_info = {}          # seconds, command, ptxas report of the last build
-_lib = None
+launches.update({f"microbench_{op}": 0 for op in MICROBENCH_OPS})
+build_info = {}          # library -> seconds, command, ptxas report, path
+_libs = {}
 
 
 def reset_launches():
@@ -49,36 +63,55 @@ def _nvcc() -> str:
     return path
 
 
-def load():
-    """Build (once per source version) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
+def _load(name):
+    """Build (once per source version) and load one kernel library."""
+    if name in _libs:
+        return _libs[name]
     if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: the MSM kernels need a GPU")
+        raise RuntimeError("CUDA is not available: the kernels need a GPU")
     h = hashlib.sha256()
-    for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
+    for src in _SOURCES[name]:
+        with open(os.path.join(_CSRC, src), "rb") as f:
             h.update(f.read())
-    out = os.path.join(_BUILD, f"libgnark_msm_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(out):
+    out = os.path.join(_BUILD, f"libgnark_{name}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        build_info[name] = dict(seconds=0.0, command="(cached)", ptxas="",
+                                path=out)
+    else:
         os.makedirs(_BUILD, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v", "-o", tmp,
-               os.path.join(_CSRC, "msm_kernels.cu")]
+               os.path.join(_CSRC, _SOURCES[name][-1])]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
         os.replace(tmp, out)
-        build_info.update(seconds=time.perf_counter() - t0,
-                          command=" ".join(cmd), ptxas=res.stderr)
-    else:
-        build_info.update(seconds=0.0, command="(cached)", ptxas="")
+        build_info[name] = dict(seconds=time.perf_counter() - t0,
+                                command=" ".join(cmd),
+                                ptxas=res.stdout + res.stderr, path=out)
     lib = ctypes.CDLL(out)
+    _BIND[name](lib)
+    _libs[name] = lib
+    return lib
+
+
+def build_all():
+    """Build and load every library: one nvcc for each, all started
+    together, each in a thread that waits for its own."""
+    with ThreadPoolExecutor(len(_SOURCES)) as pool:
+        list(pool.map(_load, _SOURCES))
+
+
+def load():
+    """The MSM kernel library."""
+    return _load("msm")
+
+
+def _bind_msm(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for kind in KINDS:
         for name, args in (
@@ -92,19 +125,31 @@ def load():
             fn = getattr(lib, f"gnark_msm_{name}_{kind}")
             fn.argtypes = args
             fn.restype = ci
-    _lib = lib
-    return lib
+
+
+def _bind_microbench(lib):
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    for name, args in (("steps", []),
+                       ("u32", [ci, vp, vp, vp, cl, vp]),
+                       ("fma_f32", [vp, vp, vp, cl, vp]),
+                       ("montmul", [vp, vp, vp, cl, ci, vp])):
+        fn = getattr(lib, f"gnark_microbench_{name}")
+        fn.argtypes = args
+        fn.restype = ci
+
+
+_BIND = {"msm": _bind_msm, "microbench": _bind_microbench}
 
 
 def kind_of(GC) -> str:
     """'g1' or 'g2' for the BN254 groups the kernels are built for."""
-    from gnark_tpu.curves import BN254
-    F = GC.F
+    from gnark_tpu_torch.curves import BN254
+    F, p = GC.F, BN254.fp.modulus
     if hasattr(F, "base"):
-        if F.base.spec == BN254.fp and F.beta == BN254.fp2_beta \
+        if F.base.spec.modulus == p and F.beta == BN254.fp2_beta \
                 and tuple(GC.b) == tuple(BN254.b2):
             return "g2"
-    elif F.spec == BN254.fp and GC.b == BN254.b:
+    elif F.spec.modulus == p and GC.b == BN254.b:
         return "g1"
     raise NotImplementedError("the MSM kernels are built for BN254 G1/G2 only")
 
@@ -204,4 +249,45 @@ def reduce(pts, kind):
     scratch = _scratch(REDUCE_LANES, kind, pts.device)
     _launch("reduce", kind, pts.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             n)
+    return out
+
+
+def microbench_steps() -> int:
+    """Steps per chain of the 32-bit and float ops (microbench.cu's STEPS)."""
+    return _load("microbench").gnark_microbench_steps()
+
+
+def microbench(op, x, y, steps=None):
+    """One launch of the chain kernel for ``op`` over every element of x
+    against y (see csrc/microbench.cu).  ``steps`` is montmul_bn254's
+    products per chain; the other ops run microbench_steps()."""
+    if op not in MICROBENCH_OPS:
+        raise ValueError(f"unknown microbenchmark op {op!r}")
+    want = torch.float32 if op == "fma_f32" else torch.int64
+    for name, t in (("x", x), ("y", y)):
+        if not (t.is_cuda and t.dtype == want and t.is_contiguous()
+                and t.shape == x.shape):
+            raise ValueError(
+                f"{name}: want a contiguous {want} CUDA tensor of shape "
+                f"{tuple(x.shape)}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}, contiguous={t.is_contiguous()}")
+    lib = _load("microbench")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(x)
+    ptrs = (x.data_ptr(), y.data_ptr(), out.data_ptr())
+    if op == "montmul_bn254":
+        if x.ndim != 2 or x.shape[0] != _L16["g1"] or not steps or steps < 1:
+            raise ValueError(f"montmul_bn254: want [16, n] limb planes and "
+                             f"steps >= 1, got {tuple(x.shape)}, {steps}")
+        rc = lib.gnark_microbench_montmul(*ptrs, x.shape[1], steps, stream)
+    elif steps is not None:
+        raise ValueError(f"{op}: the step count is fixed at build time")
+    elif op == "fma_f32":
+        rc = lib.gnark_microbench_fma_f32(*ptrs, x.numel(), stream)
+    else:
+        rc = lib.gnark_microbench_u32(MICROBENCH_U32_OPS.index(op), *ptrs,
+                                      x.numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"microbench_{op}: launch failed, cudaError {rc}")
+    launches[f"microbench_{op}"] += 1
     return out

@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from gnark_tpu.fields.spec import FieldSpec, MASK, W
+from gnark_tpu_torch.fields.spec import FieldSpec, MASK, W
 
 _I64 = torch.int64
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gnark_tpu.fields.spec import FieldSpec
+from gnark_tpu_torch.fields.spec import FieldSpec
 from gnark_tpu_torch.ops.limbs import field_ops
 
 

@@ -12,7 +12,7 @@ import functools
 
 import torch
 
-from gnark_tpu.fields.spec import FieldSpec
+from gnark_tpu_torch.fields.spec import FieldSpec
 from gnark_tpu_torch.ops.limbs import FieldOps, field_ops
 
 

@@ -14,12 +14,17 @@ The file imports no jax, so it runs where the port runs:
     through the windowed plan, against the host oracle (point
     i = 2^(i mod 64) G);
   * setup and prove on the card give the same key and proof as on the CPU
-    for the same rng, and the proof verifies.
+    for the same rng, and the proof verifies;
+  * every op of the integer-multiply microbenchmark kernel against its
+    plain version on the same CUDA tensors, one launch each;
+  * PLONK setup and prove on the card give the host mode's key and proof
+    for the same rng; the default device is the card.
 
 Tolerance: none.  Limbs compare exactly; points compare as Python ints.
+The microbenchmark's ``fma_f32`` alone compares within
+``microbench.FMA_RTOL``: the kernel's fused multiply-add rounds once a
+step, the plain version's ``a * y + y`` twice.
 """
-
-import gnark_tpu_torch  # noqa: F401  (first: keeps gnark_tpu from loading jax)
 
 import random
 
@@ -27,11 +32,13 @@ import numpy as np
 import pytest
 import torch
 
-from gnark_tpu.curves import BN254
-from gnark_tpu.frontend.compile import compile_circuit
-from gnark_tpu.frontend.schema import Circuit, Public, Secret
+from gnark_tpu_torch.curves import BN254
+from gnark_tpu_torch.frontend.compile import compile_circuit
+from gnark_tpu_torch.frontend.schema import Circuit, Public, Secret
 from gnark_tpu_torch.backend import groth16 as tg
+from gnark_tpu_torch.backend import plonk as tp
 from gnark_tpu_torch.ops import _cuda
+from gnark_tpu_torch.ops import microbench as MB
 from gnark_tpu_torch.ops import msm as M
 from gnark_tpu_torch.ops.ec import CurveOps, points_to_host
 from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs
@@ -159,3 +166,41 @@ def test_setup_and_prove_on_cuda_equal_cpu(dev):
     assert (got.ar, got.bs, got.krs) == (want.ar, want.bs, want.krs)
     assert tg.verify(got, gvk, [35])
     assert not tg.verify(got, gvk, [36])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", MB.OPS)
+def test_microbench_kernel_matches_plain_on_cuda(dev, op):
+    x, y = MB.inputs(op, 4096 + 37, dev, seed=9)
+    before = _cuda.launches[f"microbench_{op}"]
+    got = MB.chain(op, x, y)
+    torch.cuda.synchronize()
+    assert _cuda.launches[f"microbench_{op}"] == before + 1
+    want = MB.chain_plain(op, x, y)
+    if op == "fma_f32":
+        assert torch.allclose(got, want, rtol=MB.FMA_RTOL, atol=0)
+    else:
+        assert torch.equal(got, want)
+    cx, cy = x.cpu(), y.cpu()
+    with pytest.raises(ValueError):
+        _cuda.microbench(op, cx, cy)
+
+
+@pytest.mark.cuda
+def test_plonk_on_cuda_equals_host_mode(dev):
+    cs = compile_circuit(Cubic(), BN254, scheme="plonk")
+    hpk, hvk = tp.setup(cs, BN254, rng=random.Random(3), host=True)
+    gpk, gvk = tp.setup(cs, BN254, rng=random.Random(3))    # the card
+    assert gpk.device.type == "cuda" and gpk.srs.device.type == "cuda"
+    assert gvk == hvk
+    M.plain_on_cuda.update({k: 0 for k in M.plain_on_cuda})
+    before = dict(_cuda.launches)
+    want = tp.prove(cs, hpk, [35, 3], rng=random.Random(4))
+    got = tp.prove(cs, gpk, [35, 3], rng=random.Random(4))
+    assert not any(M.plain_on_cuda.values())
+    # nine small MSMs: the ladder and its reduction
+    assert _cuda.launches["ladder_g1"] == before["ladder_g1"] + 9
+    assert _cuda.launches["reduce_g1"] == before["reduce_g1"] + 9
+    assert got == want
+    assert tp.verify(got, gvk, [35])
+    assert not tp.verify(got, gvk, [36])

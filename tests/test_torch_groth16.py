@@ -1,9 +1,10 @@
 """gnark_tpu_torch.backend.groth16 against gnark_tpu.backend.groth16.
 
-The same rng gives the same key and the same proof: the port's setup
-equals the JAX package's setup(host=True) point for point, and the port's
-prove on proving_key_from_jax(pk) equals the JAX package's prove exactly
-and verifies under its verify.  The quotient of a 1-hash MiMC chain is
+Each package compiles the circuit with its own frontend and solves with
+its own solver.  The same rng gives the same key and the same proof: the
+port's setup equals the JAX package's setup(host=True) point for point,
+and the port's prove on proving_key_from_jax(pk) equals the JAX package's
+prove exactly and verifies under its verify.  The quotient of a 1-hash MiMC chain is
 held against the JAX package's host chain.  (The full 58,741-constraint
 MiMC prove runs on the card, in chip_smoke.py.)
 
@@ -17,41 +18,52 @@ import numpy as np
 import pytest
 import torch
 
+import gnark_tpu.frontend.schema as jax_schema
+import gnark_tpu.std.mimc as jax_mimc
+import gnark_tpu_torch.frontend.schema as torch_schema
+import gnark_tpu_torch.std.mimc as torch_mimc
 from gnark_tpu.backend import groth16 as jg
-from gnark_tpu.curves import BN254
-from gnark_tpu.frontend.compile import compile_circuit
-from gnark_tpu.frontend.schema import Circuit, Public, Secret
-from gnark_tpu.std.mimc import MiMC, MiMCHost
+from gnark_tpu.curves import BN254 as JBN254
+from gnark_tpu.frontend.compile import compile_circuit as jax_compile
 from gnark_tpu_torch.backend import groth16 as tg
+from gnark_tpu_torch.curves import BN254
+from gnark_tpu_torch.frontend.compile import compile_circuit
 
 torch.set_num_threads(1)
 
 
-class Cubic(Circuit):
-    x = Secret()
-    y = Public()
+def cubic_circuit(schema):
+    """The circuit as a class of one frontend: each package has its own
+    ``Circuit`` base class and hint registry."""
+    class Cubic(schema.Circuit):
+        x = schema.Secret()
+        y = schema.Public()
 
-    def define(self, api):
-        x3 = api.mul(self.x, self.x, self.x)
-        api.assert_is_equal(self.y, api.add(x3, self.x, 5))
+        def define(self, api):
+            x3 = api.mul(self.x, self.x, self.x)
+            api.assert_is_equal(self.y, api.add(x3, self.x, 5))
+    return Cubic()
 
 
-class MiMCOne(Circuit):
-    pre = Secret()
-    digest = Public()
+def mimc_one_circuit(schema, mimc):
+    class MiMCOne(schema.Circuit):
+        pre = schema.Secret()
+        digest = schema.Public()
 
-    def define(self, api):
-        h = MiMC(api)
-        h.write(self.pre)
-        api.assert_is_equal(h.sum(), self.digest)
+        def define(self, api):
+            h = mimc.MiMC(api)
+            h.write(self.pre)
+            api.assert_is_equal(h.sum(), self.digest)
+    return MiMCOne()
 
 
 @pytest.fixture(scope="module")
 def cubic():
-    cs = compile_circuit(Cubic(), BN254)
-    jpk, jvk = jg.setup(cs, BN254, rng=random.Random(1), host=True)
+    jcs = jax_compile(cubic_circuit(jax_schema), JBN254)
+    cs = compile_circuit(cubic_circuit(torch_schema), BN254)
+    jpk, jvk = jg.setup(jcs, JBN254, rng=random.Random(1), host=True)
     tpk, tvk = tg.setup(cs, BN254, rng=random.Random(1), device="cpu")
-    return cs, jpk, jvk, tpk, tvk
+    return (jcs, cs), jpk, jvk, tpk, tvk
 
 
 def _affine(G, planes):
@@ -79,8 +91,8 @@ def test_setup_verifying_key_equals_jax(cubic):
 
 
 def test_prove_equals_jax_prove_and_verifies(cubic):
-    cs, jpk, jvk, tpk, tvk = cubic
-    want = jg.prove(cs, jpk, [35, 3], rng=random.Random(2))
+    (jcs, cs), jpk, jvk, tpk, tvk = cubic
+    want = jg.prove(jcs, jpk, [35, 3], rng=random.Random(2))
     timings = {}
     got = tg.prove(cs, tg.proving_key_from_jax(jpk, "cpu"), [35, 3],
                    rng=random.Random(2), timings=timings)
@@ -109,17 +121,21 @@ def test_proving_key_from_jax_reads_device_arrays(cubic):
 
 
 def test_mimc_chain_quotient_matches_host_chain():
-    """The 1-hash MiMC chain (domain 512): the shared solver's witness
-    through the port's compute_h against gnark_tpu's host quotient chain."""
+    """The 1-hash MiMC chain (domain 512): the port's solver's witness
+    through the port's compute_h against gnark_tpu's host quotient chain
+    over gnark_tpu's solver's witness."""
     from gnark_tpu.backend.groth16 import _host_ntt
     from gnark_tpu.backend.solver import solve
+    from gnark_tpu_torch.backend.solver import solve as torch_solve
     from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm
 
-    cs = compile_circuit(MiMCOne(), BN254)
+    cs = jax_compile(mimc_one_circuit(jax_schema, jax_mimc), JBN254)
+    tcs = compile_circuit(mimc_one_circuit(torch_schema, torch_mimc), BN254)
     pre = 12345
-    h = MiMCHost(BN254)
+    h = jax_mimc.MiMCHost(JBN254)
     h.write(pre)
     sol = solve(cs, [h.sum(), pre])
+    tsol = torch_solve(tcs, [h.sum(), pre])
     q, spec = BN254.fr.modulus, BN254.fr
     n = tg._next_pow2(cs.nb_constraints)
     assert n == 512
@@ -144,5 +160,6 @@ def test_mimc_chain_quotient_matches_host_chain():
 
     d = Domain(spec, n, "cpu")
     F = d.F
-    got = tg.compute_h(d, *(F.pack(pad(v), "cpu") for v in (sol.a, sol.b, sol.c)))
+    got = tg.compute_h(d, *(F.pack(pad(v), "cpu")
+                            for v in (tsol.a, tsol.b, tsol.c)))
     assert F.unpack(got) == want

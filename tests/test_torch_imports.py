@@ -1,10 +1,14 @@
-"""gnark_tpu_torch stands without JAX, and never falls back from a kernel.
+"""gnark_tpu_torch stands alone, without JAX and without gnark_tpu, and
+never falls back from a kernel.
 
   * with ``jax`` blocked at import, the port's prover and MSM modules load
     and ``chip_smoke.py`` exits nonzero at once (no CUDA here), printing
     no result;
+  * with ``jax`` and ``gnark_tpu`` both refused by a meta-path finder, every
+    module of the port imports, and a circuit compiles, proves and
+    verifies under Groth16 and under PLONK on the CPU;
   * ``chip_smoke.py`` alone in a directory exits nonzero;
-  * no source line of the port imports jax;
+  * no source line of the port imports jax or gnark_tpu;
   * the kernel path given a non-CUDA tensor, or with no CUDA present,
     raises instead of running the plain version.
 """
@@ -61,8 +65,73 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert '"ok"' not in res.stdout
 
 
+REFUSE_BOTH = """
+import importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "gnark_tpu"):
+            raise ImportError(f"refused: {name}")
+
+sys.meta_path.insert(0, Refuse())
+"""
+
+STANDALONE_PROVE = REFUSE_BOTH + """
+import importlib, pkgutil, random
+import gnark_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(gnark_tpu_torch.__path__,
+                                               "gnark_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) > 30, names
+
+from gnark_tpu_torch.backend import groth16, plonk
+from gnark_tpu_torch.curves import BN254
+from gnark_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
+
+class Cubic(Circuit):
+    x = Secret()
+    y = Public()
+
+    def define(self, api):
+        x3 = api.mul(self.x, self.x, self.x)
+        api.assert_is_equal(self.y, api.add(x3, self.x, 5))
+
+cs = compile_circuit(Cubic(), BN254)
+pk, vk = groth16.setup(cs, BN254, rng=random.Random(1), device="cpu")
+proof = groth16.prove(cs, pk, [35, 3], rng=random.Random(2))
+assert groth16.verify(proof, vk, [35]) and not groth16.verify(proof, vk, [36])
+
+scs = compile_circuit(Cubic(), BN254, scheme="plonk")
+ppk, pvk = plonk.setup(scs, BN254, rng=random.Random(1), host=True)
+pproof = plonk.prove(scs, ppk, [35, 3], rng=random.Random(2))
+assert plonk.verify(pproof, pvk, [35]) and not plonk.verify(pproof, pvk, [36])
+
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "gnark_tpu")]
+assert not bad, bad
+print("ok", len(names))
+"""
+
+
+def test_port_proves_with_jax_and_gnark_tpu_refused():
+    res = _run(STANDALONE_PROVE, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[0] == "ok"
+
+
+def test_refusing_finder_refuses():
+    res = _run(REFUSE_BOTH + "import gnark_tpu.fields")
+    assert res.returncode != 0 and "refused: gnark_tpu" in res.stderr
+
+
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import|from) jax")
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|gnark_tpu)(\.|\s|$)")
+    assert pattern.match("from gnark_tpu.curves import BN254")
+    assert pattern.match("    import jax.numpy as jnp")
+    assert not pattern.match("from gnark_tpu_torch.curves import BN254")
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "gnark_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -72,7 +141,7 @@ def test_no_jax_import_in_port_sources():
 
 
 def test_kernel_path_raises_instead_of_falling_back():
-    from gnark_tpu.curves import BN254
+    from gnark_tpu_torch.curves import BN254
     from gnark_tpu_torch.ops import _cuda
     from gnark_tpu_torch.ops import msm as M
     from gnark_tpu_torch.ops.ec_complete import CompleteOps
