@@ -17,16 +17,20 @@ always measured:
      (SMs x 64 lanes x the SM clock);
   3. each of the six MSM kernels against its plain PyTorch version, for
      G1 (fp) and G2 (fp2), on the same CUDA tensors (bit for bit), with
-     both times and the bound (the least time the card could take: the
-     32-bit multiplies of the fewest point operations that give the
-     output for this run's inputs, over the same integer issue peak, or
-     its bytes over the memory rate; beside it the same count over the
-     mad.wide.u32 rate that the microbenchmark measured): the
-     four windowed kernels at the 2^16 plan's shapes, the ladder and the
-     reduction of its output at the 4096 points of the small proof below,
-     for G2 also at 2^16 points (the ladder's plain version on 4096
-     columns spread over all of them), and the G1 leaf also at the PLONK
-     commitment's 2^16 + 3 points;
+     both times, the warps a launch gives each SM, and the bound (the
+     least time the card could take: the 32-bit multiplies of the fewest
+     point operations that give the output for this run's inputs, over
+     the same integer issue peak, or its bytes over the memory rate;
+     beside it the same count over the mad.wide.u32 rate that the
+     microbenchmark measured): the four windowed kernels at the 2^16
+     plan's shapes, the ladder, the per-chunk reduction of its output and
+     the fold of the chunk sums at the 4096 points of the small proof
+     below, for G2 also at 2^16 points (the ladder's plain version on
+     4096 points spread over all of them), and the G1 leaf also at the
+     PLONK commitment's 2^16 + 3 points.  The Horner fold, a chain of
+     point operations, also gets its critical path: the products on its
+     longest dependent chain times the latency of one dependent product
+     (the montmul_bn254 chain launched on one element, in one thread);
   4. MSMs against a host oracle (point i = 2^(i mod 64) G), G1 and G2: at
      2^16 the windowed plan, kernel path and plain path, in points/s; and
      the ladder against the windowed plan, kernel paths, at 4096 and 2^16
@@ -79,6 +83,8 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FMA_PER_S = 67e12 / 2       # 67 TFLOP/s outside the tensor cores
 INT32_LANES_PER_SM = 64         # Hopper white paper: INT32 units per SM
 MULS_PER_PRODUCT = 136          # csrc/field.cuh: 2 N^2 + N at N = 8
+# the 32-bit halves those give: 2 N^2 full 64-bit products and N low halves
+HALVES_PER_PRODUCT = 4 * 8 * 8 + 8
 # ptxas pairs two dependent adds of a chain into one three-input IADD3
 # (--sass: 262 IADD3 for add_u32's 512 adds), so the adds need half as
 # many issue slots as there are adds
@@ -89,6 +95,10 @@ POINT_PRODUCTS = {
     "padd": (12, 42), "padd_mixed": (11, 39), "pdbl": (8, 27),
     "jdbl": (7, 21), "jadd_mixed": (11, 33), "jadd": (16, 48),
 }
+# levels of independent base products of the Horner fold kernel's
+# doubling and addition, (G1, G2): G2's b3 product is a level of its own
+FOLD_LEVELS = {"pdbl": (2, 3), "padd": (2, 3)}
+LATENCY_STEPS = 1024            # montmul products a chain, one element
 REPLACES = {
     "leaf_prefix": "gnark_tpu/ops/msm.py:496",
     "lane_offsets": "gnark_tpu/ops/msm.py:564",
@@ -218,6 +228,21 @@ def phase_microbench(device):
         entries[f"microbench_{op}"] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    # the latency of one dependent product: one montmul chain on one
+    # element, in one thread (held against its plain version first)
+    x1, y1 = MB.inputs("montmul_bn254", 1, device, SEED)
+    one = MB.chain("montmul_bn254", x1, y1, LATENCY_STEPS, chains=1)
+    sync()
+    assert torch.equal(one, MB.chain_plain("montmul_bn254", x1, y1,
+                                           LATENCY_STEPS, chains=1))
+    lat_ms = cuda_ms(lambda: MB.chain("montmul_bn254", x1, y1, LATENCY_STEPS,
+                                      chains=1), 5) / LATENCY_STEPS
+    four_ms = cuda_ms(lambda: MB.chain("montmul_bn254", x1, y1,
+                                       LATENCY_STEPS), 5) / LATENCY_STEPS
+    log(f"[microbench] montmul_bn254 dependent latency {lat_ms * 1e6:.1f} ns "
+        f"a product (one chain of {LATENCY_STEPS} on one element, one "
+        f"thread, bit-exact); four chains in that thread "
+        f"{four_ms * 1e6:.1f} ns a step")
     # the main path: the entry point, with the counts taken over it
     _cuda.reset_launches()
     rates = MB.run(device, log=log)
@@ -227,7 +252,7 @@ def phase_microbench(device):
         entries[name]["launches"] = launches[name]
     log(f"[microbench] launches during its run: "
         f"{ {k: v for k, v in launches.items() if v} }")
-    return entries, rates, peak
+    return entries, rates, peak, lat_ms
 
 
 def device_busy(label, fn):
@@ -342,24 +367,126 @@ def kernel_work(name, kind, args):
             products += min(running, each)
         return products, nbytes + nw * L3 * 8
     if name == "horner_fold":
-        nw, c = tensors[0].shape[1], args[1]
-        return ((nw - 1) * (c * cost["pdbl"] + cost["padd"]),
+        # c doublings and an addition a window below the highest that is
+        # not the identity
+        return (fold_top(tensors[0]) * (args[1] * cost["pdbl"] + cost["padd"]),
                 nbytes + L3 * 8)
     if name == "ladder":
-        # its function is double-and-add point by point: one doubling a
-        # bit below the top one, one addition a further set bit
+        # its function: per point i and chunk j, d_ij P_i.  The fewer of
+        # two counts a point: double-and-add on each chunk (a doubling a
+        # bit below the top one, an addition a further set bit), or the
+        # best signed-window (wNAF) recoding of its chunks over one shared
+        # table of odd multiples; each operation at its cheapest formula
         xs, ys, inf, sc = tensors
-        live = torch.where(inf.unsqueeze(0), 0, sc)
-        ints = [v for v in limbs_to_ints(live.cpu().numpy()) if v]
-        dbls = sum(v.bit_length() - 1 for v in ints)
-        adds = sum(bin(v).count("1") - 1 for v in ints)
-        return (dbls * cost["jdbl"] + adds * cost["jadd_mixed"],
-                nbytes + xs.shape[1] * L3 * 8)
+        d = ladder_chunk_values(sc, inf)                        # [K, n]
+        bits, ones = bit_lengths(d), popcounts(d)
+        live = d > 0
+        da = np.where(live, (bits - 1) * cost["jdbl"]
+                      + (ones - 1) * cost["jadd_mixed"], 0).sum(0)
+        best = da
+        for w in range(2, 7):
+            length, nnz = wnaf_counts(d, w)
+            win = np.where(live, (length - 1) * cost["jdbl"]
+                           + (nnz - 1) * cost["jadd_mixed"], 0).sum(0)
+            table = cost["jdbl"] + ((1 << (w - 2)) - 1) * cost["jadd_mixed"]
+            best = np.minimum(best, win + np.where((d > 1).any(0), table, 0))
+        K, n = d.shape
+        return int(best.sum()), nbytes + K * n * L3 * 8
     if name == "reduce":
-        n = tensors[0].shape[1]
-        return ((max(n - _cuda.REDUCE_LANES, 0) + _cuda.REDUCE_LANES - 1)
-                * cost["jadd"], nbytes + L3 * 8)
+        # each chunk's sum: one addition a further point that is not the
+        # identity
+        pts = tensors[0]
+        live = (pts[2 * L3 // 3:] != 0).any(0).sum(1).cpu().numpy()    # [K]
+        add = min(cost["padd"], cost["jadd"])
+        return (int(np.maximum(live - 1, 0).sum()) * add,
+                nbytes + pts.shape[1] * L3 * 8)
     raise KeyError(name)
+
+
+def fold_top(S):
+    """The highest window of S [3L, nw] that is not the identity (Z != 0),
+    or 0 when none is: where the Horner fold starts."""
+    live = np.flatnonzero((S[2 * S.shape[0] // 3:] != 0).any(0).cpu().numpy())
+    return int(live[-1]) if len(live) else 0
+
+
+def ladder_chunk_values(sc, inf):
+    """int64[K, n]: chunk j of scalar i (0 for an infinity point), B = 16
+    Ls / K bits."""
+    from gnark_tpu_torch.ops import msm as M
+    K = M.LADDER_CHUNKS
+    B = M.chunk_bits(sc.shape[0])
+    assert B <= 32, B
+    limbs = np.where(inf.cpu().numpy()[None], 0, sc.cpu().numpy())
+    bits = ((limbs[:, None, :] >> np.arange(16)[None, :, None]) & 1)
+    bits = bits.reshape(K, B, -1)
+    return (bits << np.arange(B)[None, :, None]).sum(1)
+
+
+def bit_lengths(d):
+    out = np.zeros_like(d)
+    for b in range(64):
+        out = np.where(d >> b, b + 1, out)
+        if not (d >> b).any():
+            break
+    return out
+
+
+def popcounts(d):
+    out, k = np.zeros_like(d), d.copy()
+    while k.any():
+        out += k & 1
+        k >>= 1
+    return out
+
+
+def wnaf_counts(d, w):
+    """(digits up to the top nonzero one, nonzero digits) of each value's
+    width-w NAF: odd digits in (-2^(w-1), 2^(w-1)), each followed by at
+    least w - 1 zeros."""
+    k = d.copy()
+    length, nnz = np.zeros_like(d), np.zeros_like(d)
+    pos = 0
+    while k.any():
+        mod = k & ((1 << w) - 1)
+        digit = np.where(k & 1, np.where(mod >= 1 << (w - 1), mod - (1 << w),
+                                         mod), 0)
+        k = (k - digit) >> 1
+        pos += 1
+        nnz += digit != 0
+        length = np.where(digit != 0, pos, length)
+    return length, nnz
+
+
+def warps_per_sm(name, args):
+    """Warps one launch of the kernel gives each SM, on average."""
+    import torch
+    from gnark_tpu_torch.ops import msm as M
+    from gnark_tpu_torch.ops import _cuda
+    sms = (torch.cuda.get_device_properties(0).multi_processor_count
+           if torch.cuda.is_available() else 132)    # 132: a CPU rehearsal
+    t = [a for a in args if hasattr(a, "shape")]
+    if name == "leaf_prefix":
+        threads = t[0].shape[0] * t[0].shape[3]
+    elif name in ("lane_offsets", "weighted_sum"):
+        threads = t[0].shape[1] * 256
+    elif name == "horner_fold":
+        threads = 32
+    elif name == "ladder":
+        threads = -(-t[0].shape[1] // 8) * 8 * M.LADDER_CHUNKS
+    elif name == "reduce":
+        threads = t[0].shape[1] * _cuda.REDUCE_LANES
+    else:
+        raise KeyError(name)
+    return -(-threads // 32) / sms
+
+
+def fold_critical_path(kind, S, c, latency_ms):
+    """(products on the Horner fold's longest dependent chain, that chain
+    in ms at the measured latency of one dependent product)."""
+    k = 0 if kind == "g1" else 1
+    chain = fold_top(S) * (c * FOLD_LEVELS["pdbl"][k] + FOLD_LEVELS["padd"][k])
+    return chain, chain * latency_ms
 
 
 def share(x):
@@ -381,7 +508,7 @@ def msm_bounds(products, nbytes, rates):
     kernel can beat it.  The second holds them to the rate the
     microbenchmark measured for its mad.wide.u32 chain, carry adds
     included: what multiply-adds of field.cuh's form reach today."""
-    peak, mad_per_s = rates
+    peak, mad_per_s = rates[:2]
     muls = products * MULS_PER_PRODUCT
     b_ms, by = bound(muls, peak, nbytes)
     return {"bound_ms": b_ms, "bound_by": by,
@@ -392,14 +519,17 @@ def phase_kernels(device, rates):
     """Each kernel against its plain version on the same CUDA tensors:
     the windowed kernels at the shapes of the 2^16 plan, with infinity
     points (1 in 64), negative digits and the nearly empty top window; the
-    ladder and its reduction at the small request's 4096 points and, for
-    G2, at 2^16 points, with infinity points; the G1 leaf also at the
-    2^16 + 3 points of a PLONK commitment.  ``rates`` are the integer
-    issue peak and the measured multiply-add rate (see msm_bounds)."""
+    ladder, its per-chunk reduction and the fold of the chunk sums at the
+    small request's 4096 points and, for G2, at 2^16 points, with infinity
+    points; the G1 leaf also at the 2^16 + 3 points of a PLONK commitment.
+    ``rates`` are the integer issue peak, the measured multiply-add rate
+    (see msm_bounds) and the latency of one dependent product in ms."""
     import torch
     from gnark_tpu_torch.ops import msm as M
     results = {}
     rng = np.random.default_rng(SEED)
+    K = M.LADDER_CHUNKS
+    B = M.chunk_bits(16)
     for kind, (G, host, gen) in groups().items():
         xs, ys, inf, sc, _ = oracle_inputs(G, host, gen, device, rng)
         inf[::64] = True
@@ -418,7 +548,7 @@ def phase_kernels(device, rates):
         lx, ly, linf, lsc, _ = oracle_inputs(G, host, gen, device, rng,
                                              N_LADDER)
         linf[::64] = True
-        lout = M.ladder(lx, ly, linf, lsc, G)
+        lout = M.ladder(lx, ly, linf, lsc, GC)
         sync()
         cases = {
             "leaf_prefix": ((sx, sy, GC), M.leaf_prefix, M.leaf_prefix_plain),
@@ -426,12 +556,20 @@ def phase_kernels(device, rates):
             "weighted_sum": ((bk, GC), M.weighted_sum, M.weighted_sum_plain),
             "horner_fold": ((S, plan.c, GC), M.horner_fold,
                             M.horner_fold_plain),
-            "ladder": ((lx, ly, linf, lsc, G), M.ladder, M.ladder_plain),
-            "reduce": ((lout, G), M.reduce, M.reduce_plain),
+            "ladder": ((lx, ly, linf, lsc, GC), M.ladder, M.ladder_plain),
+            "reduce": ((lout, GC), M.reduce, M.reduce_plain),
         }
         for name, (args, kern, plain) in cases.items():
             results[f"{name}_{kind}"] = compare(kind, name, args, kern, plain,
                                                 rates)
+        # the fold of the ladder's chunk sums, as ladder_msm runs it
+        T = M.reduce(lout, GC)
+        r = compare(kind, f"horner_fold chunks nw={K} c={B}", (T, B, GC),
+                    M.horner_fold, M.horner_fold_plain, rates,
+                    work="horner_fold")
+        lr = results[f"ladder_{kind}"]["ms"] + results[f"reduce_{kind}"]["ms"]
+        log(f"[kernels {kind}] ladder MSM at n={N_LADDER}: ladder + reduce "
+            f"{lr:.3f} ms, + fold {lr + r['ms']:.3f} ms")
         n_empty = int((bk.reshape(bk.shape[0], -1)[2 * G.F.L:] == 0)
                       .all(0).sum())
         log(f"[kernels {kind}] identity-class buckets: {n_empty}")
@@ -439,34 +577,36 @@ def phase_kernels(device, rates):
     # the ladder and its reduction also at the shape that gnark_tpu's 2^16
     # prove gives its ladder kernel: the G2 MSM (gnark_tpu msm.py:156-169).
     # The ladder works point by point, so its plain version, which takes
-    # half a minute at 2^16, is held against N_SLICE of the kernel's
-    # columns, spread over the whole width: one in every run of
-    # N_MSM / N_SLICE columns, at an offset that goes round, so that every
+    # long at 2^16, is held against N_SLICE of the kernel's points (all
+    # their chunks), spread over the whole width: one in every run of
+    # N_MSM / N_SLICE points, at an offset that goes round, so that every
     # block of the launch and every lane of a warp is among them, the last
-    # column too.  phase_msm holds the sum of all 2^16 columns against the
+    # point too.  phase_msm holds the sum of all 2^16 points against the
     # host oracle; the reduction is compared whole here.
     G, host, gen = groups()["g2"]
+    GC = M.complete_ops(G)
     lx, ly, linf, lsc, _ = oracle_inputs(G, host, gen, device, rng)
     linf[::64] = True
-    lout = M.ladder(lx, ly, linf, lsc, G)
+    lout = M.ladder(lx, ly, linf, lsc, GC)
     step = N_MSM // N_SLICE
     cols = torch.arange(N_SLICE, device=device)
     cols = cols * step + cols % step
     assert int(cols[0]) == 0 and int(cols[-1]) == N_MSM - 1
     assert bool(linf[cols].any()), "no infinity point among the columns"
     part = tuple(t[..., cols].contiguous() for t in (lx, ly, linf, lsc))
-    want, plain_ms = wall_ms(lambda: M.ladder_plain(*part, G))
-    assert torch.equal(lout[:, cols], want), "ladder g2 2^16 != plain"
-    ms = cuda_ms(lambda: M.ladder(lx, ly, linf, lsc, G), 3)
+    want, plain_ms = wall_ms(lambda: M.ladder_plain(*part, GC))
+    assert torch.equal(lout[..., cols], want), "ladder g2 2^16 != plain"
+    ms = cuda_ms(lambda: M.ladder(lx, ly, linf, lsc, GC), 3)
     b = msm_bounds(*kernel_work("ladder", "g2", (lx, ly, linf, lsc)), rates)
     assert ms >= b["bound_ms"], ("ladder g2 2^16 beats its bound", ms, b)
-    log(f"[kernels g2] ladder n={N_MSM}: {N_SLICE} columns, one in every "
-        f"{step} from 0 to {N_MSM - 1}, bit-exact (tolerance 0; all columns "
+    log(f"[kernels g2] ladder n={N_MSM}: {N_SLICE} points, one in every "
+        f"{step} from 0 to {N_MSM - 1}, bit-exact (tolerance 0; all points "
         f"summed against the host oracle in [route g2]), kernel {ms:.3f} ms "
         f"(bound {b['bound_ms']:.3f} ms by {b['bound_by']}, "
         f"{b['bound_ms_at_mad_rate']:.3f} ms at the measured mad.wide.u32 "
-        f"rate), plain on {N_SLICE} columns {plain_ms:.1f} ms")
-    compare("g2", f"reduce n={N_MSM}", (lout, G), M.reduce, M.reduce_plain,
+        f"rate), plain on {N_SLICE} points {plain_ms:.1f} ms, "
+        f"{warps_per_sm('ladder', (lx,)):.1f} warps an SM")
+    compare("g2", f"reduce n={N_MSM}", (lout, GC), M.reduce, M.reduce_plain,
             rates, work="reduce")
     # the G1 leaf at a PLONK commitment's shape: 2^16 + 3 points, C = 129
     G, host, gen = groups()["g1"]
@@ -484,7 +624,8 @@ def phase_kernels(device, rates):
 def compare(kind, name, args, kern, plain, rates, work=None):
     """One kernel against its plain version on the same tensors: asserts
     equal limbs and that the kernel does not beat its bound, and returns
-    the error, both times and the bounds."""
+    the error, both times, the bounds and the warps a launch gives each
+    SM (and the Horner fold's critical path)."""
     import torch
     out_k = kern(*args)
     sync()
@@ -492,16 +633,26 @@ def compare(kind, name, args, kern, plain, rates, work=None):
     err = int((out_k - out_p).abs().max())
     assert torch.equal(out_k, out_p), f"{name} {kind}: kernel != plain"
     ms = cuda_ms(lambda: kern(*args), 3)
-    products, nbytes = kernel_work(work or name, kind, args)
+    work = work or name
+    products, nbytes = kernel_work(work, kind, args)
     b = msm_bounds(products, nbytes, rates)
     assert ms >= b["bound_ms"], (f"{name} {kind} beats its bound", ms, b)
+    b["warps_per_sm"] = warps_per_sm(work, args)
+    extra = ""
+    if work == "horner_fold":
+        chain, b["critical_path_ms"] = fold_critical_path(
+            kind, args[0], args[1], rates[2])
+        extra = (f"; critical path {chain} dependent products x "
+                 f"{rates[2] * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
+                 f"({share(b['critical_path_ms'] / ms)} of it reached)")
     log(f"[kernels {kind}] {name}: bit-exact (tolerance 0), "
         f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{b['bound_ms']:.4g} ms by {b['bound_by']} ({products} field "
         f"products, {nbytes} bytes; {share(b['bound_ms'] / ms)} of the bound "
         f"reached; {b['bound_ms_at_mad_rate']:.4g} ms, "
         f"{share(b['bound_ms_at_mad_rate'] / ms)}, at the measured "
-        f"mad.wide.u32 rate), shape {tuple(out_k.shape)}")
+        f"mad.wide.u32 rate), {b['warps_per_sm']:.3g} warps an SM{extra}, "
+        f"shape {tuple(out_k.shape)}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, **b}
 
@@ -755,19 +906,24 @@ def phase_plonk(device, trace=False):
     return launches
 
 
+ADD_TYPE = re.compile(r"^(IADD3|IADD|IMAD\.X|IMAD\.IADD|IADD32I|LEA)")
+MUL_TYPE = re.compile(r"^IMAD(\.WIDE|\.HI|\.U32|$)")
+
+
 def sass_report(out_dir=None):
     """Disassemble both libraries with cuobjdump, count the multiply and
     add instructions of each function, and keep the microbenchmark's
-    listing in ``out_dir`` when one is given."""
+    listing in ``out_dir`` when one is given.  The montmul chain's loop
+    body (the instructions between a backward branch and its label) is
+    counted apart: its products are its chains x its unroll factor, and
+    its add-type instructions over its products are the product's."""
     import shutil
     from gnark_tpu_torch.ops import _cuda
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[sass] cuobjdump not found")
         return
-    pat = re.compile(r"\b(IMAD\.WIDE\.U32|IMAD\.HI\.U32|IMAD\.WIDE|IMAD\.X|"
-                     r"IMAD\.MOV\.U32|IMAD\.SHL\.U32|IMAD\.IADD|IMAD|IADD3\.X|"
-                     r"IADD3|LOP3\.LUT|FFMA)\b")
+    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)")
     for name, info in _cuda.build_info.items():
         text = subprocess.run([tool, "-sass", info["path"]],
                               capture_output=True, text=True,
@@ -776,17 +932,55 @@ def sass_report(out_dir=None):
             os.makedirs(out_dir, exist_ok=True)     # to 100 MB
             with open(os.path.join(out_dir, f"sass_{name}.txt"), "w") as f:
                 f.write(text)
-        fn, counts = None, {}
+        fn, funcs = None, {}
         for line in text.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                counts[fn] = {}
-            elif fn and (m := pat.search(line)):
-                counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
-        for fn, c in counts.items():
+                funcs[fn] = []
+            elif fn is not None:
+                funcs[fn].append(line)
+        for fn, lines in funcs.items():
+            counts = {}
+            for line in lines:
+                m = op_re.search(line)
+                if m and (ADD_TYPE.match(m.group(1))
+                          or MUL_TYPE.match(m.group(1))
+                          or m.group(1).startswith(("LOP3", "FFMA"))):
+                    counts[m.group(1)] = counts.get(m.group(1), 0) + 1
             log(f"[sass {name}] {fn}: " + ", ".join(
-                f"{k} {v}" for k, v in sorted(c.items())))
+                f"{k} {v}" for k, v in sorted(counts.items())))
+            if "chain_montmul" in fn:
+                montmul_loop(lines, op_re)
+
+
+def montmul_loop(lines, op_re):
+    """Count the montmul chain's loop body: the widest region between a
+    backward branch and its target address."""
+    addr = re.compile(r"/\*([0-9a-f]{4,})\*/")
+    at, best = [], None
+    for line in lines:
+        m = addr.search(line)
+        at.append(int(m.group(1), 16) if m else None)
+        b = re.search(r"BRA\s+(0x[0-9a-f]+)", line)
+        if m and b and int(b.group(1), 16) < at[-1]:
+            span = (int(b.group(1), 16), at[-1])
+            if best is None or span[1] - span[0] > best[1] - best[0]:
+                best = span
+    if best is None:
+        log("[sass] montmul: no loop found")
+        return
+    ops = [m.group(1) for line, a in zip(lines, at)
+           if a is not None and best[0] <= a <= best[1]
+           and (m := op_re.search(line))]
+    adds = sum(1 for o in ops if ADD_TYPE.match(o))
+    muls = {o: ops.count(o) for o in set(ops) if MUL_TYPE.match(o)}
+    # 32-bit halves: IMAD.WIDE gives both, IMAD the low, IMAD.HI the high
+    n_mul = sum(v * (2 if ".WIDE" in o else 1) for o, v in muls.items())
+    products = max(1, round(n_mul / HALVES_PER_PRODUCT))
+    log(f"[sass] montmul loop body: {len(ops)} instructions, multiplies "
+        f"{muls} ({n_mul} 32-bit halves), so {products} products; add-type "
+        f"{adds}, {adds / products:.1f} a product")
 
 
 def main():
@@ -817,10 +1011,11 @@ def main():
             sass_report(a.partition("=")[2] or None)
 
     t0 = time.perf_counter()
-    micro, rates, peak = phase_microbench(device)
+    micro, rates, peak, lat_ms = phase_microbench(device)
     log(f"[phase] microbenchmark {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kern = phase_kernels(device, (peak, rates["mad_wide_u32"]["ops_per_s"]))
+    kern = phase_kernels(device, (peak, rates["mad_wide_u32"]["ops_per_s"],
+                                  lat_ms))
     log(f"[phase] kernels vs plain {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_msm(device)

@@ -16,8 +16,19 @@
 // template parameters (a traits struct), so BLS12-381's 12-limb fp is a
 // new traits struct, not a rewrite.
 //
+// On the device (__CUDA_ARCH__, N = 8) the product, add, sub and the
+// conditional subtraction are PTX carry chains: mad.lo.cc / madc.hi.cc /
+// addc for a CIOS row, add.cc / sub.cc for the rest.  The portable C++
+// form carries through 64-bit sums, which ptxas issues as about 365 add
+// instructions beside a product's 136 multiplies.  The carry flag does not
+// survive from one asm statement to the next (the compiler may put any
+// instruction between them), so every chain starts and ends inside one
+// asm statement: each CIOS row's multiply half and reduction half is one.
+// Both forms compute the same integers, so they give the same limbs.
+//
 // The header also compiles as plain C++ (no __CUDACC__), so the
-// arithmetic can be exercised on a host without a GPU.
+// arithmetic can be exercised on a host without a GPU; the host pass of
+// nvcc and g++ take the portable form.
 
 #pragma once
 
@@ -82,10 +93,131 @@ GT_HD bool is_zero(const Fp<P>& a) {
   return acc == 0;
 }
 
+
+#if defined(__CUDA_ARCH__)
+#define GT_PTX 1
+// r += b over 8 limbs; returns the carry out (0 or 1).  In place ("+r"),
+// so that no output can share a register with an input read later.
+__device__ __forceinline__ uint32_t add8(uint32_t* r, const uint32_t* b) {
+  uint32_t c;
+  asm("add.cc.u32  %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32    %8, 0, 0;"
+      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]),
+        "+r"(r[5]), "+r"(r[6]), "+r"(r[7]), "=r"(c)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
+  return c;
+}
+
+// r -= b over 8 limbs; returns 0xffffffff on a borrow out, else 0
+__device__ __forceinline__ uint32_t sub8(uint32_t* r, const uint32_t* b) {
+  uint32_t m;
+  asm("sub.cc.u32  %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, %10;\n\t"
+      "subc.cc.u32 %2, %2, %11;\n\t"
+      "subc.cc.u32 %3, %3, %12;\n\t"
+      "subc.cc.u32 %4, %4, %13;\n\t"
+      "subc.cc.u32 %5, %5, %14;\n\t"
+      "subc.cc.u32 %6, %6, %15;\n\t"
+      "subc.cc.u32 %7, %7, %16;\n\t"
+      "subc.u32    %8, 0, 0;"
+      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]),
+        "+r"(r[5]), "+r"(r[6]), "+r"(r[7]), "=r"(m)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
+  return m;
+}
+
+// One CIOS row, multiply half: t[0..9] += a * b (t[9] is 0 on entry).
+// Chain 1 adds the low halves of a_j b into t_j, chain 2 the high halves
+// into t_(j+1).
+__device__ __forceinline__ void cios_mul_row(uint32_t* t, const uint32_t* a,
+                                             uint32_t b) {
+  asm("mad.lo.cc.u32  %0, %10, %18, %0;\n\t"
+      "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+      "addc.cc.u32    %8, %8, 0;\n\t"
+      "addc.u32       %9, %9, 0;\n\t"
+      "mad.hi.cc.u32  %1, %10, %18, %1;\n\t"
+      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+      "addc.u32       %9, %9, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b));
+}
+
+// One CIOS row, reduction half: m = t_0 * inv, t += m * p, which clears
+// t_0; the caller shifts t down one limb.
+__device__ __forceinline__ void cios_red_row(uint32_t* t, const uint32_t* p,
+                                             uint32_t inv) {
+  asm("{\n\t.reg .u32 m;\n\t"
+      "mul.lo.u32     m, %0, %18;\n\t"
+      "mad.lo.cc.u32  %0, m, %10, %0;\n\t"
+      "madc.lo.cc.u32 %1, m, %11, %1;\n\t"
+      "madc.lo.cc.u32 %2, m, %12, %2;\n\t"
+      "madc.lo.cc.u32 %3, m, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, m, %14, %4;\n\t"
+      "madc.lo.cc.u32 %5, m, %15, %5;\n\t"
+      "madc.lo.cc.u32 %6, m, %16, %6;\n\t"
+      "madc.lo.cc.u32 %7, m, %17, %7;\n\t"
+      "addc.cc.u32    %8, %8, 0;\n\t"
+      "addc.u32       %9, %9, 0;\n\t"
+      "mad.hi.cc.u32  %1, m, %10, %1;\n\t"
+      "madc.hi.cc.u32 %2, m, %11, %2;\n\t"
+      "madc.hi.cc.u32 %3, m, %12, %3;\n\t"
+      "madc.hi.cc.u32 %4, m, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, m, %14, %5;\n\t"
+      "madc.hi.cc.u32 %6, m, %15, %6;\n\t"
+      "madc.hi.cc.u32 %7, m, %16, %7;\n\t"
+      "madc.hi.cc.u32 %8, m, %17, %8;\n\t"
+      "addc.u32       %9, %9, 0;\n\t}"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+      : "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]), "r"(p[5]),
+        "r"(p[6]), "r"(p[7]), "r"(inv));
+}
+#endif
+
+template <class P>
+GT_HD void p_limbs(uint32_t* q) {
+#pragma unroll
+  for (int i = 0; i < P::N; ++i) q[i] = P::p(i);
+}
+
 // r - p if (hi or r >= p), else r; r < 2p
 template <class P>
 GT_HD Fp<P> cond_sub_p(const Fp<P>& r, uint32_t hi) {
   Fp<P> d;
+#ifdef GT_PTX
+  if constexpr (P::N == 8) {
+    uint32_t q[8];
+    p_limbs<P>(q);
+    d = r;
+    const uint32_t keep = sub8(d.v, q) & ~(0u - (hi != 0));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d.v[i] = keep ? r.v[i] : d.v[i];
+    return d;
+  }
+#endif
   uint64_t borrow = 0;
 #pragma unroll
   for (int i = 0; i < P::N; ++i) {
@@ -99,6 +231,12 @@ GT_HD Fp<P> cond_sub_p(const Fp<P>& r, uint32_t hi) {
 template <class P>
 GT_HD Fp<P> add(const Fp<P>& a, const Fp<P>& b) {
   Fp<P> s;
+#ifdef GT_PTX
+  if constexpr (P::N == 8) {
+    s = a;
+    return cond_sub_p(s, add8(s.v, b.v));
+  }
+#endif
   uint64_t c = 0;
 #pragma unroll
   for (int i = 0; i < P::N; ++i) {
@@ -112,6 +250,18 @@ GT_HD Fp<P> add(const Fp<P>& a, const Fp<P>& b) {
 template <class P>
 GT_HD Fp<P> sub(const Fp<P>& a, const Fp<P>& b) {
   Fp<P> d;
+#ifdef GT_PTX
+  if constexpr (P::N == 8) {
+    // add p back under the borrow's mask: no branch
+    d = a;
+    const uint32_t m = sub8(d.v, b.v);
+    uint32_t q[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) q[i] = P::p(i) & m;
+    add8(d.v, q);
+    return d;
+  }
+#endif
   uint64_t borrow = 0;
 #pragma unroll
   for (int i = 0; i < P::N; ++i) {
@@ -149,6 +299,24 @@ GT_HD Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
   uint32_t t[N + 2];
 #pragma unroll
   for (int i = 0; i < N + 2; ++i) t[i] = 0;
+#ifdef GT_PTX
+  if constexpr (N == 8) {
+    uint32_t q[8];
+    p_limbs<P>(q);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      cios_mul_row(t, a.v, b.v[i]);
+      cios_red_row(t, q, P::INV);
+#pragma unroll
+      for (int j = 0; j < N + 1; ++j) t[j] = t[j + 1];
+      t[N + 1] = 0;
+    }
+    Fp<P> r;
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.v[i] = t[i];
+    return cond_sub_p(r, t[N]);  // t < 2p
+  }
+#endif
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     uint64_t c = 0;

@@ -22,7 +22,9 @@
 //                                             (mad.lo.u32 and mad.hi.u32)
 //   montmul_bn254  a = a * y * R^-1 mod p     (field.cuh's mul, 136 32-bit
 //                  multiplies; each element is eight 32-bit limbs; the
-//                  caller picks the steps per chain)
+//                  caller picks the steps per chain, and four chains or
+//                  one: one chain on one element times the latency of a
+//                  dependent product)
 //
 // What bounds it on the H100: the issue rate of the one instruction, by
 // design: 24 bytes of traffic per element against 512 operations.  The
@@ -150,7 +152,8 @@ __global__ void __launch_bounds__(256)
 
 // x, y, out: [16, n] int64 planes of 16-bit limbs, Montgomery form, < p.
 // Chain k starts at 2^k x (field doublings); the output is the field sum
-// of the four accumulators.  ``steps`` products per chain.
+// of the CHAINS accumulators.  ``steps`` products per chain.
+template <int CHAINS>
 __global__ void __launch_bounds__(128)
     chain_montmul_kernel(const int64_t* x, const int64_t* y, int64_t* out,
                          long n, int steps) {
@@ -158,15 +161,17 @@ __global__ void __launch_bounds__(128)
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const F y0 = load<BN254Fp>(y + i, n);
-  F a[4];
+  F a[CHAINS];
   a[0] = load<BN254Fp>(x + i, n);
 #pragma unroll
-  for (int k = 1; k < 4; ++k) a[k] = dbl(a[k - 1]);
+  for (int k = 1; k < CHAINS; ++k) a[k] = dbl(a[k - 1]);
   for (int s = 0; s < steps; ++s) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) a[k] = mul(a[k], y0);
+    for (int k = 0; k < CHAINS; ++k) a[k] = mul(a[k], y0);
   }
-  store(add(add(add(a[0], a[1]), a[2]), a[3]), out + i, n);
+#pragma unroll
+  for (int k = 1; k < CHAINS; ++k) a[0] = add(a[0], a[k]);
+  store(a[0], out + i, n);
 }
 
 // ---- C launchers: launch on the given stream, return cudaGetLastError() --
@@ -214,10 +219,19 @@ extern "C" int gnark_microbench_fma_f32(const void* x, const void* y,
 
 extern "C" int gnark_microbench_montmul(const void* x, const void* y,
                                         void* out, long n, int steps,
-                                        void* stream) {
+                                        int chains, void* stream) {
   const int block = 128;
-  chain_montmul_kernel<<<(unsigned)((n + block - 1) / block), block, 0,
-                         (cudaStream_t)stream>>>(
-      (const int64_t*)x, (const int64_t*)y, (int64_t*)out, n, steps);
+  const unsigned grid = (unsigned)((n + block - 1) / block);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* xp = (const int64_t*)x;
+  const int64_t* yp = (const int64_t*)y;
+  if (chains == 4)
+    chain_montmul_kernel<4><<<grid, block, 0, st>>>(xp, yp, (int64_t*)out, n,
+                                                    steps);
+  else if (chains == 1)
+    chain_montmul_kernel<1><<<grid, block, 0, st>>>(xp, yp, (int64_t*)out, n,
+                                                    steps);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

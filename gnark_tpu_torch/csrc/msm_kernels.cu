@@ -21,8 +21,8 @@
 // What bounds them on the H100: 32-bit integer multiplies (mad.lo/mad.hi),
 // about 2N^2 per field product, N = 8 limbs; memory traffic is small next
 // to that (a mixed add reads 2 and writes 3 elements, and costs 11
-// products).  The design is the simple one: a point lives in one thread's
-// registers and the limb loops unroll at compile time.
+// products).  A point's field elements live in registers and the limb
+// loops unroll at compile time.
 //   * leaf_prefix: one thread per (window, lane) walks its C sorted points;
 //     neighbouring lanes read neighbouring addresses.  At 2^16 that is
 //     24 x 512 = 12,288 chains, which under-fills 132 SMs (about 3 warps
@@ -31,37 +31,63 @@
 //     lane totals in ping-pong buffers in device memory.
 //   * weighted_sum: one block per window, the halving fold of the plain
 //     version, each level spread over the block's threads.
-//   * horner_fold: one thread.
-//   * ladder: one thread per point runs all 256 double-and-add steps on
-//     its own accumulator, with the add skipped where the scalar bit is 0
-//     (the plain version's masked select keeps the accumulator there too)
-//     and the doubling skipped while the accumulator is the identity.
-//     The MSM sends fewer than 8192 points here, so few threads run; one
-//     warp per block spreads them over the most SMs, but it under-fills
-//     the card as the leaf does.
-//   * reduce: one block; each of its 256 lanes sums a strided share of
-//     the points, then a tree over the lanes.
+//   * horner_fold: a chain of point operations, so bound by the latency of
+//     its longest chain of dependent products, not by their number.  One
+//     block of one warp; each point operation runs as levels of
+//     independent field products (RCB15 doubling: 4 + 4 products, with a
+//     level of its own for G2's b3 product; addition: 6 + 6, and 2 for
+//     G2's b3), spread over the lanes through shared memory with a barrier
+//     after each level; an fp2 product is its three Karatsuba base
+//     products on three lanes.  Lane 0 holds the accumulator and does the
+//     additions between levels.
+//   * ladder: the scalar is cut into K = 16 chunks of B = 16 Ls / K bits,
+//     one thread per (point, chunk), so n K threads fill the card (65,536
+//     threads at the small proof's 4096 points, 15.5 warps an SM).
+//     Each thread runs a uniform schedule over its chunk: w-bit windows
+//     (w = 4) from the top, w complete doublings and one complete addition
+//     of a table entry each, with no branch on the scalar; the point's table
+//     0..2^w - 1 of multiples (T[2k] = 2 T[k], T[2k+1] = T[2k] + T[1]) is
+//     built once per block in shared memory, level by level, by the
+//     threads of the block.  Output column (chunk j, point i) is d_ij P_i.
+//   * reduce: one block per chunk sums that chunk's n points: each of its
+//     256 lanes a strided share, then a tree over the lanes.  The fold of
+//     the K chunk sums, sum_j 2^(jB) T_j, is horner_fold with c = B.
+// The complete formulas (ec_complete.cuh) take the identity, P + P and
+// P + (-P) without a branch, so every lane of a warp runs the same code.
 // None uses wgmma, TMA or clusters.
 //
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
 // out), so a host harness that defines blockIdx, threadIdx, blockDim,
-// __global__, __launch_bounds__ and __syncthreads can run a grid one
-// thread at a time against the plain versions.
+// __global__, __shared__, __launch_bounds__ and __syncthreads can run a
+// grid one block at a time with blockDim.x = 1: every loop over a block's
+// work steps by blockDim.x, so one thread does it all, in order.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
 
-#include "ec.cuh"
+#include "ec_complete.cuh"
+
+#ifdef __CUDACC__
+#define GT_BLOCK __device__ __noinline__
+#else
+#define GT_BLOCK inline
+#endif
 
 struct G1 {
   using F = Fp<BN254Fp>;
+  static constexpr bool B3_PRODUCT = false;
+  // resident ladder blocks an SM: caps G1's registers at 128 (ptxas takes
+  // 164 otherwise, and 12 warps an SM stay resident, not 16)
+  static constexpr int LADDER_BLOCKS = 4;
   // b = 3, b3 = 9: 8a + a
   GT_HD static F mul_b3(const F& a) { return add(dbl(dbl(dbl(a))), a); }
 };
 
 struct G2 {
   using F = Fp2<BN254Fp>;
+  static constexpr bool B3_PRODUCT = true;  // b3 * a is a full fp2 product
+  static constexpr int LADDER_BLOCKS = 2;
   // b' = 3 / (9 + u); b3 = 3b' in Montgomery form
   GT_HD static F b3() {
     constexpr uint32_t c0[8] = {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu,
@@ -182,72 +208,289 @@ __global__ void __launch_bounds__(256)
     store_point<Curve>(have_w ? padd<Curve>(B[0], *W) : B[0], out + w, nw);
 }
 
-// S: [3*L16, nw]; out: [3*L16, 1] = sum_w 2^(c w) S_w, most significant
-// window first: c doublings, then one add per window.
-template <class Curve>
-__global__ void horner_fold_kernel(const int64_t* S, int64_t* out, int nw,
-                                   int c) {
-  using P = Point<typename Curve::F>;
-  P acc = load_point<Curve>(S + nw - 1, nw);
-  for (int w = nw - 2; w >= 0; --w) {
-    for (int k = 0; k < c; ++k) acc = pdbl<Curve>(acc);
-    acc = padd<Curve>(acc, load_point<Curve>(S + w, nw));
+// ---- the Horner fold, as levels of independent products ------------------
+
+constexpr int FOLD_THREADS = 32;
+
+// An F-product as base-field products: one for fp, three for fp2
+// (towers.py::Fp2Ops.mul's Karatsuba, as field.cuh's fp2 mul).  put()
+// writes the operands of product k, get() combines its results.
+template <class F>
+struct Prod;
+
+template <class P>
+struct Prod<Fp<P>> {
+  using Base = Fp<P>;
+  static constexpr int S = 1;
+  GT_HD static void put(Base* A, Base* B, int k, const Base& a, const Base& b) {
+    A[k] = a;
+    B[k] = b;
   }
-  store_point<Curve>(acc, out, 1);
+  GT_HD static Base get(const Base* R, int k) { return R[k]; }
+};
+
+template <class P>
+struct Prod<Fp2<P>> {
+  using Base = Fp<P>;
+  static constexpr int S = 3;
+  GT_HD static void put(Base* A, Base* B, int k, const Fp2<P>& a,
+                        const Fp2<P>& b) {
+    A[3 * k] = a.c0;
+    B[3 * k] = b.c0;
+    A[3 * k + 1] = a.c1;
+    B[3 * k + 1] = b.c1;
+    A[3 * k + 2] = add(a.c0, a.c1);
+    B[3 * k + 2] = add(b.c0, b.c1);
+  }
+  GT_HD static Fp2<P> get(const Base* R, int k) {
+    const Base v0 = R[3 * k], v1 = R[3 * k + 1], s = R[3 * k + 2];
+    return {add(v0, mul_beta(v1)), sub(sub(s, v0), v1)};
+  }
+};
+
+// The operands and results of one level: at most 6 F-products.
+template <class F>
+struct FoldShared {
+  using PR = Prod<F>;
+  typename PR::Base A[6 * PR::S], B[6 * PR::S], R[6 * PR::S];
+};
+
+// R[k] = A[k] * B[k] for k < m over the block's lanes; the barrier before
+// publishes lane 0's operands, the one after its results.
+template <class Base>
+GT_BLOCK void fold_products(Base* A, Base* B, Base* R, int m, int tid,
+                            int nt) {
+  __syncthreads();
+  for (int k = tid; k < m; k += nt) R[k] = mul(A[k], B[k]);
+  __syncthreads();
+}
+
+// v[0..cnt) *= b3: additions on lane 0 for G1, one level of products for G2
+template <class Curve>
+GT_BLOCK void fold_b3(typename Curve::F* v, int cnt,
+                      FoldShared<typename Curve::F>& s, int tid, int nt) {
+  using PR = Prod<typename Curve::F>;
+  if constexpr (Curve::B3_PRODUCT) {
+    if (tid == 0)
+      for (int k = 0; k < cnt; ++k) PR::put(s.A, s.B, k, v[k], Curve::b3());
+    fold_products(s.A, s.B, s.R, cnt * PR::S, tid, nt);
+    if (tid == 0)
+      for (int k = 0; k < cnt; ++k) v[k] = PR::get(s.R, k);
+  } else if (tid == 0) {
+    for (int k = 0; k < cnt; ++k) v[k] = Curve::mul_b3(v[k]);
+  }
+}
+
+// P = 2P, ec_complete.cuh's pdbl (alg 9) in levels; P is lane 0's
+template <class Curve>
+GT_BLOCK void fold_dbl(Point<typename Curve::F>& P,
+                       FoldShared<typename Curve::F>& s, int tid, int nt) {
+  using F = typename Curve::F;
+  using PR = Prod<F>;
+  const bool lead = tid == 0;
+  if (lead) {
+    PR::put(s.A, s.B, 0, P.Y, P.Y);
+    PR::put(s.A, s.B, 1, P.Y, P.Z);
+    PR::put(s.A, s.B, 2, P.Z, P.Z);
+    PR::put(s.A, s.B, 3, P.X, P.Y);
+  }
+  fold_products(s.A, s.B, s.R, 4 * PR::S, tid, nt);
+  F t[4];  // Y^2, YZ, b3 Z^2, XY
+  if (lead)
+    for (int k = 0; k < 4; ++k) t[k] = PR::get(s.R, k);
+  fold_b3<Curve>(t + 2, 1, s, tid, nt);
+  if (lead) {
+    const F Z3 = dbl(dbl(dbl(t[0])));  // 8 Y^2
+    const F Y3 = add(t[0], t[2]);
+    const F t0 = sub(t[0], add(dbl(t[2]), t[2]));  // Y^2 - 3 b3 Z^2
+    PR::put(s.A, s.B, 0, t[2], Z3);
+    PR::put(s.A, s.B, 1, t[1], Z3);
+    PR::put(s.A, s.B, 2, t0, Y3);
+    PR::put(s.A, s.B, 3, t0, t[3]);
+  }
+  fold_products(s.A, s.B, s.R, 4 * PR::S, tid, nt);
+  if (lead)
+    P = {dbl(PR::get(s.R, 3)), add(PR::get(s.R, 2), PR::get(s.R, 0)),
+         PR::get(s.R, 1)};
+}
+
+// P = P + Q, ec_complete.cuh's padd (alg 7) in levels; P, Q are lane 0's
+template <class Curve>
+GT_BLOCK void fold_add(Point<typename Curve::F>& P,
+                       const Point<typename Curve::F>& Q,
+                       FoldShared<typename Curve::F>& s, int tid, int nt) {
+  using F = typename Curve::F;
+  using PR = Prod<F>;
+  const bool lead = tid == 0;
+  if (lead) {
+    PR::put(s.A, s.B, 0, P.X, Q.X);
+    PR::put(s.A, s.B, 1, P.Y, Q.Y);
+    PR::put(s.A, s.B, 2, P.Z, Q.Z);
+    PR::put(s.A, s.B, 3, add(P.X, P.Y), add(Q.X, Q.Y));
+    PR::put(s.A, s.B, 4, add(P.Y, P.Z), add(Q.Y, Q.Z));
+    PR::put(s.A, s.B, 5, add(P.X, P.Z), add(Q.X, Q.Z));
+  }
+  fold_products(s.A, s.B, s.R, 6 * PR::S, tid, nt);
+  F t0, t1, t3, t4, v[2];  // v: t2, Y3, the two b3 operands
+  if (lead) {
+    t0 = PR::get(s.R, 0);
+    t1 = PR::get(s.R, 1);
+    v[0] = PR::get(s.R, 2);
+    t3 = sub(PR::get(s.R, 3), add(t0, t1));
+    t4 = sub(PR::get(s.R, 4), add(t1, v[0]));
+    v[1] = sub(PR::get(s.R, 5), add(t0, v[0]));
+    t0 = add(dbl(t0), t0);  // 3 X1X2
+  }
+  fold_b3<Curve>(v, 2, s, tid, nt);
+  if (lead) {
+    const F Z3 = add(t1, v[0]);
+    t1 = sub(t1, v[0]);
+    PR::put(s.A, s.B, 0, t3, t1);
+    PR::put(s.A, s.B, 1, t4, v[1]);
+    PR::put(s.A, s.B, 2, t1, Z3);
+    PR::put(s.A, s.B, 3, v[1], t0);
+    PR::put(s.A, s.B, 4, Z3, t4);
+    PR::put(s.A, s.B, 5, t0, t3);
+  }
+  fold_products(s.A, s.B, s.R, 6 * PR::S, tid, nt);
+  if (lead)
+    P = {sub(PR::get(s.R, 0), PR::get(s.R, 1)),
+         add(PR::get(s.R, 2), PR::get(s.R, 3)),
+         add(PR::get(s.R, 4), PR::get(s.R, 5))};
+}
+
+// S: [3*L16, nw]; out: [3*L16, 1] = sum_w 2^(c w) S_w, most significant
+// window first: c doublings, then one add per window.  The fold starts at
+// the highest window that is not the identity (Z != 0), or at window 0
+// when all are: the identities above it would only be doubled.  One block.
+template <class Curve>
+__global__ void __launch_bounds__(FOLD_THREADS)
+    horner_fold_kernel(const int64_t* S, int64_t* out, int nw, int c) {
+  using P = Point<typename Curve::F>;
+  __shared__ FoldShared<typename Curve::F> sh;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int top = nw - 1;  // every lane finds it: no shared word, no barrier
+  while (top > 0 && is_zero(load_point<Curve>(S + top, nw).Z)) --top;
+  P acc, q;
+  if (tid == 0) acc = load_point<Curve>(S + top, nw);
+  for (int w = top - 1; w >= 0; --w) {
+    for (int k = 0; k < c; ++k) fold_dbl<Curve>(acc, sh, tid, nt);
+    if (tid == 0) q = load_point<Curve>(S + w, nw);
+    fold_add<Curve>(acc, q, sh, tid, nt);
+  }
+  if (tid == 0) store_point<Curve>(acc, out, 1);
+}
+
+// ---- the chunked, windowed ladder ---------------------------------------------
+
+constexpr int LADDER_POINTS = 8;   // points a block
+constexpr int LADDER_CHUNKS = 16;  // K: chunks a scalar, a thread each
+constexpr int LADDER_WINDOW = 4;   // w: bits a window
+constexpr int LADDER_TABLE = 1 << LADDER_WINDOW;
+constexpr int LADDER_THREADS = LADDER_POINTS * LADDER_CHUNKS;
+
+// Levels of the table recipe T[2k] = 2 T[k], T[2k+1] = T[2k] + T[1]:
+// entry e is ready after table_depth(e) of them.
+GT_HD int table_depth(int e) {
+  int d = 0;
+  for (; e > 1; ++d) e = (e & 1) ? e - 1 : e >> 1;
+  return d;
+}
+
+// bits [lo, lo + nb) of scalar i, from [Ls, n] 16-bit limb planes
+GT_HD uint32_t scalar_bits(const int64_t* sc, long n, long i, int lo, int nb) {
+  uint32_t d = 0;
+  for (int b = lo + nb - 1; b >= lo; --b)
+    d = (d << 1) | (((uint32_t)sc[(long)(b >> 4) * n + i] >> (b & 15)) & 1u);
+  return d;
 }
 
 // xs, ys: [L16, n] affine Montgomery coordinates; inf: [n] bytes, nonzero
 // for infinity; sc: [Ls, n] regular-form 16-bit scalar limbs.  out:
-// [3*L16, n], column i = s_i * P_i in Jacobian coordinates, by MSB-first
-// double-and-add over all 16 * Ls bits.  The identity (0 : 1 : 0) is not
-// doubled, as in the plain version, which leaves out the steps above its
-// batch's highest set bit: the accumulator is the identity there.
+// [3*L16, K, n] projective; column (j, i) = d_ij * P_i, d_ij = bits
+// [jB, (j+1)B) of s_i, B = 16 Ls / K.  A chunk of w-bit windows, the top
+// one B - (nwin - 1) w bits wide: acc = T[top digit], then per window w
+// doublings and acc + T[digit], T[0] the identity (0 : 1 : 0).  Blocks of
+// LADDER_POINTS points x K chunks.
 template <class Curve>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(LADDER_THREADS, Curve::LADDER_BLOCKS)
     ladder_kernel(const int64_t* xs, const int64_t* ys, const uint8_t* inf,
                   const int64_t* sc, int64_t* out, int n, int Ls) {
   using F = typename Curve::F;
+  using P = Point<F>;
   using IO = FieldIO<F>;
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const F px = IO::load(xs + i, n);
-  const F py = IO::load(ys + i, n);
-  const bool pinf = inf[i] != 0;
-  Point<F> acc = identity<Curve>();
-  for (int k = Ls - 1; k >= 0; --k) {
-    const uint32_t limb = (uint32_t)sc[(long)k * n + i];
-    for (int b = 15; b >= 0; --b) {
-      if (!is_zero(acc.Z)) acc = jdbl<Curve>(acc);
-      if (((limb >> b) & 1u) && !pinf) acc = jadd_mixed<Curve>(acc, px, py);
-    }
+  constexpr int K = LADDER_CHUNKS, w = LADDER_WINDOW;
+  __shared__ P table[LADDER_POINTS][LADDER_TABLE];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long first = (long)blockIdx.x * LADDER_POINTS;
+  for (int k = tid; k < LADDER_POINTS; k += nt) {
+    const long i = first + k;
+    P p1 = identity<Curve>();
+    if (i < n && !inf[i]) p1 = {IO::load(xs + i, n), IO::load(ys + i, n), IO::one()};
+    table[k][0] = identity<Curve>();
+    table[k][1] = p1;
   }
-  store_point<Curve>(acc, out + i, n);
+  __syncthreads();
+  for (int lev = 1, top = table_depth(LADDER_TABLE - 1); lev <= top; ++lev) {
+    for (int t = tid; t < LADDER_POINTS * LADDER_TABLE; t += nt) {
+      const int e = t % LADDER_TABLE;
+      P* T = table[t / LADDER_TABLE];
+      if (e >= 2 && table_depth(e) == lev)
+        T[e] = (e & 1) ? padd<Curve>(T[e - 1], T[1]) : pdbl<Curve>(T[e >> 1]);
+    }
+    __syncthreads();
+  }
+  const int B = 16 * Ls / K;
+  const int nwin = (B + w - 1) / w;
+  const int top = (nwin - 1) * w;
+  // neighbouring threads take neighbouring points of one chunk
+  for (int t = tid; t < LADDER_POINTS * K; t += nt) {
+    const int k = t % LADDER_POINTS, j = t / LADDER_POINTS;
+    const long i = first + k;
+    if (i >= n) continue;
+    const P* T = table[k];
+    const int lo = j * B;
+    P acc = T[scalar_bits(sc, n, i, lo + top, B - top)];
+    for (int m = nwin - 2; m >= 0; --m) {
+      for (int d = 0; d < w; ++d) acc = pdbl<Curve>(acc);
+      acc = padd<Curve>(acc, T[scalar_bits(sc, n, i, lo + m * w, w)]);
+    }
+    store_point<Curve>(acc, out + (long)j * n + i, (long)K * n);
+  }
 }
 
 constexpr int REDUCE_LANES = 256;
 
-// pts: [3*L16, n] Jacobian points; out: [3*L16, 1], their sum.  Lane t
-// sums points t, t + 256, t + 512, ... in order; then lane t adds lane
-// t + s for s = 128, 64, ..., 1.  The loops run over lanes, not threads,
-// so any block size gives the same limbs.  scratch: 256 points.
+// pts: [3*L16, K, n] projective points; out: [3*L16, K], the sum of each
+// chunk's n points.  Block j, lane t sums points t, t + 256, ... of chunk
+// j in order, over n rounded up to a multiple of 256 with the identity
+// (0 : 1 : 0) as the padding; then lane t adds lane t + s for s = 128, 64,
+// ..., 1.  The loops run over lanes, not threads, so any block size gives
+// the same limbs.  scratch: K * 256 points.
 template <class Curve>
 __global__ void __launch_bounds__(REDUCE_LANES)
     reduce_kernel(const int64_t* pts, int64_t* out,
-                  Point<typename Curve::F>* scratch, int n) {
+                  Point<typename Curve::F>* scratch, int n, int K) {
   using P = Point<typename Curve::F>;
+  const int j = blockIdx.x;
+  const long stride = (long)K * n;
+  const int64_t* col = pts + (long)j * n;
+  P* s = scratch + (long)j * REDUCE_LANES;
+  const long n_pad = ((long)n + REDUCE_LANES - 1) / REDUCE_LANES * REDUCE_LANES;
   for (int t = threadIdx.x; t < REDUCE_LANES; t += blockDim.x) {
-    P acc = t < n ? load_point<Curve>(pts + t, n) : identity<Curve>();
-    for (long i = t + REDUCE_LANES; i < n; i += REDUCE_LANES)
-      acc = jadd<Curve>(acc, load_point<Curve>(pts + i, n));
-    scratch[t] = acc;
+    P acc = t < n ? load_point<Curve>(col + t, stride) : identity<Curve>();
+    for (long i = t + REDUCE_LANES; i < n_pad; i += REDUCE_LANES)
+      acc = padd<Curve>(acc, i < n ? load_point<Curve>(col + i, stride)
+                                   : identity<Curve>());
+    s[t] = acc;
   }
   __syncthreads();
-  for (int s = REDUCE_LANES / 2; s >= 1; s >>= 1) {
-    for (int t = threadIdx.x; t < s; t += blockDim.x)
-      scratch[t] = jadd<Curve>(scratch[t], scratch[t + s]);
+  for (int h = REDUCE_LANES / 2; h >= 1; h >>= 1) {
+    for (int t = threadIdx.x; t < h; t += blockDim.x)
+      s[t] = padd<Curve>(s[t], s[t + h]);
     __syncthreads();
   }
-  if (threadIdx.x == 0) store_point<Curve>(scratch[0], out, 1);
+  if (threadIdx.x == 0) store_point<Curve>(s[0], out + j, K);
 }
 
 // ---- C launchers: launch on the given stream, return cudaGetLastError() --
@@ -283,25 +526,25 @@ __global__ void __launch_bounds__(REDUCE_LANES)
   }                                                                           \
   extern "C" int gnark_msm_horner_fold_##NAME(const void* S, void* out,       \
                                               int nw, int c, void* stream) {  \
-    horner_fold_kernel<CURVE><<<1, 1, 0, (cudaStream_t)stream>>>(             \
+    horner_fold_kernel<CURVE><<<1, FOLD_THREADS, 0, (cudaStream_t)stream>>>(  \
         (const int64_t*)S, (int64_t*)out, nw, c);                             \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int gnark_msm_ladder_##NAME(                                    \
       const void* xs, const void* ys, const void* inf, const void* sc,        \
       void* out, int n, int Ls, void* stream) {                               \
-    const int block = 32;                                                     \
-    ladder_kernel<CURVE><<<(n + block - 1) / block, block, 0,                 \
-                           (cudaStream_t)stream>>>(                           \
+    ladder_kernel<CURVE><<<(n + LADDER_POINTS - 1) / LADDER_POINTS,           \
+                           LADDER_THREADS, 0, (cudaStream_t)stream>>>(        \
         (const int64_t*)xs, (const int64_t*)ys, (const uint8_t*)inf,          \
         (const int64_t*)sc, (int64_t*)out, n, Ls);                            \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int gnark_msm_reduce_##NAME(const void* pts, void* out,          \
-                                         void* scratch, int n,                \
+                                         void* scratch, int n, int K,         \
                                          void* stream) {                      \
-    reduce_kernel<CURVE><<<1, REDUCE_LANES, 0, (cudaStream_t)stream>>>(       \
-        (const int64_t*)pts, (int64_t*)out, (Point<CURVE::F>*)scratch, n);    \
+    reduce_kernel<CURVE><<<K, REDUCE_LANES, 0, (cudaStream_t)stream>>>(       \
+        (const int64_t*)pts, (int64_t*)out, (Point<CURVE::F>*)scratch, n,     \
+        K);                                                                   \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int gnark_msm_point_bytes_##NAME() {                             \

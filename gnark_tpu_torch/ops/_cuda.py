@@ -31,13 +31,15 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 # library -> the sources its hash covers; the last one is compiled
 _SOURCES = {
-    "msm": ("field.cuh", "ec_complete.cuh", "ec.cuh", "msm_kernels.cu"),
+    "msm": ("field.cuh", "ec_complete.cuh", "msm_kernels.cu"),
     "microbench": ("field.cuh", "microbench.cu"),
 }
 
 WINDOW_KERNELS = ("leaf_prefix", "lane_offsets", "weighted_sum", "horner_fold")
 KERNELS = WINDOW_KERNELS + ("ladder", "reduce")
 REDUCE_LANES = 256       # msm_kernels.cu's reduce_kernel
+LADDER_CHUNKS = 16       # and its ladder_kernel: chunks a scalar,
+LADDER_WINDOW = 4        # bits a window
 KINDS = ("g1", "g2")
 _L16 = {"g1": 16, "g2": 32}     # 16-bit limb planes of one coordinate
 # microbench.cu's enum Op, in order; then the two kernels of their own
@@ -120,7 +122,7 @@ def _bind_msm(lib):
                 ("weighted_sum", [vp, vp, vp, ci, ci, vp]),
                 ("horner_fold", [vp, vp, ci, ci, vp]),
                 ("ladder", [vp, vp, vp, vp, vp, ci, ci, vp]),
-                ("reduce", [vp, vp, vp, ci, vp]),
+                ("reduce", [vp, vp, vp, ci, ci, vp]),
                 ("point_bytes", [])):
             fn = getattr(lib, f"gnark_msm_{name}_{kind}")
             fn.argtypes = args
@@ -132,7 +134,7 @@ def _bind_microbench(lib):
     for name, args in (("steps", []),
                        ("u32", [ci, vp, vp, vp, cl, vp]),
                        ("fma_f32", [vp, vp, vp, cl, vp]),
-                       ("montmul", [vp, vp, vp, cl, ci, vp])):
+                       ("montmul", [vp, vp, vp, cl, ci, ci, vp])):
         fn = getattr(lib, f"gnark_microbench_{name}")
         fn.argtypes = args
         fn.restype = ci
@@ -227,6 +229,7 @@ def horner_fold(S, c, kind):
 
 
 def ladder(xs, ys, inf, sc, kind):
+    """[3L, K, n]: column (j, i) = chunk j of scalar i times point i."""
     L, n = xs.shape
     _check(xs, (_L16[kind], n), "xs")
     _check(ys, (_L16[kind], n), "ys")
@@ -236,19 +239,21 @@ def ladder(xs, ys, inf, sc, kind):
         raise ValueError(f"inf: want a contiguous bool CUDA tensor of shape "
                          f"({n},), got {inf.dtype} {tuple(inf.shape)} on "
                          f"{inf.device}")
-    out = torch.empty((3 * L, n), dtype=torch.int64, device=xs.device)
+    out = torch.empty((3 * L, LADDER_CHUNKS, n), dtype=torch.int64,
+                      device=xs.device)
     _launch("ladder", kind, xs.data_ptr(), ys.data_ptr(), inf.data_ptr(),
             sc.data_ptr(), out.data_ptr(), n, sc.shape[0])
     return out
 
 
 def reduce(pts, kind):
-    L3, n = pts.shape
-    _check(pts, (3 * _L16[kind], n), "points")
-    out = torch.empty((L3, 1), dtype=torch.int64, device=pts.device)
-    scratch = _scratch(REDUCE_LANES, kind, pts.device)
+    """[3L, K, n] -> [3L, K]: the sum of each chunk's points."""
+    L3, K, n = pts.shape
+    _check(pts, (3 * _L16[kind], K, n), "points")
+    out = torch.empty((L3, K), dtype=torch.int64, device=pts.device)
+    scratch = _scratch(K * REDUCE_LANES, kind, pts.device)
     _launch("reduce", kind, pts.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            n)
+            n, K)
     return out
 
 
@@ -257,10 +262,11 @@ def microbench_steps() -> int:
     return _load("microbench").gnark_microbench_steps()
 
 
-def microbench(op, x, y, steps=None):
+def microbench(op, x, y, steps=None, chains=4):
     """One launch of the chain kernel for ``op`` over every element of x
     against y (see csrc/microbench.cu).  ``steps`` is montmul_bn254's
-    products per chain; the other ops run microbench_steps()."""
+    products per chain, ``chains`` its chains an element (4 or 1); the
+    other ops run microbench_steps() on four chains."""
     if op not in MICROBENCH_OPS:
         raise ValueError(f"unknown microbenchmark op {op!r}")
     want = torch.float32 if op == "fma_f32" else torch.int64
@@ -279,9 +285,12 @@ def microbench(op, x, y, steps=None):
         if x.ndim != 2 or x.shape[0] != _L16["g1"] or not steps or steps < 1:
             raise ValueError(f"montmul_bn254: want [16, n] limb planes and "
                              f"steps >= 1, got {tuple(x.shape)}, {steps}")
-        rc = lib.gnark_microbench_montmul(*ptrs, x.shape[1], steps, stream)
-    elif steps is not None:
-        raise ValueError(f"{op}: the step count is fixed at build time")
+        if chains not in (1, 4):
+            raise ValueError(f"montmul_bn254: 4 chains or 1, not {chains}")
+        rc = lib.gnark_microbench_montmul(*ptrs, x.shape[1], steps, chains,
+                                          stream)
+    elif steps is not None or chains != 4:
+        raise ValueError(f"{op}: steps and chains are fixed at build time")
     elif op == "fma_f32":
         rc = lib.gnark_microbench_fma_f32(*ptrs, x.numel(), stream)
     else:

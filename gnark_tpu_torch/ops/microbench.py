@@ -44,20 +44,23 @@ FMA_RTOL = 1e-4
 _M32 = 0xFFFFFFFF
 
 
-def chain_plain(op, x, y, steps=None):
+def chain_plain(op, x, y, steps=None, chains=4):
     """The chains in plain PyTorch: int64 tensors masked to 32 bits
     (mad_wide_u32 wraps at 64), float32 for fma_f32, FieldOps for
-    montmul_bn254."""
+    montmul_bn254 (on ``chains`` chains, 4 or 1)."""
     if steps is None:
         steps = MONTMUL_STEPS if op == "montmul_bn254" else STEPS
     if op == "montmul_bn254":
         F = field_ops(BN254.fp)
         accs = [x]
-        for _ in range(3):
+        for _ in range(chains - 1):
             accs.append(F.double(accs[-1]))
         for _ in range(steps):
             accs = [F.mul(a, y) for a in accs]
-        return F.add(F.add(F.add(accs[0], accs[1]), accs[2]), accs[3])
+        out = accs[0]
+        for a in accs[1:]:
+            out = F.add(out, a)
+        return out
     if op == "fma_f32":
         accs = [x + float(k) for k in range(4)]
         for _ in range(steps):
@@ -104,16 +107,16 @@ def _mul32(a, y):
     return ((a & 0xFFFF) * y + (((a >> 16) * y & 0xFFFF) << 16)) & _M32
 
 
-def chain(op, x, y, steps=None):
+def chain(op, x, y, steps=None, chains=4):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if op not in OPS:
         raise ValueError(f"unknown microbenchmark op {op!r}")
     if x.device.type == "cuda":
         if op == "montmul_bn254" and steps is None:
             steps = MONTMUL_STEPS
-        return _cuda.microbench(op, x, y, steps)
+        return _cuda.microbench(op, x, y, steps, chains)
     if x.device.type == "cpu":
-        return chain_plain(op, x, y, steps)
+        return chain_plain(op, x, y, steps, chains)
     raise ValueError(f"microbench: no kernel or plain version for {x.device}")
 
 

@@ -2,9 +2,11 @@
 gnark_tpu/ops/msm.py (``MSM._run_window_pallas``) and its double-and-add
 ladder (``MSM._run_ladder_pallas``), in PyTorch with six kernels in CUDA.
 
-``msm`` sends fewer than LADDER_MAX points to the ladder: per point, s * P
-by MSB-first double-and-add                                     [kernel]
-then the sum of those points                                    [kernel].
+``msm`` sends fewer than LADDER_MAX points to the ladder: each scalar cut
+into K chunks of B bits, and per (point, chunk) the chunk's multiple of
+the point by w-bit windows over a table of multiples          [kernel]
+then per chunk the sum of those points                         [kernel]
+then the fold sum_j 2^(jB) T_j of the chunk sums               [kernel: Horner].
 It sends the rest to the windowed plan.
 
 Per window of c-bit signed digits (|d| <= 2^(c-1), negatives by free EC
@@ -206,13 +208,16 @@ def weighted_sum(bk, GC: CompleteOps):
 
 def horner_fold_plain(S, c: int, GC: CompleteOps):
     """S: [3L, nw] window sums -> [3L, 1] = sum_w 2^(cw) S_w (most
-    significant window first: c doublings, then one add)."""
+    significant window first: c doublings, then one add).  The fold starts
+    at the highest window that is not the identity (Z != 0), or at window
+    0 when all are, as the kernel does."""
     _count_plain(S, "horner_fold")
     L = GC.F.L
     X, Y, Z = split_points(S, L)
-    nw = S.shape[1]
-    acc = (X[:, nw - 1:], Y[:, nw - 1:], Z[:, nw - 1:])
-    for w in range(nw - 2, -1, -1):
+    live = (Z != 0).any(0).nonzero()
+    top = int(live[-1]) if len(live) else 0
+    acc = (X[:, top:top + 1], Y[:, top:top + 1], Z[:, top:top + 1])
+    for w in range(top - 1, -1, -1):
         for _ in range(c):
             acc = GC.double(acc)
         acc = GC.add(acc, (X[:, w:w + 1], Y[:, w:w + 1], Z[:, w:w + 1]))
@@ -225,72 +230,126 @@ def horner_fold(S, c: int, GC: CompleteOps):
     return horner_fold_plain(S, c, GC)
 
 
-# ---- kernel 5: the double-and-add ladder ------------------------------------
+# ---- kernel 5: the chunked, windowed ladder ----------------------------------
 
-def ladder_plain(xs, ys, inf_mask, scalars, G: CurveOps):
-    """Per point, s_i * P_i by MSB-first Jacobian double-and-add over the
-    16 * Ls scalar bits (gnark_tpu msm.py:354-367).  The accumulator is
-    not doubled while it is the identity (0 : 1 : 0), so steps above the
-    batch's highest set bit change nothing and are left out.  xs, ys:
-    [L, n] affine; inf_mask: [n] bool; scalars: [Ls, n] regular-form
-    limbs.  Returns [3L, n]."""
+# 16 chunks of 16 bits: 16 n threads (65,536 at 4096 points, enough to fill
+# the card), and 4-bit windows (a table of 16 entries, 4 windows a chunk)
+LADDER_CHUNKS = _cuda.LADDER_CHUNKS
+LADDER_WINDOW = _cuda.LADDER_WINDOW
+
+
+def chunk_bits(scalar_limbs: int) -> int:
+    """B, the bits of one chunk of a scalar of ``scalar_limbs`` 16-bit limbs."""
+    return 16 * scalar_limbs // LADDER_CHUNKS
+
+
+def ladder_digits(scalars):
+    """int64[Ls, n] scalar limbs -> the windows' digits, lowest first, each
+    int64[K, n]: bits [jB + mw, jB + min((m + 1) w, B)) of scalar i at
+    [j, i] for window m; the top window of a chunk may be narrower."""
+    Ls, n = scalars.shape
+    B, w = chunk_bits(Ls), LADDER_WINDOW
+    shifts = torch.arange(16, device=scalars.device).reshape(1, 16, 1)
+    bits = ((scalars.unsqueeze(1) >> shifts) & 1).reshape(LADDER_CHUNKS, B, n)
+    out = []
+    for lo in range(0, B, w):
+        hi = min(B, lo + w)
+        weights = 1 << torch.arange(hi - lo, device=scalars.device)
+        out.append((bits[:, lo:hi] * weights.reshape(1, -1, 1)).sum(1))
+    return out
+
+
+def ladder_table(xs, ys, inf_mask, GC: CompleteOps):
+    """[2^w, 3L, n]: entry e = e * P_i, projective: T[0] the identity
+    (0 : 1 : 0), T[1] = (x : y : 1) or the identity where flagged infinite,
+    T[2k] = 2 T[k], T[2k+1] = T[2k] + T[1] (the kernel's recipe)."""
+    F = GC.F
+    n = xs.shape[-1]
+    ident = GC.inf(n, xs.device)
+    T = [ident, GC.select(inf_mask, ident, (xs, ys, F.ones(n, xs.device)))]
+    for e in range(2, 1 << LADDER_WINDOW):
+        T.append(GC.add(T[e - 1], T[1]) if e & 1 else GC.double(T[e >> 1]))
+    return torch.stack([torch.cat(t) for t in T])
+
+
+def ladder_plain(xs, ys, inf_mask, scalars, GC: CompleteOps):
+    """Per point i and chunk j, d_ij * P_i, where d_ij is bits [jB, (j+1)B)
+    of s_i (B = 16 Ls / K): from the top window of the chunk, acc = T[d];
+    per further window, w complete doublings and acc + T[d], T[0] the
+    identity, so every column runs the same steps.  xs, ys: [L, n] affine;
+    inf_mask: [n] bool; scalars: [Ls, n] regular-form limbs.  Returns
+    [3L, K, n] projective."""
     _count_plain(xs, "ladder")
-    acc = G.inf(xs.shape[-1], xs.device)
-    live = torch.where(inf_mask.unsqueeze(0), 0, scalars)
-    rows = torch.nonzero(live.any(1)).flatten().tolist()
-    top = rows[-1] if rows else -1
-    for k in range(top, -1, -1):
-        hi = int(live[k].max()).bit_length() - 1 if k == top else 15
-        for b in range(hi, -1, -1):
-            acc = G.select(G.is_inf(acc), acc, G.double(acc))
-            skip = (((scalars[k] >> b) & 1) == 0) | inf_mask
-            acc = G.add_mixed(acc, (xs, ys), skip)
-    return torch.cat(acc)
+    L = GC.F.L
+    n = xs.shape[-1]
+    digits = ladder_digits(scalars)
+    tab = ladder_table(xs, ys, inf_mask, GC)
+    cols = torch.arange(n, device=xs.device).repeat(LADDER_CHUNKS)  # j*n + i -> i
+
+    def lookup(d):
+        return split_points(tab[d.reshape(-1), :, cols].T, L)
+
+    acc = lookup(digits[-1])
+    for d in reversed(digits[:-1]):
+        for _ in range(LADDER_WINDOW):
+            acc = GC.double(acc)
+        acc = GC.add(acc, lookup(d))
+    return torch.cat(acc).reshape(3 * L, LADDER_CHUNKS, n)
 
 
-def ladder(xs, ys, inf_mask, scalars, G: CurveOps):
+def ladder(xs, ys, inf_mask, scalars, GC: CompleteOps):
     if _device_route(xs, "ladder"):
-        return _cuda.ladder(xs, ys, inf_mask, scalars, _cuda.kind_of(G))
-    return ladder_plain(xs, ys, inf_mask, scalars, G)
+        return _cuda.ladder(xs, ys, inf_mask, scalars, _cuda.kind_of(GC))
+    return ladder_plain(xs, ys, inf_mask, scalars, GC)
 
 
-# ---- kernel 6: the sum of the ladder's points ---------------------------------
+# ---- kernel 6: the per-chunk sums of the ladder's points --------------------------
 
-def reduce_plain(pts, G: CurveOps):
-    """pts: [3L, n] Jacobian points -> [3L, 1], their sum (the ladder's
-    reduction; gnark_tpu's ``_reduce``, msm.py:124, is XLA).  Lane t of
-    REDUCE_LANES sums points t, t + 256, ... in order, then a halving tree
-    over the lanes; padding is the identity (0 : 1 : 0)."""
+def reduce_plain(pts, GC: CompleteOps):
+    """pts: [3L, K, n] projective points -> [3L, K], each chunk's sum (the
+    ladder's reduction; gnark_tpu's ``_reduce``, msm.py:124, is XLA).
+    Lane t of REDUCE_LANES sums points t, t + 256, ... in order over n
+    padded to a multiple of 256 with the identity (0 : 1 : 0), then a
+    halving tree over the lanes."""
     _count_plain(pts, "reduce")
-    L, T = G.F.L, _cuda.REDUCE_LANES
-    n = pts.shape[-1]
+    L, T = GC.F.L, _cuda.REDUCE_LANES
+    _, K, n = pts.shape
     pad = -n % T
     if pad:
-        pts = torch.cat([pts, torch.cat(G.inf(pad, pts.device))], -1)
-    cols = split_points(pts.reshape(3 * L, -1, T), L)
-    acc = tuple(a[:, 0] for a in cols)
-    for j in range(1, cols[0].shape[1]):
-        acc = G.add(acc, tuple(a[:, j] for a in cols))
+        pts = torch.cat([pts, torch.cat(GC.inf((K, pad), pts.device))], -1)
+    cols = split_points(pts.reshape(3 * L, K, -1, T), L)
+    acc = tuple(a[:, :, 0] for a in cols)
+    for j in range(1, cols[0].shape[2]):
+        acc = GC.add(acc, tuple(a[:, :, j] for a in cols))
     t = T
     while t > 1:
         t //= 2
-        acc = G.add(tuple(a[:, :t] for a in acc),
-                    tuple(a[:, t:2 * t] for a in acc))
-    return torch.cat(acc)
+        acc = GC.add(tuple(a[..., :t] for a in acc),
+                     tuple(a[..., t:2 * t] for a in acc))
+    return torch.cat(acc)[..., 0]
 
 
-def reduce(pts, G: CurveOps):
+def reduce(pts, GC: CompleteOps):
     if _device_route(pts, "reduce"):
-        return _cuda.reduce(pts, _cuda.kind_of(G))
-    return reduce_plain(pts, G)
+        return _cuda.reduce(pts, _cuda.kind_of(GC))
+    return reduce_plain(pts, GC)
+
+
+@functools.lru_cache(maxsize=None)
+def complete_ops(G: CurveOps) -> CompleteOps:
+    """The complete-formula ops over G's field and curve."""
+    return CompleteOps(G.F, G.b)
 
 
 def ladder_msm(G: CurveOps, xs, ys, inf_mask, scalars):
-    """The ladder MSM: per-point ladder, then the reduction.  Returns one
-    Jacobian point (coordinates [L, 1])."""
+    """The ladder MSM: per (point, chunk) the ladder, per chunk the
+    reduction, then the Horner fold of the chunk sums with c = B.  Returns
+    one Jacobian point (coordinates [L, 1])."""
+    GC = complete_ops(G)
     P = ladder(xs.contiguous(), ys.contiguous(), inf_mask.contiguous(),
-               scalars.contiguous(), G)
-    return split_points(reduce(P, G), G.F.L)
+               scalars.contiguous(), GC)
+    S = horner_fold(reduce(P, GC), chunk_bits(scalars.shape[0]), GC)
+    return GC.to_jacobian(split_points(S, G.F.L))
 
 
 # ---- the windowed plan ---------------------------------------------------------
@@ -303,7 +362,7 @@ class MSM:
     def __init__(self, G: CurveOps, n: int, scalar_limbs: int,
                  c: int | None = None, lanes: int | None = None):
         self.G = G
-        self.GC = CompleteOps(G.F, G.b)
+        self.GC = complete_ops(G)
         self.n = n
         self.scalar_limbs = scalar_limbs
         total_bits = scalar_limbs * 16

@@ -7,9 +7,12 @@ The file imports no jax, so it runs where the port runs:
 
 (``--noconftest`` leaves out tests/conftest.py, which imports jax.)
 
-  * each of the four windowed-MSM kernels, the ladder kernel and the
-    reduction kernel against its plain version on the same CUDA tensors,
-    G1 and G2, bit for bit, one launch each;
+  * each of the four windowed-MSM kernels, the ladder kernel, the
+    per-chunk reduction kernel and the fold of the chunk sums against its
+    plain version on the same CUDA tensors, G1 and G2, bit for bit, one
+    launch each: at the small proof's 4096 points, at 37 points (a
+    ragged last block), with 64-bit scalars (a window a chunk) and with
+    20-bit scalars (the fold of the chunk sums starts at chunk 1);
   * the kernel-path MSM, through ``msm`` (the ladder at this size) and
     through the windowed plan, against the host oracle (point
     i = 2^(i mod 64) G);
@@ -111,19 +114,51 @@ def test_kernels_match_plain_on_cuda(dev, kind):
     assert torch.equal(P, M.horner_fold_plain(S, plan.c, GC))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["g1", "g2"])
-def test_ladder_matches_plain_on_cuda(dev, kind):
-    G, (xs, ys, inf, sc), _ = _oracle_inputs(kind, dev, 7)
+def _ladder_on_cuda(G, args):
+    """The ladder, the reduction and the fold, kernels against plain
+    versions, with the launches they made."""
+    GC = M.complete_ops(G)
+    kind = _cuda.kind_of(GC)
     before = dict(_cuda.launches)
-    out = M.ladder(xs, ys, inf, sc, G)
-    tot = M.reduce(out, G)
+    out = M.ladder(*args, GC)
+    tot = M.reduce(out, GC)
+    B = M.chunk_bits(args[3].shape[0])
+    S = M.horner_fold(tot, B, GC)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in _cuda.launches.items()
             if k.endswith(kind) and v != before[k]} == {
-                f"ladder_{kind}": 1, f"reduce_{kind}": 1}
-    assert torch.equal(out, M.ladder_plain(xs, ys, inf, sc, G))
-    assert torch.equal(tot, M.reduce_plain(out, G))
+                f"ladder_{kind}": 1, f"reduce_{kind}": 1,
+                f"horner_fold_{kind}": 1}
+    assert torch.equal(out, M.ladder_plain(*args, GC))
+    assert torch.equal(tot, M.reduce_plain(out, GC))
+    assert torch.equal(S, M.horner_fold_plain(tot, B, GC))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_ladder_matches_plain_on_cuda(dev, kind):
+    G, args, _ = _oracle_inputs(kind, dev, 7)
+    _ladder_on_cuda(G, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["37 points", "64-bit scalars",
+                                  "20-bit scalars"])
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_ladder_small_shapes_match_plain_on_cuda(dev, kind, case):
+    """A partial block; chunks of 4 bits (one window); scalars whose top
+    chunks are all zero, so the fold starts at chunk 1."""
+    G, (xs, ys, inf, sc), _ = _oracle_inputs(kind, dev, 11)
+    if case == "37 points":
+        args = tuple(a[..., :37].contiguous() for a in (xs, ys, inf, sc))
+    elif case == "64-bit scalars":
+        args = (xs, ys, inf, sc[:4].contiguous())
+    else:
+        small = torch.zeros_like(sc)
+        small[:2] = sc[:2]
+        small[1] &= 0xF
+        args = (xs, ys, inf, small)
+    _ladder_on_cuda(G, args)
 
 
 @pytest.mark.cuda
@@ -184,6 +219,10 @@ def test_microbench_kernel_matches_plain_on_cuda(dev, op):
     cx, cy = x.cpu(), y.cpu()
     with pytest.raises(ValueError):
         _cuda.microbench(op, cx, cy)
+    if op == "montmul_bn254":                   # the latency's one chain
+        got = MB.chain(op, x, y, steps=5, chains=1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, MB.chain_plain(op, x, y, 5, chains=1))
 
 
 @pytest.mark.cuda
@@ -198,9 +237,9 @@ def test_plonk_on_cuda_equals_host_mode(dev):
     want = tp.prove(cs, hpk, [35, 3], rng=random.Random(4))
     got = tp.prove(cs, gpk, [35, 3], rng=random.Random(4))
     assert not any(M.plain_on_cuda.values())
-    # nine small MSMs: the ladder and its reduction
-    assert _cuda.launches["ladder_g1"] == before["ladder_g1"] + 9
-    assert _cuda.launches["reduce_g1"] == before["reduce_g1"] + 9
+    # nine small MSMs: the ladder, its reduction and the fold
+    for k in ("ladder_g1", "reduce_g1", "horner_fold_g1"):
+        assert _cuda.launches[k] == before[k] + 9, k
     assert got == want
     assert tp.verify(got, gvk, [35])
     assert not tp.verify(got, gvk, [36])

@@ -1,16 +1,24 @@
-"""gnark_tpu_torch.ops.msm: the double-and-add ladder and the reduction of
-its output, and their kernels.
+"""gnark_tpu_torch.ops.msm: the chunked, windowed ladder, the per-chunk
+reduction of its output and the fold of the chunk sums, and their kernels.
 
-  * the plain ladder, point by point, against the host curves for G1 and
-    G2, with the degenerate steps forced: scalar r + 2 makes the
-    accumulator equal the point before an add (P + P), and scalar r makes
-    it equal the point's negative (P + (-P)); also zero scalars, an
-    unreduced scalar, a repeated point and an infinity point;
-  * the reduction to one point against the host sum, also over 600
-    points where each of the 256 lanes meets P + P or P + (-P);
-  * the kernels' sources, compiled for the host with g++ and run one
-    thread at a time, against the plain versions, bit for bit
+  * the plain ladder, column by column (point i, chunk j: d_ij P_i),
+    against the host curves for G1 and G2, at its one schedule (16
+    chunks, 4-bit windows) with zero scalars, an unreduced scalar, chunks
+    whose digits are all zero (the identity (0 : 1 : 0) exactly), a
+    repeated point and an infinity point; and with 64-bit scalars (chunks
+    of 4 bits, one window each);
+  * a table addition acc + T[d] has acc = 16 a P (a < 2^12) and d < 16,
+    so it meets P + P or P + (-P) only as the identity plus itself (zero
+    digits, an infinity point), both above; the reduction meets both:
+    see the 600 points below;
+  * the reduction to one point per chunk, and the ladder MSM through the
+    fold of the chunk sums, against the host sums, also over 600 points
+    where each of the 256 lanes meets P + P or P + (-P);
+  * the kernels' sources, compiled for the host with g++ and run one block
+    at a time with blockDim.x = 1, against the plain versions, bit for bit
     (tests/test_torch_cuda.py runs the kernels themselves on a card);
+  * field.cuh's portable Montgomery product (the host form of the device's
+    carry-chain product) against Python-int Montgomery products;
   * ``msm`` routes fewer than LADDER_MAX points to the ladder and the
     rest to the windowed plan, and the wrapper raises on a device that
     has no kernel and no plain version.
@@ -48,9 +56,10 @@ def _group(kind):
             BN254.host_g2, BN254.g2_gen)
 
 
-def _inputs(G, H, gen, scalars, inf_at=()):
+def _inputs(G, H, gen, scalars, inf_at=(), limbs=None):
     """Points k * gen (k = 1..n, the 4th repeating the 3rd), the given
-    scalars, and infinity flags at ``inf_at``."""
+    scalars as ``limbs`` 16-bit limbs (default: the scalar field's), and
+    infinity flags at ``inf_at``."""
     n = len(scalars)
     pts = [gen]
     for _ in range(n - 1):
@@ -60,25 +69,47 @@ def _inputs(G, H, gen, scalars, inf_at=()):
     inf[list(inf_at)] = True
     xs = G.F.pack([p[0] for p in pts], "cpu")
     ys = G.F.pack([p[1] for p in pts], "cpu")
-    sc = torch.from_numpy(ints_to_limbs(scalars, BN254.fr.L).astype(np.int64))
+    sc = torch.from_numpy(
+        ints_to_limbs(scalars, limbs or BN254.fr.L).astype(np.int64))
     return pts, inf, (xs, ys, torch.from_numpy(inf), sc)
 
 
+def _columns_to_host(G, out):
+    """[3L, K, n] projective -> host points, chunk-major (None = inf)."""
+    L = G.F.L
+    flat = out.reshape(3 * L, -1)
+    return points_to_host(G, M.complete_ops(G).to_jacobian(
+        M.split_points(flat, L)))
+
+
+def _want_columns(H, pts, scalars, inf, bits):
+    """d_ij P_i, chunk-major: d_ij = bits [jB, (j+1)B) of the raw scalar."""
+    B = bits // M.LADDER_CHUNKS
+    return [None if i else H.scalar_mul(p, (s >> (j * B)) % (1 << B))
+            for j in range(M.LADDER_CHUNKS)
+            for p, s, i in zip(pts, scalars, inf)]
+
+
 class _Ladder:
-    """One plain ladder over edge-case scalars, with its inputs."""
+    """One plain ladder at the default schedule over edge-case scalars,
+    with its inputs: 5 and 1 leave 15 chunks all zero."""
 
     def __init__(self, kind):
         self.G, self.H, gen = _group(kind)
+        self.GC = M.complete_ops(self.G)
         rng = np.random.default_rng(53 if kind == "g1" else 59)
         self.scalars = [R_MOD + 2, R_MOD, 0, 5, (1 << 256) - 1, 0,
                         int.from_bytes(rng.bytes(32), "little") % R_MOD, 1]
         self.pts, self.inf, self.args = _inputs(
             self.G, self.H, gen, self.scalars, inf_at=(6,))
-        self.out = M.ladder_plain(*self.args, self.G)
+        self.out = M.ladder_plain(*self.args, self.GC)
 
     def want(self):
         return [None if i else self.H.scalar_mul(p, s % R_MOD)
                 for p, s, i in zip(self.pts, self.scalars, self.inf)]
+
+    def want_columns(self):
+        return _want_columns(self.H, self.pts, self.scalars, self.inf, 256)
 
 
 @pytest.fixture(scope="module")
@@ -89,44 +120,90 @@ def ladders():
 @pytest.mark.parametrize("kind", ["g1", "g2"])
 def test_ladder_plain_matches_host_curve(ladders, kind):
     lad = ladders[kind]
-    got = points_to_host(lad.G, M.split_points(lad.out, lad.G.F.L))
-    assert got == lad.want()
+    assert lad.out.shape == (3 * lad.G.F.L, M.LADDER_CHUNKS, 8)
+    assert _columns_to_host(lad.G, lad.out) == lad.want_columns()
+    # a chunk whose digits are all zero is the identity (0 : 1 : 0) itself
+    L = lad.G.F.L
+    ident = torch.cat(lad.GC.inf(1, "cpu"))[:, 0]
+    for j in range(1, M.LADDER_CHUNKS):
+        for i in (2, 3, 5, 7):                   # scalars 0, 5, 0, 1
+            assert torch.equal(lad.out[:, j, i], ident), (j, i)
+    assert torch.equal(lad.out[:, 0, 6], ident)   # the infinity point
 
 
 @pytest.mark.parametrize("kind", ["g1", "g2"])
 def test_ladder_reduce_matches_host_sum(ladders, kind):
     lad = ladders[kind]
+    cols = lad.want_columns()
+    n = len(lad.scalars)
+    sums = []
+    for j in range(M.LADDER_CHUNKS):
+        acc = None
+        for p in cols[j * n:(j + 1) * n]:
+            acc = lad.H.add(acc, p)
+        sums.append(acc)
+    T = M.reduce(lad.out, lad.GC)
+    assert T.shape == (3 * lad.G.F.L, M.LADDER_CHUNKS)
+    assert _columns_to_host(lad.G, T.unsqueeze(-1)) == sums
     acc = None
     for p in lad.want():
         acc = lad.H.add(acc, p)
-    P = M.reduce(lad.out, lad.G)
-    assert points_to_host(lad.G, M.split_points(P, lad.G.F.L)) == [acc]
+    assert points_to_host(lad.G, M.ladder_msm(lad.G, *lad.args)) == [acc]
 
 
 def _wide(lad, kind):
-    """600 points: A (256, the ladder's 8 outputs repeated, so lane t
-    meets P + P in the tree), -A (so lane t meets P + (-P)), then A's
-    first 88.  Their sum is 11 times the sum of the 8 outputs."""
+    """600 points a chunk: A (256, the ladder's 8 outputs repeated, so
+    lane t meets P + P in the tree), -A (so lane t meets P + (-P)), then
+    A's first 88.  Each chunk's sum is 11 times its sum over the 8."""
     L = lad.G.F.L
-    A = lad.out.repeat(1, 32)
-    negA = torch.cat(lad.G.neg(M.split_points(A, L)))
-    return torch.cat([A, negA, A[:, :88]], 1)
+    A = lad.out.repeat(1, 1, 32)
+    negA = torch.cat(lad.GC.neg(M.split_points(A, L)))
+    return torch.cat([A, negA, A[..., :88]], -1)
 
 
 @pytest.fixture(scope="module")
 def wide(ladders):
-    return {k: (_wide(lad, k), M.reduce_plain(_wide(lad, k), lad.G))
+    return {k: (_wide(lad, k), M.reduce_plain(_wide(lad, k), lad.GC))
             for k, lad in ladders.items()}
 
 
 @pytest.mark.parametrize("kind", ["g1", "g2"])
 def test_reduce_over_lanes_matches_host_sum(ladders, wide, kind):
     lad = ladders[kind]
-    acc = None
-    for p in lad.want():
-        acc = lad.H.add(acc, p)
-    got = points_to_host(lad.G, M.split_points(wide[kind][1], lad.G.F.L))
-    assert got == [lad.H.scalar_mul(acc, 11)]
+    cols = lad.want_columns()
+    n = len(lad.scalars)
+    want = []
+    for j in range(M.LADDER_CHUNKS):
+        acc = None
+        for p in cols[j * n:(j + 1) * n]:
+            acc = lad.H.add(acc, p)
+        want.append(lad.H.scalar_mul(acc, 11) if acc else None)
+    got = _columns_to_host(lad.G, wide[kind][1].unsqueeze(-1))
+    assert got == want
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_ladder_short_scalars_match_host_curve_and_kernel_source(
+        host_ladder, kind):
+    """64-bit scalars (4 limbs: 16 chunks of 4 bits, one window each):
+    zero, one, all ones, one with its low chunks all zero, and random;
+    the plain ladder's columns against the host curve, the kernel source
+    against the plain ladder, and the ladder MSM against the host sum."""
+    G, H, gen = _group(kind)
+    GC = M.complete_ops(G)
+    rng = np.random.default_rng(61 if kind == "g1" else 71)
+    scalars = [0, 1, (1 << 64) - 1, 3 << 60] + [
+        int(v) for v in rng.integers(0, 1 << 63, 3)] + [0]
+    pts, inf, args = _inputs(G, H, gen, scalars, inf_at=(5,), limbs=4)
+    out = M.ladder_plain(*args, GC)
+    assert _columns_to_host(G, out) == _want_columns(H, pts, scalars, inf,
+                                                     64)
+    assert torch.equal(_host_ladder(host_ladder, kind, args), out)
+    want = None
+    for p, s, i in zip(pts, scalars, inf):
+        if not i:
+            want = H.add(want, H.scalar_mul(p, s))
+    assert points_to_host(G, M.ladder_msm(G, *args)) == [want]
 
 
 # ---- the kernel source on the host ---------------------------------------------
@@ -137,36 +214,51 @@ HARNESS = r"""
 struct Dim { unsigned x; };
 static Dim blockIdx, threadIdx, blockDim;
 #define __global__
-#define __launch_bounds__(x)
+#define __shared__ static
+#define __launch_bounds__(...)
 #define __syncthreads()
 #include "msm_kernels.cu"
 
+// one block at a time, blockDim.x = 1: every loop over a block's work
+// steps by blockDim.x, so the one thread does it all in order
 template <class Cv> static void grid_ladder(const int64_t* xs, const int64_t* ys,
     const uint8_t* inf, const int64_t* sc, int64_t* out, int n, int Ls) {
   blockDim.x = 1; threadIdx.x = 0;
-  for (int b = 0; b < n; ++b) {
+  for (int b = 0; b < (n + LADDER_POINTS - 1) / LADDER_POINTS; ++b) {
     blockIdx.x = (unsigned)b;
     ladder_kernel<Cv>(xs, ys, inf, sc, out, n, Ls);
   }
 }
-extern "C" void host_ladder_g1(const int64_t* xs, const int64_t* ys,
-    const uint8_t* inf, const int64_t* sc, int64_t* out, int n, int Ls) {
-  grid_ladder<G1>(xs, ys, inf, sc, out, n, Ls);
+template <class Cv> static void grid_reduce(const int64_t* p, int64_t* o, int n,
+                                            int K) {
+  std::vector<Point<typename Cv::F>> s((long)K * REDUCE_LANES);
+  blockDim.x = 1; threadIdx.x = 0;
+  for (int j = 0; j < K; ++j) {
+    blockIdx.x = (unsigned)j;
+    reduce_kernel<Cv>(p, o, s.data(), n, K);
+  }
 }
-extern "C" void host_ladder_g2(const int64_t* xs, const int64_t* ys,
-    const uint8_t* inf, const int64_t* sc, int64_t* out, int n, int Ls) {
-  grid_ladder<G2>(xs, ys, inf, sc, out, n, Ls);
-}
-template <class Cv> static void grid_reduce(const int64_t* p, int64_t* o, int n) {
-  std::vector<Point<typename Cv::F>> s(REDUCE_LANES);
-  blockDim.x = 1; threadIdx.x = 0; blockIdx.x = 0;
-  reduce_kernel<Cv>(p, o, s.data(), n);
-}
-extern "C" void host_reduce_g1(const int64_t* p, int64_t* o, int n) {
-  grid_reduce<G1>(p, o, n);
-}
-extern "C" void host_reduce_g2(const int64_t* p, int64_t* o, int n) {
-  grid_reduce<G2>(p, o, n);
+#define HOST_GRIDS(NAME, CV)                                                  \
+  extern "C" void host_ladder_##NAME(const int64_t* xs, const int64_t* ys,    \
+      const uint8_t* inf, const int64_t* sc, int64_t* out, int n, int Ls) {   \
+    grid_ladder<CV>(xs, ys, inf, sc, out, n, Ls); }                           \
+  extern "C" void host_reduce_##NAME(const int64_t* p, int64_t* o, int n,     \
+      int K) { grid_reduce<CV>(p, o, n, K); }
+HOST_GRIDS(g1, G1)
+HOST_GRIDS(g2, G2)
+
+// field.cuh's portable Montgomery product, limbs as 8 x 32 bits
+extern "C" void host_montmul(const uint32_t* a, const uint32_t* b,
+                             uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    Fp<BN254Fp> x, y;
+    for (int k = 0; k < 8; ++k) {
+      x.v[k] = a[8 * i + k];
+      y.v[k] = b[8 * i + k];
+    }
+    const Fp<BN254Fp> r = mul(x, y);
+    for (int k = 0; k < 8; ++k) out[8 * i + k] = r.v[k];
+  }
 }
 """
 
@@ -188,15 +280,21 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _host_ladder(lib, kind, args):
+    xs, ys, inf, sc = args
+    n = xs.shape[1]
+    out = torch.empty((3 * xs.shape[0], M.LADDER_CHUNKS, n),
+                      dtype=torch.int64)
+    getattr(lib, f"host_ladder_{kind}")(
+        _ptr(xs), _ptr(ys), _ptr(inf), _ptr(sc), _ptr(out), n, sc.shape[0])
+    return out
+
+
 @pytest.mark.parametrize("kind", ["g1", "g2"])
 def test_ladder_kernel_source_matches_plain_on_host(ladders, host_ladder,
                                                      kind):
     lad = ladders[kind]
-    xs, ys, inf, sc = lad.args
-    out = torch.empty_like(lad.out)
-    getattr(host_ladder, f"host_ladder_{kind}")(
-        _ptr(xs), _ptr(ys), _ptr(inf), _ptr(sc), _ptr(out), xs.shape[1],
-        sc.shape[0])
+    out = _host_ladder(host_ladder, kind, lad.args)
     assert torch.equal(out, lad.out)
 
 
@@ -206,13 +304,38 @@ def test_reduce_kernel_source_matches_plain_on_host(ladders, wide,
                                                      host_ladder, kind, case):
     lad = ladders[kind]
     if case == "8":
-        pts, want = lad.out, M.reduce_plain(lad.out, lad.G)
+        pts, want = lad.out, M.reduce_plain(lad.out, lad.GC)
     else:
         pts, want = wide[kind]
     out = torch.empty_like(want)
     getattr(host_ladder, f"host_reduce_{kind}")(_ptr(pts), _ptr(out),
-                                                pts.shape[1])
+                                                pts.shape[2], pts.shape[1])
     assert torch.equal(out, want)
+
+
+def test_field_product_matches_python_ints(host_ladder):
+    """field.cuh's portable product (the form the device's carry chains
+    must agree with) against a * b * R^-1 mod p in Python ints, at
+    p - 1, 0, 1 and random values below p."""
+    p = BN254.fp.modulus
+    rinv = pow(1 << 256, -1, p)
+    rng = np.random.default_rng(67)
+    edge = [p - 1, 0, 1, p - 2, (1 << 255) % p]
+    rand = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(64)]
+    pairs = [(a, b) for a in edge for b in edge] + list(zip(rand, rand[::-1]))
+    n = len(pairs)
+
+    def words(vals):
+        return np.array([[(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+                         for v in vals], dtype=np.uint32)
+
+    a, b = words([x for x, _ in pairs]), words([y for _, y in pairs])
+    out = np.zeros_like(a)
+    host_ladder.host_montmul(a.ctypes.data_as(ctypes.c_void_p),
+                             b.ctypes.data_as(ctypes.c_void_p),
+                             out.ctypes.data_as(ctypes.c_void_p), n)
+    got = [sum(int(w) << (32 * k) for k, w in enumerate(row)) for row in out]
+    assert got == [x * y * rinv % p for x, y in pairs]
 
 
 # ---- routing ---------------------------------------------------------------------
@@ -247,10 +370,11 @@ def test_msm_routes_by_size(monkeypatch):
 
 def test_ladder_wrapper_routes_by_device():
     G, H, gen = _group("g1")
+    GC = M.complete_ops(G)
     _, _, args = _inputs(G, H, gen, [6, 1, 0, 9])
     before = dict(_cuda.launches)
-    assert torch.equal(M.ladder(*args, G), M.ladder_plain(*args, G))
+    assert torch.equal(M.ladder(*args, GC), M.ladder_plain(*args, GC))
     with pytest.raises(ValueError):
-        M.ladder(*(a.to("meta") for a in args), G)
+        M.ladder(*(a.to("meta") for a in args), GC)
     assert _cuda.launches == before
     assert not any(M.plain_on_cuda.values())

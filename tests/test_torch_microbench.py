@@ -100,6 +100,16 @@ def test_plain_montmul_chain_matches_python_ints():
     assert got == want
 
 
+def test_plain_montmul_one_chain_matches_python_ints():
+    """One chain (the latency measurement): x * y^steps, in Montgomery
+    form, with no sum over chains."""
+    x, y = MB.inputs("montmul_bn254", 6, "cpu", seed=6)
+    F, p = field_ops(BN254.fp), BN254.fp.modulus
+    xs, ys = F.unpack(x), F.unpack(y)
+    got = F.unpack(MB.chain("montmul_bn254", x, y, steps=4, chains=1))
+    assert got == [xv * pow(yv, 4, p) % p for xv, yv in zip(xs, ys)]
+
+
 def test_default_steps_are_the_kernels():
     x, y = MB.inputs("add_u32", 3, "cpu")
     got = MB.chain("add_u32", x, y)
@@ -118,6 +128,8 @@ def test_wrapper_raises_instead_of_falling_back():
         _cuda.microbench("fma_f32", x, y)           # wrong dtype as well
     with pytest.raises(ValueError):
         _cuda.microbench("mul_u64", x, y)
+    with pytest.raises(ValueError):
+        _cuda.microbench("mul_u32", x, y, chains=1)
     with pytest.raises(ValueError):
         MB.chain("mul_u64", x, y)
     # a device with no kernel and no plain version

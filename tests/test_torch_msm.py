@@ -213,7 +213,8 @@ HARNESS = r"""
 struct Dim { unsigned x; };
 static Dim blockIdx, threadIdx, blockDim;
 #define __global__
-#define __launch_bounds__(x)
+#define __shared__ static
+#define __launch_bounds__(...)
 #define __syncthreads()
 #include "msm_kernels.cu"
 
@@ -232,6 +233,10 @@ template <class Cv> static void grid_lanes(const int64_t* t, int64_t* o, int nw,
   blockDim.x = 1; threadIdx.x = 0;
   for (int w = 0; w < nw; ++w) { blockIdx.x = w; lane_offsets_kernel<Cv>(t, o, s.data(), nw, R); }
 }
+template <class Cv> static void grid_fold(const int64_t* S, int64_t* o, int nw, int c) {
+  blockDim.x = 1; threadIdx.x = 0; blockIdx.x = 0;
+  horner_fold_kernel<Cv>(S, o, nw, c);
+}
 template <class Cv> static void grid_wsum(const int64_t* b, int64_t* o, int nw, int nb) {
   std::vector<Point<typename Cv::F>> s((long)nw * (nb + nb / 2 + 1));
   blockDim.x = 1; threadIdx.x = 0;
@@ -245,7 +250,7 @@ template <class Cv> static void grid_wsum(const int64_t* b, int64_t* o, int nw, 
   extern "C" void host_weighted_sum_##NAME(const int64_t* a, int64_t* o,      \
       int nw, int nb) { grid_wsum<CV>(a, o, nw, nb); }                        \
   extern "C" void host_horner_fold_##NAME(const int64_t* a, int64_t* o,       \
-      int nw, int c) { horner_fold_kernel<CV>(a, o, nw, c); }
+      int nw, int c) { grid_fold<CV>(a, o, nw, c); }
 HOST_GRIDS(g1, G1)
 HOST_GRIDS(g2, G2)
 """
@@ -292,6 +297,32 @@ def test_kernel_source_matches_plain_on_host(runs, host_kernels, kind, kernel):
         fn(_ptr(run.S), _ptr(out), run.S.shape[1], run.plan.c)
         want = run.P
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("live", [0, 1, 3])
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_horner_fold_starts_at_highest_live_window(runs, host_kernels, kind,
+                                                   live):
+    """Five window sums, the top 5 - ``live`` of them the identity: the
+    fold starts at the highest that is not (with none, the result is
+    window 0 itself); the plain version against the host sum, the kernel
+    source against the plain version, bit for bit."""
+    run = runs[kind]
+    GC, c, L = run.plan.GC, run.plan.c, run.G.F.L
+    S = torch.cat([run.S[:, :live], torch.cat(GC.inf(5 - live, "cpu"))], 1)
+    P = M.horner_fold_plain(S, c, GC)
+    sums = points_to_host(run.G, GC.to_jacobian(M.split_points(S, L)))
+    want = None
+    for w, q in enumerate(sums):
+        if q is not None:
+            want = run.H.add(want, run.H.scalar_mul(q, 1 << (c * w)))
+    assert points_to_host(run.G, GC.to_jacobian(M.split_points(P, L))) == [
+        want]
+    if live == 0:
+        assert torch.equal(P, S[:, :1])
+    out = torch.empty_like(P)
+    getattr(host_kernels, f"host_horner_fold_{kind}")(_ptr(S), _ptr(out), 5, c)
+    assert torch.equal(out, P)
 
 
 def _source_limbs(text, name):
