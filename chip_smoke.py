@@ -28,9 +28,11 @@ always measured:
      below, for G2 also at 2^16 points (the ladder's plain version on
      4096 points spread over all of them), and the G1 leaf also at the
      PLONK commitment's 2^16 + 3 points.  The Horner fold, a chain of
-     point operations, also gets its critical path: the products on its
-     longest dependent chain times the latency of one dependent product
-     (the montmul_bn254 chain launched on one element, in one thread);
+     point operations, and the leaf prefix, a chain of mixed additions a
+     thread group, also get their critical path: the levels of products on
+     the longest dependent chain times the latency of one dependent
+     product (the montmul_bn254 chain launched on one element, in one
+     thread);
   4. MSMs against a host oracle (point i = 2^(i mod 64) G), G1 and G2: at
      2^16 the windowed plan, kernel path and plain path, in points/s; and
      the ladder against the windowed plan, kernel paths, at 4096 and 2^16
@@ -98,6 +100,10 @@ POINT_PRODUCTS = {
 # levels of independent base products of the Horner fold kernel's
 # doubling and addition, (G1, G2): G2's b3 product is a level of its own
 FOLD_LEVELS = {"pdbl": (2, 3), "padd": (2, 3)}
+# base products of each level of the leaf kernel's mixed addition, (G1,
+# G2): 5 then 6; G2 15, its two b3 products (6), then 18.  A group of G
+# lanes runs a level of m in ceil(m / G) rounds.
+LEAF_LEVELS = ((5, 6), (15, 6, 18))
 LATENCY_STEPS = 1024            # montmul products a chain, one element
 REPLACES = {
     "leaf_prefix": "gnark_tpu/ops/msm.py:496",
@@ -126,10 +132,12 @@ def ptxas_summary(report):
     its register count."""
     out, name, props = [], None, ""
     for line in report.splitlines():
-        m = re.search(r"Function properties for _Z\d+(\w+_kernel)I2(G[12])E",
-                      line)
+        m = re.search(r"Function properties for _Z\d+(\w+_kernel)I2(G[12])"
+                      r"(?:Li(\d+)E)?E", line)
         if "Function properties for" in line:
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            name = (f"{m.group(1)}<{m.group(2)}"
+                    + (f", {m.group(3)}>" if m.group(3) else ">")
+                    if m else None)
             props = ""
         elif name and "stack frame" in line:
             props = line.strip()
@@ -458,7 +466,7 @@ def wnaf_counts(d, w):
     return length, nnz
 
 
-def warps_per_sm(name, args):
+def warps_per_sm(name, kind, args):
     """Warps one launch of the kernel gives each SM, on average."""
     import torch
     from gnark_tpu_torch.ops import msm as M
@@ -467,7 +475,7 @@ def warps_per_sm(name, args):
            if torch.cuda.is_available() else 132)    # 132: a CPU rehearsal
     t = [a for a in args if hasattr(a, "shape")]
     if name == "leaf_prefix":
-        threads = t[0].shape[0] * t[0].shape[3]
+        threads = t[0].shape[0] * t[0].shape[3] * _cuda.LEAF_GROUP[kind]
     elif name in ("lane_offsets", "weighted_sum"):
         threads = t[0].shape[1] * 256
     elif name == "horner_fold":
@@ -479,6 +487,20 @@ def warps_per_sm(name, args):
     else:
         raise KeyError(name)
     return -(-threads // 32) / sms
+
+
+def leaf_critical_path(kind, sy, latency_ms):
+    """(mixed additions on the leaf's longest chain, its levels of
+    products, the rounds of products lane 0 runs an addition at the
+    group width, that chain in ms at the measured latency of one
+    dependent product by levels and by rounds)."""
+    from gnark_tpu_torch.ops import _cuda
+    levels = LEAF_LEVELS[0 if kind == "g1" else 1]
+    g = _cuda.LEAF_GROUP[kind]
+    rounds = sum(-(-m // g) for m in levels)
+    adds = int((((sy[:, :, 0, :] >> 16) & 1) == 0).sum(1).max())
+    return (adds, len(levels), rounds, adds * len(levels) * latency_ms,
+            adds * rounds * latency_ms)
 
 
 def fold_critical_path(kind, S, c, latency_ms):
@@ -605,7 +627,7 @@ def phase_kernels(device, rates):
         f"(bound {b['bound_ms']:.3f} ms by {b['bound_by']}, "
         f"{b['bound_ms_at_mad_rate']:.3f} ms at the measured mad.wide.u32 "
         f"rate), plain on {N_SLICE} points {plain_ms:.1f} ms, "
-        f"{warps_per_sm('ladder', (lx,)):.1f} warps an SM")
+        f"{warps_per_sm('ladder', 'g2', (lx,)):.1f} warps an SM")
     compare("g2", f"reduce n={N_MSM}", (lout, GC), M.reduce, M.reduce_plain,
             rates, work="reduce")
     # the G1 leaf at a PLONK commitment's shape: 2^16 + 3 points, C = 129
@@ -625,8 +647,9 @@ def compare(kind, name, args, kern, plain, rates, work=None):
     """One kernel against its plain version on the same tensors: asserts
     equal limbs and that the kernel does not beat its bound, and returns
     the error, both times, the bounds and the warps a launch gives each
-    SM (and the Horner fold's critical path)."""
+    SM (and the Horner fold's and the leaf's critical paths)."""
     import torch
+    from gnark_tpu_torch.ops import _cuda
     out_k = kern(*args)
     sync()
     out_p, plain_ms = wall_ms(lambda: plain(*args))
@@ -637,7 +660,7 @@ def compare(kind, name, args, kern, plain, rates, work=None):
     products, nbytes = kernel_work(work, kind, args)
     b = msm_bounds(products, nbytes, rates)
     assert ms >= b["bound_ms"], (f"{name} {kind} beats its bound", ms, b)
-    b["warps_per_sm"] = warps_per_sm(work, args)
+    b["warps_per_sm"] = warps_per_sm(work, kind, args)
     extra = ""
     if work == "horner_fold":
         chain, b["critical_path_ms"] = fold_critical_path(
@@ -645,6 +668,15 @@ def compare(kind, name, args, kern, plain, rates, work=None):
         extra = (f"; critical path {chain} dependent products x "
                  f"{rates[2] * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached)")
+    elif work == "leaf_prefix":
+        adds, lv, rounds, b["critical_path_ms"], by_rounds = \
+            leaf_critical_path(kind, args[1], rates[2])
+        extra = (f"; critical path {adds} mixed additions x {lv} levels x "
+                 f"{rates[2] * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
+                 f"({share(b['critical_path_ms'] / ms)} of it reached), "
+                 f"{rounds} rounds of products an addition on lane 0 at "
+                 f"G = {_cuda.LEAF_GROUP[kind]}: {by_rounds:.4g} ms "
+                 f"({share(by_rounds / ms)})")
     log(f"[kernels {kind}] {name}: bit-exact (tolerance 0), "
         f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{b['bound_ms']:.4g} ms by {b['bound_by']} ({products} field "

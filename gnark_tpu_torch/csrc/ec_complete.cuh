@@ -8,8 +8,9 @@
 // class (0 : Y : 0) with Y != 0.
 //
 // What bounds this on the H100: the field products (12M + 2 b3-muls for
-// add, 11M + 2 for the mixed add, 8M + 1 for doubling), i.e. the integer
-// multiply rate; a point is 3 elements held in registers.
+// add, 8M + 1 for doubling), i.e. the integer multiply rate; a point is 3
+// elements held in registers.  The mixed addition (alg 8) runs as levels
+// of products over a thread group: msm_kernels.cu's fold_add_mixed.
 
 #pragma once
 
@@ -101,29 +102,6 @@ GT_POINT Point<typename Curve::F> padd(const Point<typename Curve::F>& P,
   F X3 = sub(mul(t3, t1), mul(t4, Y3));
   Y3 = add(mul(t1, Z3), mul(Y3, t0));
   Z3 = add(mul(Z3, t4), mul(t0, t3));
-  return {X3, Y3, Z3};
-}
-
-// alg 8: complete mixed addition with an affine (x2, y2), Z2 = 1
-template <class Curve>
-GT_POINT Point<typename Curve::F> padd_mixed(const Point<typename Curve::F>& P,
-                                          const typename Curve::F& X2,
-                                          const typename Curve::F& Y2) {
-  using F = typename Curve::F;
-  F t0 = mul(P.X, X2);
-  F t1 = mul(P.Y, Y2);
-  F t3 = mul(add(P.X, P.Y), add(X2, Y2));
-  t3 = sub(t3, add(t0, t1));
-  F t4 = add(mul(X2, P.Z), P.X);
-  F t5 = add(mul(Y2, P.Z), P.Y);
-  F t0_3 = add(dbl(t0), t0);
-  F tz = Curve::mul_b3(P.Z);
-  F Z3 = add(t1, tz);
-  t1 = sub(t1, tz);
-  F Y3 = Curve::mul_b3(t4);
-  F X3 = sub(mul(t3, t1), mul(t5, Y3));
-  Y3 = add(mul(t1, Z3), mul(Y3, t0_3));
-  Z3 = add(mul(Z3, t5), mul(t0_3, t3));
   return {X3, Y3, Z3};
 }
 

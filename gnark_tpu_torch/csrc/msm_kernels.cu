@@ -23,10 +23,23 @@
 // to that (a mixed add reads 2 and writes 3 elements, and costs 11
 // products).  A point's field elements live in registers and the limb
 // loops unroll at compile time.
-//   * leaf_prefix: one thread per (window, lane) walks its C sorted points;
-//     neighbouring lanes read neighbouring addresses.  At 2^16 that is
-//     24 x 512 = 12,288 chains, which under-fills 132 SMs (about 3 warps
-//     an SM): the lane count R is the knob for a later change.
+//   * leaf_prefix: each (window, lane) chain walks its C sorted points on
+//     a group of G threads inside one warp (G = Curve::LEAF_GROUP, fixed
+//     at compile time: 4 for G1 and G2, the fastest of 2, 4, 8 and of 4,
+//     8, 16 on an H100, ops/leaf_groups.py), so the 2^16 plan's 24 x 512
+//     = 12,288 chains give 4 x 12,288 threads, 11.6 warps an SM.  Each
+//     mixed addition runs as levels of independent products over the
+//     group, as the fold's point operations do (G1: 5, then 6; G2: 15,
+//     the 6 of its two b3 products, then 18), synced with __syncwarp on
+//     the group's lanes.  Lane 0 holds the running sum and does the
+//     additions between levels, as in the fold.  Every lane repeating
+//     them, with only the products' results through shared memory, issues
+//     as many instructions a warp (the leader's additions take the warp's
+//     issue slots whether the other lanes wait or repeat them) and picks
+//     each lane's operands by branches; on an H100 it was slower at every
+//     width (G1 1.41 against 1.17 ms at its best, G2 5.87 against 4.31;
+//     ops/leaf_groups.py --csrc).  The group loads each point and stores
+//     each row together.
 //   * lane_offsets: one block per window, a Hillis-Steele scan over the R
 //     lane totals in ping-pong buffers in device memory.
 //   * weighted_sum: one block per window, the halving fold of the plain
@@ -58,9 +71,11 @@
 //
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
 // out), so a host harness that defines blockIdx, threadIdx, blockDim,
-// __global__, __shared__, __launch_bounds__ and __syncthreads can run a
-// grid one block at a time with blockDim.x = 1: every loop over a block's
-// work steps by blockDim.x, so one thread does it all, in order.
+// __global__, __shared__, __launch_bounds__, __syncthreads and __syncwarp
+// can run a grid one block at a time with blockDim.x = 1: every loop over
+// a block's work steps by blockDim.x, and every loop over a leaf group's
+// by G, so leaf_prefix_kernel<Curve, 1> (a group of one) and the other
+// kernels run on one thread that does it all, in order.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -70,13 +85,16 @@
 
 #ifdef __CUDACC__
 #define GT_BLOCK __device__ __noinline__
+#define GT_INLINE __device__ __forceinline__
 #else
 #define GT_BLOCK inline
+#define GT_INLINE inline
 #endif
 
 struct G1 {
   using F = Fp<BN254Fp>;
   static constexpr bool B3_PRODUCT = false;
+  static constexpr int LEAF_GROUP = 4;  // threads a leaf chain
   // resident ladder blocks an SM: caps G1's registers at 128 (ptxas takes
   // 164 otherwise, and 12 warps an SM stay resident, not 16)
   static constexpr int LADDER_BLOCKS = 4;
@@ -87,6 +105,7 @@ struct G1 {
 struct G2 {
   using F = Fp2<BN254Fp>;
   static constexpr bool B3_PRODUCT = true;  // b3 * a is a full fp2 product
+  static constexpr int LEAF_GROUP = 4;
   static constexpr int LADDER_BLOCKS = 2;
   // b' = 3 / (9 + u); b3 = 3b' in Montgomery form
   GT_HD static F b3() {
@@ -106,31 +125,6 @@ struct G2 {
   }
   GT_HD static F mul_b3(const F& a) { return mul(a, b3()); }
 };
-
-// sx, sy: [nw, C, L16, R]; sorted position r*C + cs at (w, cs, :, r).
-// y limb 0 carries flags: bit 16 = infinity (skip), bit 17 = negative
-// digit (add -P).  rows: [nw, C*R, 3*L16]; row cs*R + r = X|Y|Z of the
-// running sum after step cs of lane r.
-template <class Curve>
-__global__ void __launch_bounds__(128)
-    leaf_prefix_kernel(const int64_t* sx, const int64_t* sy, int64_t* rows,
-                       int nw, int C, int R) {
-  using F = typename Curve::F;
-  using IO = FieldIO<F>;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)nw * R) return;
-  const int w = (int)(t / R), r = (int)(t % R);
-  Point<F> acc = identity<Curve>();
-  for (int cs = 0; cs < C; ++cs) {
-    const long off = ((long)w * C + cs) * F::L16 * R + r;
-    uint32_t flags;
-    F px = IO::load(sx + off, R);
-    F py = IO::load(sy + off, R, &flags);
-    if (flags & 2u) py = neg(py);
-    if (!(flags & 1u)) acc = padd_mixed<Curve>(acc, px, py);
-    store_point<Curve>(acc, rows + ((long)w * C * R + (long)cs * R + r) * 3 * F::L16, 1);
-  }
-}
 
 // tot, out: [3*L16, nw, R].  out[r] = sum of tot[0..r) (exclusive scan,
 // lane 0 = the identity (0 : 1 : 0)); rolled-in lanes of each step are
@@ -208,7 +202,7 @@ __global__ void __launch_bounds__(256)
     store_point<Curve>(have_w ? padd<Curve>(B[0], *W) : B[0], out + w, nw);
 }
 
-// ---- the Horner fold, as levels of independent products ------------------
+// ---- point operations as levels of independent products ------------------
 
 constexpr int FOLD_THREADS = 32;
 
@@ -255,25 +249,37 @@ struct FoldShared {
   typename PR::Base A[6 * PR::S], B[6 * PR::S], R[6 * PR::S];
 };
 
-// R[k] = A[k] * B[k] for k < m over the block's lanes; the barrier before
-// publishes lane 0's operands, the one after its results.
-template <class Base>
-GT_BLOCK void fold_products(Base* A, Base* B, Base* R, int m, int tid,
-                            int nt) {
-  __syncthreads();
+// How the nt lanes that share one FoldShared wait for each other: the
+// Horner fold's block at a barrier, a leaf chain's thread group (the lanes
+// of mask, inside one warp) at __syncwarp.
+struct BlockSync {
+  GT_INLINE void operator()() const { __syncthreads(); }
+};
+struct GroupSync {
+  unsigned mask;
+  GT_INLINE void operator()() const { __syncwarp(mask); }
+};
+
+// R[k] = A[k] * B[k] for k < m over the lanes tid = 0 .. nt - 1; the sync
+// before publishes lane 0's operands, the one after its results.
+template <class Base, class Sync>
+GT_BLOCK void fold_products(Base* A, Base* B, Base* R, int m, int tid, int nt,
+                            Sync sync) {
+  sync();
   for (int k = tid; k < m; k += nt) R[k] = mul(A[k], B[k]);
-  __syncthreads();
+  sync();
 }
 
 // v[0..cnt) *= b3: additions on lane 0 for G1, one level of products for G2
-template <class Curve>
+template <class Curve, class Sync>
 GT_BLOCK void fold_b3(typename Curve::F* v, int cnt,
-                      FoldShared<typename Curve::F>& s, int tid, int nt) {
+                      FoldShared<typename Curve::F>& s, int tid, int nt,
+                      Sync sync) {
   using PR = Prod<typename Curve::F>;
   if constexpr (Curve::B3_PRODUCT) {
     if (tid == 0)
       for (int k = 0; k < cnt; ++k) PR::put(s.A, s.B, k, v[k], Curve::b3());
-    fold_products(s.A, s.B, s.R, cnt * PR::S, tid, nt);
+    fold_products(s.A, s.B, s.R, cnt * PR::S, tid, nt, sync);
     if (tid == 0)
       for (int k = 0; k < cnt; ++k) v[k] = PR::get(s.R, k);
   } else if (tid == 0) {
@@ -282,9 +288,10 @@ GT_BLOCK void fold_b3(typename Curve::F* v, int cnt,
 }
 
 // P = 2P, ec_complete.cuh's pdbl (alg 9) in levels; P is lane 0's
-template <class Curve>
+template <class Curve, class Sync>
 GT_BLOCK void fold_dbl(Point<typename Curve::F>& P,
-                       FoldShared<typename Curve::F>& s, int tid, int nt) {
+                       FoldShared<typename Curve::F>& s, int tid, int nt,
+                       Sync sync) {
   using F = typename Curve::F;
   using PR = Prod<F>;
   const bool lead = tid == 0;
@@ -294,11 +301,11 @@ GT_BLOCK void fold_dbl(Point<typename Curve::F>& P,
     PR::put(s.A, s.B, 2, P.Z, P.Z);
     PR::put(s.A, s.B, 3, P.X, P.Y);
   }
-  fold_products(s.A, s.B, s.R, 4 * PR::S, tid, nt);
+  fold_products(s.A, s.B, s.R, 4 * PR::S, tid, nt, sync);
   F t[4];  // Y^2, YZ, b3 Z^2, XY
   if (lead)
     for (int k = 0; k < 4; ++k) t[k] = PR::get(s.R, k);
-  fold_b3<Curve>(t + 2, 1, s, tid, nt);
+  fold_b3<Curve>(t + 2, 1, s, tid, nt, sync);
   if (lead) {
     const F Z3 = dbl(dbl(dbl(t[0])));  // 8 Y^2
     const F Y3 = add(t[0], t[2]);
@@ -308,17 +315,18 @@ GT_BLOCK void fold_dbl(Point<typename Curve::F>& P,
     PR::put(s.A, s.B, 2, t0, Y3);
     PR::put(s.A, s.B, 3, t0, t[3]);
   }
-  fold_products(s.A, s.B, s.R, 4 * PR::S, tid, nt);
+  fold_products(s.A, s.B, s.R, 4 * PR::S, tid, nt, sync);
   if (lead)
     P = {dbl(PR::get(s.R, 3)), add(PR::get(s.R, 2), PR::get(s.R, 0)),
          PR::get(s.R, 1)};
 }
 
 // P = P + Q, ec_complete.cuh's padd (alg 7) in levels; P, Q are lane 0's
-template <class Curve>
+template <class Curve, class Sync>
 GT_BLOCK void fold_add(Point<typename Curve::F>& P,
                        const Point<typename Curve::F>& Q,
-                       FoldShared<typename Curve::F>& s, int tid, int nt) {
+                       FoldShared<typename Curve::F>& s, int tid, int nt,
+                       Sync sync) {
   using F = typename Curve::F;
   using PR = Prod<F>;
   const bool lead = tid == 0;
@@ -330,7 +338,7 @@ GT_BLOCK void fold_add(Point<typename Curve::F>& P,
     PR::put(s.A, s.B, 4, add(P.Y, P.Z), add(Q.Y, Q.Z));
     PR::put(s.A, s.B, 5, add(P.X, P.Z), add(Q.X, Q.Z));
   }
-  fold_products(s.A, s.B, s.R, 6 * PR::S, tid, nt);
+  fold_products(s.A, s.B, s.R, 6 * PR::S, tid, nt, sync);
   F t0, t1, t3, t4, v[2];  // v: t2, Y3, the two b3 operands
   if (lead) {
     t0 = PR::get(s.R, 0);
@@ -341,7 +349,7 @@ GT_BLOCK void fold_add(Point<typename Curve::F>& P,
     v[1] = sub(PR::get(s.R, 5), add(t0, v[0]));
     t0 = add(dbl(t0), t0);  // 3 X1X2
   }
-  fold_b3<Curve>(v, 2, s, tid, nt);
+  fold_b3<Curve>(v, 2, s, tid, nt, sync);
   if (lead) {
     const F Z3 = add(t1, v[0]);
     t1 = sub(t1, v[0]);
@@ -352,7 +360,59 @@ GT_BLOCK void fold_add(Point<typename Curve::F>& P,
     PR::put(s.A, s.B, 4, Z3, t4);
     PR::put(s.A, s.B, 5, t0, t3);
   }
-  fold_products(s.A, s.B, s.R, 6 * PR::S, tid, nt);
+  fold_products(s.A, s.B, s.R, 6 * PR::S, tid, nt, sync);
+  if (lead)
+    P = {sub(PR::get(s.R, 0), PR::get(s.R, 1)),
+         add(PR::get(s.R, 2), PR::get(s.R, 3)),
+         add(PR::get(s.R, 4), PR::get(s.R, 5))};
+}
+
+// P = P + (X2 : Y2 : 1), ec_complete.py's add_mixed (alg 8) in levels, in
+// its order: X X2, Y Y2, (X + Y)(X2 + Y2), X2 Z, Y2 Z; b3 Z and b3 t4;
+// then the six products of X3, Y3, Z3.  P, X2, Y2 are lane 0's.  Inlined
+// into the leaf's loop, its one caller: as a call it kept the running sum
+// in local memory and took a tenth of the leaf's time on an H100
+// (ops/leaf_groups.py --csrc), more than inlining the two helpers it
+// shares with the fold would gain.
+template <class Curve, class Sync>
+GT_INLINE void fold_add_mixed(Point<typename Curve::F>& P,
+                              const typename Curve::F& X2,
+                              const typename Curve::F& Y2,
+                              FoldShared<typename Curve::F>& s, int tid,
+                              int nt, Sync sync) {
+  using F = typename Curve::F;
+  using PR = Prod<F>;
+  const bool lead = tid == 0;
+  if (lead) {
+    PR::put(s.A, s.B, 0, P.X, X2);
+    PR::put(s.A, s.B, 1, P.Y, Y2);
+    PR::put(s.A, s.B, 2, add(P.X, P.Y), add(X2, Y2));
+    PR::put(s.A, s.B, 3, X2, P.Z);
+    PR::put(s.A, s.B, 4, Y2, P.Z);
+  }
+  fold_products(s.A, s.B, s.R, 5 * PR::S, tid, nt, sync);
+  F t0, t1, t3, t5, v[2];  // v: the two b3 operands, Z and t4
+  if (lead) {
+    t0 = PR::get(s.R, 0);
+    t1 = PR::get(s.R, 1);
+    t3 = sub(PR::get(s.R, 2), add(t0, t1));
+    v[0] = P.Z;
+    v[1] = add(PR::get(s.R, 3), P.X);  // t4
+    t5 = add(PR::get(s.R, 4), P.Y);
+    t0 = add(dbl(t0), t0);  // 3 X1X2
+  }
+  fold_b3<Curve>(v, 2, s, tid, nt, sync);
+  if (lead) {
+    const F Z3 = add(t1, v[0]);
+    t1 = sub(t1, v[0]);
+    PR::put(s.A, s.B, 0, t3, t1);
+    PR::put(s.A, s.B, 1, t5, v[1]);
+    PR::put(s.A, s.B, 2, t1, Z3);
+    PR::put(s.A, s.B, 3, v[1], t0);
+    PR::put(s.A, s.B, 4, Z3, t5);
+    PR::put(s.A, s.B, 5, t0, t3);
+  }
+  fold_products(s.A, s.B, s.R, 6 * PR::S, tid, nt, sync);
   if (lead)
     P = {sub(PR::get(s.R, 0), PR::get(s.R, 1)),
          add(PR::get(s.R, 2), PR::get(s.R, 3)),
@@ -374,11 +434,117 @@ __global__ void __launch_bounds__(FOLD_THREADS)
   P acc, q;
   if (tid == 0) acc = load_point<Curve>(S + top, nw);
   for (int w = top - 1; w >= 0; --w) {
-    for (int k = 0; k < c; ++k) fold_dbl<Curve>(acc, sh, tid, nt);
+    for (int k = 0; k < c; ++k) fold_dbl<Curve>(acc, sh, tid, nt, BlockSync{});
     if (tid == 0) q = load_point<Curve>(S + w, nw);
-    fold_add<Curve>(acc, q, sh, tid, nt);
+    fold_add<Curve>(acc, q, sh, tid, nt, BlockSync{});
   }
   if (tid == 0) store_point<Curve>(acc, out, 1);
+}
+
+// ---- the leaf prefix, a thread group a chain -------------------------------
+
+// Threads a leaf block: 128, or 64 or 32 where the groups' FoldShared
+// slots would pass the 48 KB of static shared memory a block may hold.
+template <class F, int G>
+struct LeafBlock {
+  static constexpr long SLOT = sizeof(FoldShared<F>), MAX = 48 * 1024;
+  static constexpr int THREADS = 128 / G * SLOT <= MAX  ? 128
+                                 : 64 / G * SLOT <= MAX ? 64
+                                                        : 32;
+};
+
+// An element as its 32-bit words, limb 0 first (fp2: c0's, then c1's).
+template <class F>
+GT_HD void words_to(F& a, const uint32_t* w) {
+  static_assert(sizeof(F) == F::N * sizeof(uint32_t), "F is its words");
+  uint32_t* d = reinterpret_cast<uint32_t*>(&a);
+  for (int i = 0; i < F::N; ++i) d[i] = w[i];
+}
+
+template <class F>
+GT_HD void words_from(uint32_t* w, const F& a) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(&a);
+  for (int i = 0; i < F::N; ++i) w[i] = s[i];
+}
+
+// One 32-bit word as the two 16-bit limbs at dst[0], dst[1].
+GT_HD void store_word(int64_t* dst, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<longlong2*>(dst) = make_longlong2(v & 0xffffu, v >> 16);
+#else
+  dst[0] = v & 0xffffu;
+  dst[1] = v >> 16;
+#endif
+}
+
+// sx, sy: [nw, C, L16, R]; sorted position r*C + cs at (w, cs, :, r).
+// y limb 0 carries flags: bit 16 = infinity (skip), bit 17 = negative
+// digit (add -P).  rows: [nw, C*R, 3*L16]; row cs*R + r = X|Y|Z of the
+// running sum after step cs of lane r.
+//
+// Chain q = w*R + r runs on the G consecutive threads G q .. G q + G - 1,
+// one group inside a warp, which share a FoldShared slot and sync with
+// __syncwarp on their own lanes.  A step: the group loads the point's
+// 2 W words (W = F::N; lane j words j, j + G, ...; neighbouring groups
+// read neighbouring r) into the slot's R area; lane 0 adds it to its
+// running sum with fold_add_mixed (its products spread over the group),
+// copies the sum into the A area, and the group writes the row's 3 W
+// words, 16 bytes a word, lane j words j, j + G, ...: a warp's groups write
+// one contiguous run of rows.  Every lane reads the flags, so the
+// infinity skip is the group's, and the syncs inside the addition stay
+// among the lanes that reach them.
+template <class Curve, int G>
+__global__ void __launch_bounds__(LeafBlock<typename Curve::F, G>::THREADS)
+    leaf_prefix_kernel(const int64_t* sx, const int64_t* sy, int64_t* rows,
+                       int nw, int C, int R) {
+  using F = typename Curve::F;
+  constexpr int W = F::N;
+  static_assert(G < 32 && 32 % G == 0, "a group lies inside one warp");
+  static_assert(sizeof(FoldShared<F>::R) >= (2 * W + 1) * sizeof(uint32_t) &&
+                sizeof(FoldShared<F>::A) >= 3 * W * sizeof(uint32_t),
+                "the point and the row fit in the slot");
+  __shared__ FoldShared<F> slots[LeafBlock<F, G>::THREADS / G];
+  const long q = ((long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (q >= (long)nw * R) return;  // the whole group
+  const int lane = threadIdx.x % G;
+  const int w = (int)(q / R), r = (int)(q % R);
+  FoldShared<F>& s = slots[threadIdx.x / G];
+  uint32_t* pt = reinterpret_cast<uint32_t*>(s.R);  // x, y words, flags
+  uint32_t* sum = reinterpret_cast<uint32_t*>(s.A);  // X, Y, Z words
+  const GroupSync sync{((1u << G) - 1u) << (threadIdx.x % 32 / G * G)};
+  Point<F> acc = identity<Curve>();  // lane 0's
+  for (int cs = 0; cs < C; ++cs) {
+    const long off = ((long)w * C + cs) * F::L16 * R + r;
+    for (int i = lane; i < 2 * W; i += G) {
+      const int64_t* src = (i < W ? sx : sy) + off + 2L * (i % W) * R;
+      uint32_t lo = (uint32_t)src[0];
+      const uint32_t hi = (uint32_t)src[R];
+      if (i == W) {
+        pt[2 * W] = lo >> 16;
+        lo &= 0xffffu;
+      }
+      pt[i] = lo | hi << 16;
+    }
+    sync();
+    const uint32_t flags = pt[2 * W];
+    if (!(flags & 1u)) {
+      F px, py;
+      if (lane == 0) {
+        words_to(px, pt);
+        words_to(py, pt + W);
+        if (flags & 2u) py = neg(py);
+      }
+      fold_add_mixed<Curve>(acc, px, py, s, lane, G, sync);
+    }
+    if (lane == 0) {
+      words_from(sum, acc.X);
+      words_from(sum + W, acc.Y);
+      words_from(sum + 2 * W, acc.Z);
+    }
+    sync();
+    int64_t* row = rows + ((long)w * C * R + (long)cs * R + r) * 3 * F::L16;
+    for (int i = lane; i < 3 * W; i += G) store_word(row + 2 * i, sum[i]);
+  }
 }
 
 // ---- the chunked, windowed ladder ---------------------------------------------
@@ -497,16 +663,23 @@ __global__ void __launch_bounds__(REDUCE_LANES)
 
 #ifdef __CUDACC__
 
+template <class Curve, int G>
+int launch_leaf_prefix(const void* sx, const void* sy, void* rows, int nw,
+                       int C, int R, void* stream) {
+  constexpr int block = LeafBlock<typename Curve::F, G>::THREADS;
+  const long threads = (long)nw * R * G;
+  leaf_prefix_kernel<Curve, G><<<(unsigned)((threads + block - 1) / block),
+                                 block, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)sx, (const int64_t*)sy, (int64_t*)rows, nw, C, R);
+  return (int)cudaGetLastError();
+}
+
 #define GNARK_MSM_LAUNCHERS(NAME, CURVE)                                      \
   extern "C" int gnark_msm_leaf_prefix_##NAME(                                \
       const void* sx, const void* sy, void* rows, int nw, int C, int R,       \
       void* stream) {                                                         \
-    const long threads = (long)nw * R;                                        \
-    const int block = 128;                                                    \
-    leaf_prefix_kernel<CURVE><<<(unsigned)((threads + block - 1) / block),    \
-                                block, 0, (cudaStream_t)stream>>>(            \
-        (const int64_t*)sx, (const int64_t*)sy, (int64_t*)rows, nw, C, R);    \
-    return (int)cudaGetLastError();                                           \
+    return launch_leaf_prefix<CURVE, CURVE::LEAF_GROUP>(sx, sy, rows, nw, C,  \
+                                                        R, stream);           \
   }                                                                           \
   extern "C" int gnark_msm_lane_offsets_##NAME(                               \
       const void* tot, void* out, void* scratch, int nw, int R,               \

@@ -38,6 +38,7 @@ _SOURCES = {
 WINDOW_KERNELS = ("leaf_prefix", "lane_offsets", "weighted_sum", "horner_fold")
 KERNELS = WINDOW_KERNELS + ("ladder", "reduce")
 REDUCE_LANES = 256       # msm_kernels.cu's reduce_kernel
+LEAF_GROUP = {"g1": 4, "g2": 4}   # and G1/G2::LEAF_GROUP: threads a leaf chain
 LADDER_CHUNKS = 16       # and its ladder_kernel: chunks a scalar,
 LADDER_WINDOW = 4        # bits a window
 KINDS = ("g1", "g2")

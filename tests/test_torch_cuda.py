@@ -12,7 +12,8 @@ The file imports no jax, so it runs where the port runs:
     plain version on the same CUDA tensors, G1 and G2, bit for bit, one
     launch each: at the small proof's 4096 points, at 37 points (a
     ragged last block), with 64-bit scalars (a window a chunk) and with
-    20-bit scalars (the fold of the chunk sums starts at chunk 1);
+    20-bit scalars (the fold of the chunk sums starts at chunk 1); the G1
+    leaf also at a PLONK commitment's 2^16 + 3 points (C = 129);
   * the kernel-path MSM, through ``msm`` (the ladder at this size) and
     through the windowed plan, against the host oracle (point
     i = 2^(i mod 64) G);
@@ -112,6 +113,38 @@ def test_kernels_match_plain_on_cuda(dev, kind):
     assert torch.equal(offs, M.lane_offsets_plain(tot, GC))
     assert torch.equal(S, M.weighted_sum_plain(bk, GC))
     assert torch.equal(P, M.horner_fold_plain(S, plan.c, GC))
+
+
+@pytest.mark.cuda
+def test_leaf_prefix_matches_plain_on_cuda_at_plonk_shape(dev):
+    """The G1 leaf at a PLONK commitment's 2^16 + 3 points: 512 lanes of
+    C = 129 points (not a power of two), the padding points infinite, one
+    launch, bit for bit."""
+    G, H, gen = _group("g1")
+    n = (1 << 16) + 3
+    base, P = [], gen
+    for _ in range(64):
+        base.append(P)
+        P = H.double(P)
+    reps = -(-n // 64)
+    xs = G.F.pack([q[0] for q in base], dev).repeat(1, reps)[:, :n]
+    ys = G.F.pack([q[1] for q in base], dev).repeat(1, reps)[:, :n]
+    inf = torch.zeros(n, dtype=torch.bool, device=dev)
+    inf[::17] = True
+    rng = np.random.default_rng(12)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % R_MOD
+               for _ in range(n)]
+    sc = torch.from_numpy(
+        ints_to_limbs(scalars, BN254.fr.L).astype(np.int64)).to(dev)
+    plan = M.MSM(G, n, BN254.fr.L)
+    assert (plan.R, plan.C) == (512, 129)
+    sx, sy, _ = plan._sort_gather(*plan._prep_window(
+        xs.contiguous(), ys.contiguous(), inf, sc))
+    before = _cuda.launches["leaf_prefix_g1"]
+    rows = M.leaf_prefix(sx, sy, plan.GC)
+    torch.cuda.synchronize()
+    assert _cuda.launches["leaf_prefix_g1"] == before + 1
+    assert torch.equal(rows, M.leaf_prefix_plain(sx, sy, plan.GC))
 
 
 def _ladder_on_cuda(G, args):

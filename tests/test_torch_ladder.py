@@ -217,6 +217,7 @@ static Dim blockIdx, threadIdx, blockDim;
 #define __shared__ static
 #define __launch_bounds__(...)
 #define __syncthreads()
+#define __syncwarp(mask)
 #include "msm_kernels.cu"
 
 // one block at a time, blockDim.x = 1: every loop over a block's work

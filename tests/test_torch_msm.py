@@ -6,7 +6,8 @@
     Pippenger and the host curves, with zero scalars, infinity points and
     repeated points;
   * the CUDA kernel sources, compiled for the host with g++ and run one
-    thread at a time, against their plain versions, bit for bit
+    thread at a time, against their plain versions, bit for bit, and the
+    leaf at the card's group width with its lanes on host threads
     (tests/test_torch_cuda.py runs the kernels themselves on a card).
 
 Tolerance: none.  Limbs compare exactly; result points compare as Python
@@ -216,16 +217,18 @@ static Dim blockIdx, threadIdx, blockDim;
 #define __shared__ static
 #define __launch_bounds__(...)
 #define __syncthreads()
+#define __syncwarp(mask)
 #include "msm_kernels.cu"
 
 // Each grid runs one thread at a time (blockDim 1), which keeps every
-// phase between two barriers in order.
+// phase between two barriers in order; the leaf runs a group of one
+// thread a chain, a block a chain.
 template <class Cv> static void grid_leaf(const int64_t* sx, const int64_t* sy,
                                           int64_t* rows, int nw, int C, int R) {
   blockDim.x = 1; threadIdx.x = 0;
   for (long b = 0; b < (long)nw * R; ++b) {
     blockIdx.x = (unsigned)b;
-    leaf_prefix_kernel<Cv>(sx, sy, rows, nw, C, R);
+    leaf_prefix_kernel<Cv, 1>(sx, sy, rows, nw, C, R);
   }
 }
 template <class Cv> static void grid_lanes(const int64_t* t, int64_t* o, int nw, int R) {
@@ -269,8 +272,131 @@ def host_kernels(tmp_path_factory):
     return ctypes.CDLL(str(lib))
 
 
+# The leaf at the group widths the card runs (Curve::LEAF_GROUP): each
+# block of two groups runs on 2 G host threads, and __syncwarp is a
+# barrier of the calling thread's group, so the lanes' loads, products
+# and stores interleave as on the card, one block at a time.
+THREADED_HARNESS = r"""
+#include <barrier>
+#include <cstdint>
+#include <memory>
+#include <thread>
+#include <vector>
+struct Dim { unsigned x; };
+static Dim blockIdx, blockDim;
+static thread_local Dim threadIdx;
+static int group_size, bad_masks;
+static std::vector<std::unique_ptr<std::barrier<>>> groups;
+static void warp_sync(unsigned mask) {
+  const unsigned first = threadIdx.x % 32 / group_size * group_size;
+  if (mask != ((1u << group_size) - 1u) << first) ++bad_masks;
+  groups[threadIdx.x / group_size]->arrive_and_wait();
+}
+#define __global__
+#define __shared__ static
+#define __launch_bounds__(...)
+#define __syncthreads()
+#define __syncwarp(mask) warp_sync(mask)
+#include "msm_kernels.cu"
+
+template <class Cv> static int grid_leaf_threads(const int64_t* sx,
+    const int64_t* sy, int64_t* rows, int nw, int C, int R) {
+  constexpr int G = Cv::LEAF_GROUP, per_block = 2;
+  blockDim.x = per_block * G;
+  group_size = G;
+  bad_masks = 0;
+  const long chains = (long)nw * R;
+  for (long b = 0; b < (chains + per_block - 1) / per_block; ++b) {
+    blockIdx.x = (unsigned)b;
+    groups.clear();
+    for (int g = 0; g < per_block; ++g)
+      groups.push_back(std::make_unique<std::barrier<>>(G));
+    std::vector<std::thread> lanes;
+    for (unsigned t = 0; t < blockDim.x; ++t)
+      lanes.emplace_back([=] {
+        threadIdx.x = t;
+        leaf_prefix_kernel<Cv, G>(sx, sy, rows, nw, C, R);
+      });
+    for (auto& l : lanes) l.join();
+  }
+  return bad_masks;
+}
+extern "C" int host_leaf_threads_g1(const int64_t* a, const int64_t* b,
+    int64_t* o, int nw, int C, int R) { return grid_leaf_threads<G1>(a, b, o, nw, C, R); }
+extern "C" int host_leaf_threads_g2(const int64_t* a, const int64_t* b,
+    int64_t* o, int nw, int C, int R) { return grid_leaf_threads<G2>(a, b, o, nw, C, R); }
+extern "C" int host_leaf_group_g1() { return G1::LEAF_GROUP; }
+extern "C" int host_leaf_group_g2() { return G2::LEAF_GROUP; }
+"""
+
+
+@pytest.fixture(scope="module")
+def threaded_leaf(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    d = tmp_path_factory.mktemp("leaf_threads")
+    src = d / "harness.cpp"
+    src.write_text(THREADED_HARNESS)
+    lib = d / "libleaf_threads.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", f"-I{CSRC}", "-o", str(lib), str(src)],
+                   check=True)
+    return ctypes.CDLL(str(lib))
+
+
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _leaf_case(run, case):
+    """The leaf's inputs: the run's own (C = 6, infinity points and
+    negative digits), or its first five steps with every point of lane 3
+    flagged infinite (C = 5; that lane's rows stay the identity)."""
+    if case == "run":
+        return run.sx, run.sy
+    sx = run.sx[:, :5].contiguous()
+    sy = run.sy[:, :5].contiguous()
+    sy[:, :, 0, 3] |= 1 << 16
+    return sx, sy
+
+
+@pytest.mark.parametrize("case", ["run", "C=5, lane 3 all infinite"])
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_leaf_prefix_groups_match_plain_on_host_threads(
+        runs, threaded_leaf, kind, case):
+    """The leaf source at the card's group width, its lanes on host
+    threads, bit for bit against the plain version."""
+    run = runs[kind]
+    sx, sy = _leaf_case(run, case)
+    nw, C, L, R = sx.shape
+    want = M.leaf_prefix_plain(sx, sy, run.plan.GC)
+    out = torch.empty_like(want)
+    fn = getattr(threaded_leaf, f"host_leaf_threads_{kind}")
+    assert fn(_ptr(sx), _ptr(sy), _ptr(out), nw, C, R) == 0   # group masks
+    assert torch.equal(out, want)
+    assert getattr(threaded_leaf, f"host_leaf_group_{kind}")() == \
+        _cuda.LEAF_GROUP[kind]
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_leaf_prefix_source_all_infinite_lane_on_host(runs, host_kernels,
+                                                      kind):
+    """C = 5 (not a power of two), lane 3's points all infinite, beside
+    the run's infinity points and negative digits: the kernel source (a
+    group of one) equals the plain version, and lane 3's rows are the
+    identity (0 : 1 : 0)."""
+    run = runs[kind]
+    sx, sy = _leaf_case(run, "C=5, lane 3 all infinite")
+    nw, C, L, R = sx.shape
+    assert bool((((sy[:, :, 0] >> 17) & 1) != 0).any())
+    want = M.leaf_prefix_plain(sx, sy, run.plan.GC)
+    ident = torch.cat(run.plan.GC.inf(1, "cpu")).reshape(-1)
+    assert all(torch.equal(want[w, cs * R + 3], ident)
+               for w in range(nw) for cs in range(C))
+    out = torch.empty_like(want)
+    getattr(host_kernels, f"host_leaf_prefix_{kind}")(
+        _ptr(sx), _ptr(sy), _ptr(out), nw, C, R)
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("kernel", ["leaf_prefix", "lane_offsets",
