@@ -28,11 +28,12 @@ always measured:
      below, for G2 also at 2^16 points (the ladder's plain version on
      4096 points spread over all of them), and the G1 leaf also at the
      PLONK commitment's 2^16 + 3 points.  The Horner fold, a chain of
-     point operations, and the leaf prefix, a chain of mixed additions a
-     thread group, also get their critical path: the levels of products on
-     the longest dependent chain times the latency of one dependent
-     product (the montmul_bn254 chain launched on one element, in one
-     thread);
+     point operations, the leaf prefix, a chain of mixed additions a
+     thread group, and the weighted sum, a wavefront over the halving
+     fold's dependency graph, also get their critical path: the levels of
+     products on the longest dependent chain times the latency of one
+     dependent product (the montmul_bn254 chain launched on one element,
+     in one thread);
   4. MSMs against a host oracle (point i = 2^(i mod 64) G), G1 and G2: at
      2^16 the windowed plan, kernel path and plain path, in points/s; and
      the ladder against the windowed plan, kernel paths, at 4096 and 2^16
@@ -100,6 +101,8 @@ POINT_PRODUCTS = {
 # levels of independent base products of the Horner fold kernel's
 # doubling and addition, (G1, G2): G2's b3 product is a level of its own
 FOLD_LEVELS = {"pdbl": (2, 3), "padd": (2, 3)}
+# and their base products, level by level (fold_dbl, fold_add)
+FOLD_PRODUCTS = {"pdbl": ((4, 4), (12, 3, 12)), "padd": ((6, 6), (18, 6, 18))}
 # base products of each level of the leaf kernel's mixed addition, (G1,
 # G2): 5 then 6; G2 15, its two b3 products (6), then 18.  A group of G
 # lanes runs a level of m in ceil(m / G) rounds.
@@ -133,11 +136,11 @@ def ptxas_summary(report):
     out, name, props = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Function properties for _Z\d+(\w+_kernel)I2(G[12])"
-                      r"(?:Li(\d+)E)?E", line)
+                      r"((?:Li\d+E)*)E", line)
         if "Function properties for" in line:
-            name = (f"{m.group(1)}<{m.group(2)}"
-                    + (f", {m.group(3)}>" if m.group(3) else ">")
-                    if m else None)
+            name = (f"{m.group(1)}<" + ", ".join(
+                [m.group(2)] + re.findall(r"Li(\d+)E", m.group(3))) + ">"
+                if m else None)
             props = ""
         elif name and "stack frame" in line:
             props = line.strip()
@@ -476,8 +479,11 @@ def warps_per_sm(name, kind, args):
     t = [a for a in args if hasattr(a, "shape")]
     if name == "leaf_prefix":
         threads = t[0].shape[0] * t[0].shape[3] * _cuda.LEAF_GROUP[kind]
-    elif name in ("lane_offsets", "weighted_sum"):
+    elif name == "lane_offsets":
         threads = t[0].shape[1] * 256
+    elif name == "weighted_sum":
+        threads = (t[0].shape[1] * _cuda.WSUM_THREADS[kind]
+                   * _cuda.WSUM_CLUSTER[kind])
     elif name == "horner_fold":
         threads = 32
     elif name == "ladder":
@@ -501,6 +507,25 @@ def leaf_critical_path(kind, sy, latency_ms):
     adds = int((((sy[:, :, 0, :] >> 16) & 1) == 0).sum(1).max())
     return (adds, len(levels), rounds, adds * len(levels) * latency_ms,
             adds * rounds * latency_ms)
+
+
+def wsum_critical_path(kind, bk, latency_ms):
+    """The weighted sum's critical path at nb = 2^K buckets: the 3K - 2
+    operations of the halving fold's dependency graph (K >= 2; K - 1 tree
+    levels, K - 1 doublings, K - 1 W additions and B + W), as (additions,
+    doublings, their levels of products, that path in ms at the measured
+    latency of one dependent product by levels, lane 0's rounds of
+    products at the group width, that path by rounds)."""
+    from gnark_tpu_torch.ops import _cuda
+    k = 0 if kind == "g1" else 1
+    K = bk.shape[-1].bit_length() - 1
+    adds, dbls = 2 * K - 1, K - 1
+    levels = adds * FOLD_LEVELS["padd"][k] + dbls * FOLD_LEVELS["pdbl"][k]
+    g = _cuda.WSUM_GROUP[kind]
+    rounds = (adds * sum(-(-m // g) for m in FOLD_PRODUCTS["padd"][k])
+              + dbls * sum(-(-m // g) for m in FOLD_PRODUCTS["pdbl"][k]))
+    return (adds, dbls, levels, levels * latency_ms, rounds,
+            rounds * latency_ms)
 
 
 def fold_critical_path(kind, S, c, latency_ms):
@@ -647,7 +672,8 @@ def compare(kind, name, args, kern, plain, rates, work=None):
     """One kernel against its plain version on the same tensors: asserts
     equal limbs and that the kernel does not beat its bound, and returns
     the error, both times, the bounds and the warps a launch gives each
-    SM (and the Horner fold's and the leaf's critical paths)."""
+    SM (and the critical paths of the Horner fold, the leaf and the
+    weighted sum)."""
     import torch
     from gnark_tpu_torch.ops import _cuda
     out_k = kern(*args)
@@ -677,6 +703,17 @@ def compare(kind, name, args, kern, plain, rates, work=None):
                  f"{rounds} rounds of products an addition on lane 0 at "
                  f"G = {_cuda.LEAF_GROUP[kind]}: {by_rounds:.4g} ms "
                  f"({share(by_rounds / ms)})")
+    elif work == "weighted_sum":
+        adds, dbls, lv, b["critical_path_ms"], rounds, by_rounds = \
+            wsum_critical_path(kind, args[0], rates[2])
+        extra = (f"; critical path {adds} additions + {dbls} doublings, "
+                 f"{lv} levels of products x {rates[2] * 1e6:.1f} ns = "
+                 f"{b['critical_path_ms']:.4g} ms "
+                 f"({share(b['critical_path_ms'] / ms)} of it reached), "
+                 f"{rounds} rounds of products on lane 0 at G = "
+                 f"{_cuda.WSUM_GROUP[kind]}: {by_rounds:.4g} ms "
+                 f"({share(by_rounds / ms)}); {_cuda.WSUM_CLUSTER[kind]} "
+                 f"block(s) of {_cuda.WSUM_THREADS[kind]} threads a window")
     log(f"[kernels {kind}] {name}: bit-exact (tolerance 0), "
         f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{b['bound_ms']:.4g} ms by {b['bound_by']} ({products} field "

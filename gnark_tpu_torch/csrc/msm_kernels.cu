@@ -42,8 +42,20 @@
 //     each row together.
 //   * lane_offsets: one block per window, a Hillis-Steele scan over the R
 //     lane totals in ping-pong buffers in device memory.
-//   * weighted_sum: one block per window, the halving fold of the plain
-//     version, each level spread over the block's threads.
+//   * weighted_sum: the plain version's halving fold is a chain of about
+//     110 point operations if each level waits for the last, but its
+//     dependency graph is 3K - 2 operations deep at nb = 2^K buckets (28
+//     at 1,024: the tree sums of all levels are ready after K - 1, their
+//     doublings run side by side, then the W additions).  A window's
+//     cluster of WSUM_CLUSTER blocks runs that graph as a wavefront, step
+//     by step with a cluster barrier between: each step's independent
+//     operations go to the blocks' groups of WSUM_GROUP threads, each
+//     operation as levels of products over its group, as in the leaf.  The
+//     first steps (768, 512, 320, ... operations a window) are bound by the
+//     products, the last twenty (one to nine) by the chain's latency; four
+//     blocks of 256 threads a window were the fastest on an H100, with
+//     groups of 4 (G1) and 8 (G2) (ops/leaf_groups.py --kernel
+//     weighted_sum: one block a window, or eight, was slower).
 //   * horner_fold: a chain of point operations, so bound by the latency of
 //     its longest chain of dependent products, not by their number.  One
 //     block of one warp; each point operation runs as levels of
@@ -67,17 +79,20 @@
 //     the K chunk sums, sum_j 2^(jB) T_j, is horner_fold with c = B.
 // The complete formulas (ec_complete.cuh) take the identity, P + P and
 // P + (-P) without a branch, so every lane of a warp runs the same code.
-// None uses wgmma, TMA or clusters.
+// None uses wgmma or TMA; only the weighted sum uses clusters.
 //
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
 // out), so a host harness that defines blockIdx, threadIdx, blockDim,
 // __global__, __shared__, __launch_bounds__, __syncthreads and __syncwarp
 // can run a grid one block at a time with blockDim.x = 1: every loop over
 // a block's work steps by blockDim.x, and every loop over a leaf group's
-// by G, so leaf_prefix_kernel<Curve, 1> (a group of one) and the other
-// kernels run on one thread that does it all, in order.
+// by G, so leaf_prefix_kernel<Curve, 1> and weighted_sum_kernel<Curve, 1,
+// 1, 1> (groups of one) and the other kernels run on one thread that does
+// it all, in order.  On the host the weighted sum's slots are a static
+// array.
 
 #ifdef __CUDACC__
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #endif
 
@@ -95,6 +110,8 @@ struct G1 {
   using F = Fp<BN254Fp>;
   static constexpr bool B3_PRODUCT = false;
   static constexpr int LEAF_GROUP = 4;  // threads a leaf chain
+  // threads a weighted-sum operation, threads a block, blocks a window
+  static constexpr int WSUM_GROUP = 4, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
   // resident ladder blocks an SM: caps G1's registers at 128 (ptxas takes
   // 164 otherwise, and 12 warps an SM stay resident, not 16)
   static constexpr int LADDER_BLOCKS = 4;
@@ -106,6 +123,7 @@ struct G2 {
   using F = Fp2<BN254Fp>;
   static constexpr bool B3_PRODUCT = true;  // b3 * a is a full fp2 product
   static constexpr int LEAF_GROUP = 4;
+  static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
   static constexpr int LADDER_BLOCKS = 2;
   // b' = 3 / (9 + u); b3 = 3b' in Montgomery form
   GT_HD static F b3() {
@@ -152,54 +170,6 @@ __global__ void __launch_bounds__(256)
   for (int r = threadIdx.x; r < R; r += blockDim.x)
     store_point<Curve>(r >= 1 ? a[r - 1] : identity<Curve>(),
                        out + (long)w * R + r, stride);
-}
-
-// bk: [3*L16, nw, nb] with nb a power of two; out: [3*L16, nw] with
-// out[w] = sum_j (j+1) * bk[w, j].  Halving fold: with H = m/2,
-//   sum_{j<m} (j+1) B_j = sum_{j<H} (j+1) (B_j + B_{H+j}) + H sum_{j<H} B_{H+j};
-// the high half is tree-summed, doubled log2(H) times into W, and the
-// array folds in half.  scratch: nw * (nb + nb/2 + 1) points.
-template <class Curve>
-__global__ void __launch_bounds__(256)
-    weighted_sum_kernel(const int64_t* bk, int64_t* out,
-                        Point<typename Curve::F>* scratch, int nw, int nb) {
-  using P = Point<typename Curve::F>;
-  const int w = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long stride = (long)nw * nb;
-  P* B = scratch + (long)w * (nb + nb / 2 + 1);
-  P* T = B + nb;
-  P* W = T + nb / 2;
-  for (int j = tid; j < nb; j += nt)
-    B[j] = load_point<Curve>(bk + (long)w * nb + j, stride);
-  __syncthreads();
-  bool have_w = false;
-  for (int m = nb; m > 1; m /= 2) {
-    const int H = m / 2;
-    if (H == 1) {
-      if (tid == 0) T[0] = B[1];
-    } else {
-      for (int j = tid; j < H / 2; j += nt)
-        T[j] = padd<Curve>(B[H + j], B[H + H / 2 + j]);
-      __syncthreads();
-      for (int t = H / 2; t > 1; t /= 2) {
-        for (int j = tid; j < t / 2; j += nt)
-          T[j] = padd<Curve>(T[j], T[j + t / 2]);
-        __syncthreads();
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      P hs = T[0];
-      for (int h = H; h > 1; h >>= 1) hs = pdbl<Curve>(hs);
-      *W = have_w ? padd<Curve>(*W, hs) : hs;
-    }
-    have_w = true;
-    for (int j = tid; j < H; j += nt) B[j] = padd<Curve>(B[j], B[H + j]);
-    __syncthreads();
-  }
-  if (tid == 0)
-    store_point<Curve>(have_w ? padd<Curve>(B[0], *W) : B[0], out + w, nw);
 }
 
 // ---- point operations as levels of independent products ------------------
@@ -441,6 +411,141 @@ __global__ void __launch_bounds__(FOLD_THREADS)
   if (tid == 0) store_point<Curve>(acc, out, 1);
 }
 
+// ---- the weighted bucket sum, a wavefront over the halving fold ----------
+
+// The steps of the halving fold's dependency graph at nb = 2^K buckets (K
+// >= 1), one point operation deep each: with H = 2^(k-1) at level k,
+//   the fold B[j] = B[j] + B[H+j], j < H                at step K + 1 - k,
+//   sub-level i of the tree over B[H, 2H)               at step K - k + i,
+//   the j-th doubling of that tree's sum (hs_k = H sum) at step K - 1 + j,
+//   W_k = W_{k+1} + hs_k (W_K = hs_K)                   at step 3K - 2 - k,
+//   S = B[0] + W_1                                      last.
+GT_HD int wsum_steps(int K) { return K + 1 > 3 * K - 2 ? K + 1 : 3 * K - 2; }
+
+// The barrier between two steps: the block's, or that of a cluster of
+// blocks (a threaded host harness defines cluster_sync).
+#ifdef __CUDACC__
+GT_INLINE void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+#else
+void cluster_sync();
+#endif
+template <int CLUSTER>
+GT_INLINE void wsum_sync() {
+  if constexpr (CLUSTER == 1)
+    __syncthreads();
+  else
+    cluster_sync();
+}
+
+// bk: [3*L16, nw, nb] with nb a power of two; out: [3*L16, nw] with
+// out[w] = sum_j (j+1) * bk[w, j], by the plain version's halving fold
+//   sum_{j<m} (j+1) B_j = sum_{j<H} (j+1) (B_j + B_{H+j}) + H sum_{j<H} B_{H+j}
+// with the same operations on the same operands in the same order per
+// chain; only when each runs changes.  A window's CLUSTER blocks (one, or
+// a thread-block cluster) run the steps of wsum_steps, a barrier between
+// two; the operations of one step are independent and dealt out to the
+// blocks' groups of G threads, each run
+// as levels of products over its group (fold_add, fold_dbl) with lane 0
+// loading the operands from scratch and storing the result.  scratch: nw
+// * (nb + nb/2) points a window: B (folded in place: a step's trees read
+// only the high half), level k's tree (in place, its sum doubled there) at
+// T + 2^(k-2) - 1 for k >= 2 (level 1's sum is B[1]), and W.  The groups'
+// FoldShared slots are dynamic shared memory (above 48 KB for G2).
+template <class Curve, int G, int THREADS, int CLUSTER>
+__global__ void __launch_bounds__(THREADS)
+    weighted_sum_kernel(const int64_t* bk, int64_t* out,
+                        Point<typename Curve::F>* scratch, int nw, int nb) {
+  using F = typename Curve::F;
+  using P = Point<F>;
+  static_assert(G < 32 && 32 % G == 0, "a group lies inside one warp");
+  const int w = blockIdx.x / CLUSTER, rank = blockIdx.x % CLUSTER;
+#ifdef __CUDACC__
+  extern __shared__ __align__(16) unsigned char wsum_shared[];
+  FoldShared<F>* slots = reinterpret_cast<FoldShared<F>*>(wsum_shared);
+#else
+  __shared__ FoldShared<F> cluster_slots[CLUSTER][THREADS / G];
+  FoldShared<F>* slots = cluster_slots[rank];
+#endif
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid % G, groups = CLUSTER * nt / G;
+  const int group = rank * (nt / G) + tid / G;  // in the window's cluster
+  FoldShared<F>& sh = slots[tid / G];
+  const GroupSync sync{((1u << G) - 1u) << (tid % 32 / G * G)};
+  const long stride = (long)nw * nb;
+  P* B = scratch + (long)w * (nb + nb / 2);
+  P* T = B + nb;
+  P* W = T + nb / 2 - 1;  // W_k for k < K
+  auto hs = [&](int k) { return k >= 2 ? T + (1 << (k - 2)) - 1 : B + 1; };
+  int K = 0;
+  while ((1 << K) < nb) ++K;
+  for (int j = rank * nt + tid; j < nb; j += CLUSTER * nt)
+    B[j] = load_point<Curve>(bk + (long)w * nb + j, stride);
+  wsum_sync<CLUSTER>();
+  if (K == 0) {
+    if (rank == 0 && tid == 0) store_point<Curve>(B[0], out + w, nw);
+    return;
+  }
+  const int D = wsum_steps(K);
+  for (int s = 1; s <= D; ++s) {
+    // this step's operations, in this order: the fold of level K + 1 - s;
+    // sub-level s - (K - k) of the trees of levels k = K .. K + 1 - s,
+    // `per` additions each; doubling s - K + 1 of levels k = K ..
+    // s - K + 2; then W_{3K-2-s}, or S
+    const int nf = s <= K ? 1 << (K - s) : 0;
+    const int per = s < K ? 1 << (K - 1 - s) : 0;
+    const int ntr = s * per;
+    const int nd = s >= K && s <= 2 * K - 2 ? 2 * K - 1 - s : 0;
+    const int nwk = s == D || (s >= 2 * K - 1 && s <= 3 * K - 3) ? 1 : 0;
+    const int nops = nf + ntr + nd + nwk;
+    for (int o = group; o < nops; o += groups) {
+      P a, b;  // lane 0's
+      P* dst = nullptr;
+      bool dbl = false;
+      if (o < nf) {
+        dst = B + o;
+        if (lane == 0) {
+          a = B[o];
+          b = B[nf + o];
+        }
+      } else if (o < nf + ntr) {
+        const int q = o - nf, k = K - q / per, j = q % per;
+        P* Tk = hs(k);
+        dst = Tk + j;
+        if (lane == 0) {
+          const P* src = s == K - k + 1 ? B + (1 << (k - 1)) : Tk;
+          a = src[j];
+          b = src[per + j];
+        }
+      } else if (o < nf + ntr + nd) {
+        dst = hs(K - (o - nf - ntr));
+        dbl = true;
+        if (lane == 0) a = *dst;
+      } else if (s < D) {
+        const int k = 3 * K - 2 - s;
+        dst = W;
+        if (lane == 0) {
+          a = k == K - 1 ? *hs(K) : *W;
+          b = *hs(k);
+        }
+      } else if (lane == 0) {
+        a = B[0];
+        b = K == 1 ? *hs(1) : *W;
+      }
+      if (dbl)
+        fold_dbl<Curve>(a, sh, lane, G, sync);
+      else
+        fold_add<Curve>(a, b, sh, lane, G, sync);
+      if (lane == 0) {
+        if (dst)
+          *dst = a;
+        else
+          store_point<Curve>(a, out + w, nw);
+      }
+    }
+    wsum_sync<CLUSTER>();
+  }
+}
+
 // ---- the leaf prefix, a thread group a chain -------------------------------
 
 // Threads a leaf block: 128, or 64 or 32 where the groups' FoldShared
@@ -674,6 +779,41 @@ int launch_leaf_prefix(const void* sx, const void* sy, void* rows, int nw,
   return (int)cudaGetLastError();
 }
 
+// Above 48 KB of FoldShared slots a block needs the dynamic shared memory
+// attribute, which the kernel keeps once set; a cluster of blocks a window
+// is a launch attribute.
+template <class Curve, int G, int THREADS, int CLUSTER>
+int launch_weighted_sum(const void* bk, void* out, void* scratch, int nw,
+                        int nb, void* stream) {
+  using P = Point<typename Curve::F>;
+  constexpr int shared =
+      THREADS / G * (int)sizeof(FoldShared<typename Curve::F>);
+  static_assert(shared <= 227 * 1024, "the slots pass a block's shared memory");
+  static_assert(CLUSTER >= 1 && CLUSTER <= 8, "a portable cluster");
+  const auto kern = weighted_sum_kernel<Curve, G, THREADS, CLUSTER>;
+  if (shared > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)nw * CLUSTER);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = shared;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CLUSTER > 1 ? 1 : 0;
+  const cudaError_t rc =
+      cudaLaunchKernelEx(&cfg, kern, (const int64_t*)bk, (int64_t*)out,
+                         (P*)scratch, nw, nb);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
 #define GNARK_MSM_LAUNCHERS(NAME, CURVE)                                      \
   extern "C" int gnark_msm_leaf_prefix_##NAME(                                \
       const void* sx, const void* sy, void* rows, int nw, int C, int R,       \
@@ -692,10 +832,9 @@ int launch_leaf_prefix(const void* sx, const void* sy, void* rows, int nw,
   extern "C" int gnark_msm_weighted_sum_##NAME(                               \
       const void* bk, void* out, void* scratch, int nw, int nb,               \
       void* stream) {                                                         \
-    weighted_sum_kernel<CURVE><<<nw, 256, 0, (cudaStream_t)stream>>>(         \
-        (const int64_t*)bk, (int64_t*)out, (Point<CURVE::F>*)scratch, nw,     \
-        nb);                                                                  \
-    return (int)cudaGetLastError();                                           \
+    return launch_weighted_sum<CURVE, CURVE::WSUM_GROUP, CURVE::WSUM_THREADS, \
+                               CURVE::WSUM_CLUSTER>(bk, out, scratch, nw, nb, \
+                                                    stream);                  \
   }                                                                           \
   extern "C" int gnark_msm_horner_fold_##NAME(const void* S, void* out,       \
                                               int nw, int c, void* stream) {  \

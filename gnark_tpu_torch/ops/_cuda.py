@@ -39,6 +39,11 @@ WINDOW_KERNELS = ("leaf_prefix", "lane_offsets", "weighted_sum", "horner_fold")
 KERNELS = WINDOW_KERNELS + ("ladder", "reduce")
 REDUCE_LANES = 256       # msm_kernels.cu's reduce_kernel
 LEAF_GROUP = {"g1": 4, "g2": 4}   # and G1/G2::LEAF_GROUP: threads a leaf chain
+# and G1/G2::WSUM_GROUP, WSUM_THREADS, WSUM_CLUSTER: threads a
+# weighted-sum operation, threads a block, blocks a window
+WSUM_GROUP = {"g1": 4, "g2": 8}
+WSUM_THREADS = {"g1": 256, "g2": 256}
+WSUM_CLUSTER = {"g1": 4, "g2": 4}
 LADDER_CHUNKS = 16       # and its ladder_kernel: chunks a scalar,
 LADDER_WINDOW = 4        # bits a window
 KINDS = ("g1", "g2")
@@ -214,7 +219,8 @@ def weighted_sum(bk, kind):
     if nb & (nb - 1):
         raise ValueError(f"bucket count {nb} is not a power of two")
     out = torch.empty((L3, nw), dtype=torch.int64, device=bk.device)
-    scratch = _scratch(nw * (nb + nb // 2 + 1), kind, bk.device)
+    # a window's buckets folded in place, its levels' trees, and W
+    scratch = _scratch(nw * (nb + nb // 2), kind, bk.device)
     _launch("weighted_sum", kind, bk.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), nw, nb)
     return out

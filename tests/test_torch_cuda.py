@@ -7,6 +7,8 @@ The file imports no jax, so it runs where the port runs:
 
 (``--noconftest`` leaves out tests/conftest.py, which imports jax.)
 
+  * the weighted sum at the 2^16 plan's 24 windows of 1,024 buckets, at
+    2 buckets, and with nine windows in ten all the identity;
   * each of the four windowed-MSM kernels, the ladder kernel, the
     per-chunk reduction kernel and the fold of the chunk sums against its
     plain version on the same CUDA tensors, G1 and G2, bit for bit, one
@@ -31,6 +33,7 @@ step, the plain version's ``a * y + y`` twice.
 """
 
 import random
+import re
 
 import numpy as np
 import pytest
@@ -145,6 +148,46 @@ def test_leaf_prefix_matches_plain_on_cuda_at_plonk_shape(dev):
     torch.cuda.synchronize()
     assert _cuda.launches["leaf_prefix_g1"] == before + 1
     assert torch.equal(rows, M.leaf_prefix_plain(sx, sy, plan.GC))
+
+
+def _buckets(kind, dev, nw, nb, live):
+    """[3L, nw, nb] buckets: 2^(i mod 64) G plus 2^((i + 1) mod 64) G by
+    the complete addition (so Z != 1), windows outside ``live`` all the
+    identity (0 : 1 : 0)."""
+    G, H, gen = _group(kind)
+    GC = M.complete_ops(G)
+    base, P = [], gen
+    for _ in range(64):
+        base.append(P)
+        P = H.double(P)
+    n = nw * nb
+    xs = G.F.pack([q[0] for q in base], dev).repeat(1, -(-n // 64))[:, :n]
+    ys = G.F.pack([q[1] for q in base], dev).repeat(1, -(-n // 64))[:, :n]
+    P = (xs, ys, G.F.ones(n, dev))
+    B = GC.add(P, tuple(a.roll(-1, -1) for a in P))
+    keep = torch.zeros(nw, dtype=torch.bool, device=dev)
+    keep[list(live)] = True
+    keep = keep.repeat_interleave(nb)
+    B = tuple(torch.where(keep, b, i) for b, i in zip(B, GC.inf(n, dev)))
+    return GC, torch.cat(B).reshape(-1, nw, nb).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nw=24 nb=1024", "nw=24 nb=2",
+                                  "nw=20 nb=1024, 9 windows in 10 identity"])
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_weighted_sum_matches_plain_on_cuda(dev, kind, case):
+    """The weighted sum at the 2^16 plan's shape (24 windows of 1,024
+    buckets), at nb = 2 (no tree, no doubling), and with nine windows in
+    ten all the identity: one launch each, bit for bit."""
+    nw, nb = (int(v) for v in re.findall(r"=(\d+)", case)[:2])
+    live = range(9, nw, 10) if "identity" in case else range(nw)
+    GC, bk = _buckets(kind, dev, nw, nb, live)
+    before = _cuda.launches[f"weighted_sum_{kind}"]
+    S = M.weighted_sum(bk, GC)
+    torch.cuda.synchronize()
+    assert _cuda.launches[f"weighted_sum_{kind}"] == before + 1
+    assert torch.equal(S, M.weighted_sum_plain(bk, GC))
 
 
 def _ladder_on_cuda(G, args):

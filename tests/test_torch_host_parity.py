@@ -110,17 +110,12 @@ def _case(name):
 
 def same(a, b, path="cs"):
     """Deep equality over dataclasses, arrays, lists and dicts; classes of
-    the two packages match by name.  A hint's uuid hashes its function's
-    module path, which names the package: there the registered names are
-    compared, each without its package."""
+    the two packages match by name.  A hint's uuid compares as it is: the
+    built-ins carry the reference's names in both packages."""
     if dataclasses.is_dataclass(a) and not isinstance(a, type):
         assert type(a).__name__ == type(b).__name__, path
         for f in dataclasses.fields(a):
-            x, y = getattr(a, f.name), getattr(b, f.name)
-            if type(a).__name__ == "Hint" and f.name == "uuid":
-                x = jax_hints.name_of(x).removeprefix("gnark_tpu.")
-                y = torch_hints.name_of(y).removeprefix("gnark_tpu_torch.")
-            same(x, y, f"{path}.{f.name}")
+            same(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
     elif isinstance(a, np.ndarray):
         assert a.dtype == b.dtype and np.array_equal(a, b), path
     elif isinstance(a, (list, tuple)):
@@ -133,6 +128,28 @@ def same(a, b, path="cs"):
             same(a[k], b[k], f"{path}[{k!r}]")
     else:
         assert a == b, path
+
+
+BUILTIN_HINTS = ("is_zero", "n_bits", "ith_bit", "inv_zero")
+
+
+@pytest.mark.parametrize("hint", BUILTIN_HINTS)
+def test_builtin_hint_uuids_agree(hint):
+    """A built-in hint has one uuid in both packages, and each registry
+    finds its own function under it, so a constraint system that calls it
+    binds in either."""
+    fn, ref = getattr(torch_hints, hint), getattr(jax_hints, hint)
+    uid = torch_hints.uuid_of(fn)
+    assert uid == jax_hints.uuid_of(ref)
+    assert torch_hints.get(uid) is fn and jax_hints.get(uid) is ref
+    assert torch_hints.name_of(uid) == jax_hints.name_of(uid)
+
+
+def test_every_port_builtin_hint_is_checked():
+    """The port registers no built-in that BUILTIN_HINTS leaves out."""
+    own = {f.__name__ for f in torch_hints.all_registered().values()
+           if f.__module__ == torch_hints.__name__}
+    assert own == set(BUILTIN_HINTS)
 
 
 @pytest.mark.parametrize("scheme", ["groth16", "plonk"])

@@ -241,9 +241,9 @@ template <class Cv> static void grid_fold(const int64_t* S, int64_t* o, int nw, 
   horner_fold_kernel<Cv>(S, o, nw, c);
 }
 template <class Cv> static void grid_wsum(const int64_t* b, int64_t* o, int nw, int nb) {
-  std::vector<Point<typename Cv::F>> s((long)nw * (nb + nb / 2 + 1));
+  std::vector<Point<typename Cv::F>> s((long)nw * (nb + nb / 2));
   blockDim.x = 1; threadIdx.x = 0;
-  for (int w = 0; w < nw; ++w) { blockIdx.x = w; weighted_sum_kernel<Cv>(b, o, s.data(), nw, nb); }
+  for (int w = 0; w < nw; ++w) { blockIdx.x = w; weighted_sum_kernel<Cv, 1, 1, 1>(b, o, s.data(), nw, nb); }
 }
 #define HOST_GRIDS(NAME, CV)                                                  \
   extern "C" void host_leaf_prefix_##NAME(const int64_t* a, const int64_t* b, \
@@ -275,7 +275,11 @@ def host_kernels(tmp_path_factory):
 # The leaf at the group widths the card runs (Curve::LEAF_GROUP): each
 # block of two groups runs on 2 G host threads, and __syncwarp is a
 # barrier of the calling thread's group, so the lanes' loads, products
-# and stores interleave as on the card, one block at a time.
+# and stores interleave as on the card, one block at a time.  The weighted
+# sum at the card's group width, block size and blocks a window
+# (Curve::WSUM_GROUP, WSUM_THREADS, WSUM_CLUSTER), a window's blocks on
+# that many host threads, with __syncthreads a barrier over the block and
+# cluster_sync one over the window's blocks.
 THREADED_HARNESS = r"""
 #include <barrier>
 #include <cstdint>
@@ -283,42 +287,75 @@ THREADED_HARNESS = r"""
 #include <thread>
 #include <vector>
 struct Dim { unsigned x; };
-static Dim blockIdx, blockDim;
-static thread_local Dim threadIdx;
+static Dim blockDim;
+static thread_local Dim threadIdx, blockIdx;
 static int group_size, bad_masks;
-static std::vector<std::unique_ptr<std::barrier<>>> groups;
+// the running cluster's barriers: a group's, a block's, the cluster's
+static std::vector<std::unique_ptr<std::barrier<>>> groups, blocks;
+static std::unique_ptr<std::barrier<>> cluster;
+static unsigned first_block;
+static unsigned block_rank() { return blockIdx.x - first_block; }
 static void warp_sync(unsigned mask) {
   const unsigned first = threadIdx.x % 32 / group_size * group_size;
   if (mask != ((1u << group_size) - 1u) << first) ++bad_masks;
-  groups[threadIdx.x / group_size]->arrive_and_wait();
+  groups[block_rank() * (blockDim.x / group_size) + threadIdx.x / group_size]
+      ->arrive_and_wait();
 }
+void cluster_sync() { cluster->arrive_and_wait(); }
 #define __global__
 #define __shared__ static
 #define __launch_bounds__(...)
-#define __syncthreads()
+#define __syncthreads() blocks[block_rank()]->arrive_and_wait()
 #define __syncwarp(mask) warp_sync(mask)
 #include "msm_kernels.cu"
+
+// blocks b .. b + n - 1, run together as one cluster, of `threads` host
+// threads each, in groups of g, each thread running body()
+template <class Body> static void run_cluster(unsigned b, int n, int threads,
+                                              int g, Body body) {
+  first_block = b;
+  blockDim.x = threads;
+  group_size = g;
+  groups.clear();
+  blocks.clear();
+  for (int i = 0; i < n * threads / g; ++i)
+    groups.push_back(std::make_unique<std::barrier<>>(g));
+  for (int i = 0; i < n; ++i)
+    blocks.push_back(std::make_unique<std::barrier<>>(threads));
+  cluster = std::make_unique<std::barrier<>>(n * threads);
+  std::vector<std::thread> lanes;
+  for (int i = 0; i < n; ++i)
+    for (int t = 0; t < threads; ++t)
+      lanes.emplace_back([=] {
+        blockIdx.x = b + i;
+        threadIdx.x = t;
+        body();
+      });
+  for (auto& l : lanes) l.join();
+}
 
 template <class Cv> static int grid_leaf_threads(const int64_t* sx,
     const int64_t* sy, int64_t* rows, int nw, int C, int R) {
   constexpr int G = Cv::LEAF_GROUP, per_block = 2;
-  blockDim.x = per_block * G;
-  group_size = G;
   bad_masks = 0;
   const long chains = (long)nw * R;
-  for (long b = 0; b < (chains + per_block - 1) / per_block; ++b) {
-    blockIdx.x = (unsigned)b;
-    groups.clear();
-    for (int g = 0; g < per_block; ++g)
-      groups.push_back(std::make_unique<std::barrier<>>(G));
-    std::vector<std::thread> lanes;
-    for (unsigned t = 0; t < blockDim.x; ++t)
-      lanes.emplace_back([=] {
-        threadIdx.x = t;
-        leaf_prefix_kernel<Cv, G>(sx, sy, rows, nw, C, R);
-      });
-    for (auto& l : lanes) l.join();
-  }
+  for (long b = 0; b < (chains + per_block - 1) / per_block; ++b)
+    run_cluster((unsigned)b, 1, per_block * G, G,
+                [=] { leaf_prefix_kernel<Cv, G>(sx, sy, rows, nw, C, R); });
+  return bad_masks;
+}
+// the weighted sum at its shipped group width, block size and blocks a
+// window, a window's cluster at a time
+template <class Cv> static int grid_wsum_threads(const int64_t* bk, int64_t* out,
+                                                 int nw, int nb) {
+  constexpr int G = Cv::WSUM_GROUP, T = Cv::WSUM_THREADS, CL = Cv::WSUM_CLUSTER;
+  std::vector<Point<typename Cv::F>> s((long)nw * (nb + nb / 2));
+  Point<typename Cv::F>* scratch = s.data();
+  bad_masks = 0;
+  for (int w = 0; w < nw; ++w)
+    run_cluster((unsigned)(w * CL), CL, T, G, [=] {
+      weighted_sum_kernel<Cv, G, T, CL>(bk, out, scratch, nw, nb);
+    });
   return bad_masks;
 }
 extern "C" int host_leaf_threads_g1(const int64_t* a, const int64_t* b,
@@ -327,6 +364,16 @@ extern "C" int host_leaf_threads_g2(const int64_t* a, const int64_t* b,
     int64_t* o, int nw, int C, int R) { return grid_leaf_threads<G2>(a, b, o, nw, C, R); }
 extern "C" int host_leaf_group_g1() { return G1::LEAF_GROUP; }
 extern "C" int host_leaf_group_g2() { return G2::LEAF_GROUP; }
+extern "C" int host_wsum_threads_g1(const int64_t* a, int64_t* o, int nw,
+    int nb) { return grid_wsum_threads<G1>(a, o, nw, nb); }
+extern "C" int host_wsum_threads_g2(const int64_t* a, int64_t* o, int nw,
+    int nb) { return grid_wsum_threads<G2>(a, o, nw, nb); }
+extern "C" int host_wsum_group_g1() { return G1::WSUM_GROUP; }
+extern "C" int host_wsum_group_g2() { return G2::WSUM_GROUP; }
+extern "C" int host_wsum_block_g1() { return G1::WSUM_THREADS; }
+extern "C" int host_wsum_block_g2() { return G2::WSUM_THREADS; }
+extern "C" int host_wsum_cluster_g1() { return G1::WSUM_CLUSTER; }
+extern "C" int host_wsum_cluster_g2() { return G2::WSUM_CLUSTER; }
 """
 
 
@@ -376,6 +423,58 @@ def test_leaf_prefix_groups_match_plain_on_host_threads(
     assert torch.equal(out, want)
     assert getattr(threaded_leaf, f"host_leaf_group_{kind}")() == \
         _cuda.LEAF_GROUP[kind]
+
+
+def _wsum_case(run, case):
+    """The weighted sum's buckets: the run's own (nb = 32), its first 2 or
+    4 buckets (nb = 2: no tree, no doubling), or nb = 1024 over two
+    windows of distinct points built from the run's buckets, a third of
+    them the identity, with a P + P and a P + (-P) in the top level's fold
+    and a P + P in its tree."""
+    if case == "run":
+        return run.bk
+    if case in ("nb=2", "nb=4"):
+        return run.bk[:, :, :int(case[3:])].contiguous()
+    GC, L = run.plan.GC, run.G.F.L
+    Q = M.split_points(run.bk[:, :2].contiguous(), L)
+    blocks = [Q]
+    for m in range(1, 32):
+        blocks.append(GC.add(blocks[-1], tuple(a.roll(m, -1) for a in Q)))
+    B = [torch.cat([b[i] for b in blocks], -1) for i in range(3)]
+    ident = GC.inf((2, 1024), "cpu")
+    gone = (torch.arange(1024) % 3 == 0).expand(2, 1024).clone()
+    gone[:, [5, 7, 512 + 5, 512 + 7, 768 + 9, 512 + 9]] = False
+    B = [torch.where(gone, i, b) for i, b in zip(ident, B)]
+    for i in range(3):
+        B[i][..., 512 + 5] = B[i][..., 5]
+        B[i][..., 768 + 9] = B[i][..., 512 + 9]
+    neg = GC.neg(tuple(b[..., 7:8] for b in B))
+    for i in range(3):
+        B[i][..., 512 + 7] = neg[i][..., 0]
+    return torch.cat(B).contiguous()
+
+
+@pytest.mark.parametrize("case", ["run", "nb=2", "nb=4",
+                                  "nb=1024, nw=2, identities, P+P, P+(-P)"])
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_weighted_sum_wavefront_matches_plain_on_host_threads(
+        runs, threaded_leaf, kind, case):
+    """The weighted sum's source at the card's group width and block size,
+    every lane on a host thread, bit for bit against the plain version."""
+    run = runs[kind]
+    bk = _wsum_case(run, case)
+    _, nw, nb = bk.shape
+    want = M.weighted_sum_plain(bk, run.plan.GC)
+    out = torch.empty_like(want)
+    fn = getattr(threaded_leaf, f"host_wsum_threads_{kind}")
+    assert fn(_ptr(bk), _ptr(out), nw, nb) == 0   # group masks
+    assert torch.equal(out, want)
+    assert getattr(threaded_leaf, f"host_wsum_group_{kind}")() == \
+        _cuda.WSUM_GROUP[kind]
+    assert getattr(threaded_leaf, f"host_wsum_block_{kind}")() == \
+        _cuda.WSUM_THREADS[kind]
+    assert getattr(threaded_leaf, f"host_wsum_cluster_{kind}")() == \
+        _cuda.WSUM_CLUSTER[kind]
 
 
 @pytest.mark.parametrize("kind", ["g1", "g2"])
