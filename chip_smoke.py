@@ -29,8 +29,9 @@ always measured:
      4096 points spread over all of them), and the G1 leaf also at the
      PLONK commitment's 2^16 + 3 points.  The Horner fold, a chain of
      point operations, the leaf prefix, a chain of mixed additions a
-     thread group, and the weighted sum, a wavefront over the halving
-     fold's dependency graph, also get their critical path: the levels of
+     thread group, the lane offsets, a Brent-Kung scan of 2K - 1 steps,
+     and the weighted sum, a wavefront over the halving fold's dependency
+     graph, also get their critical path: the levels of
      products on the longest dependent chain times the latency of one
      dependent product (the montmul_bn254 chain launched on one element,
      in one thread);
@@ -353,7 +354,8 @@ def kernel_work(name, kind, args):
         return adds * cost["padd_mixed"], nbytes + nw * C * R * L3 * 8
     if name == "lane_offsets":
         # an exclusive prefix over R lane totals: a serial scan's R - 1
-        # additions a window (the kernel's log-step scan does R log2 R)
+        # additions a window (the kernel's Brent-Kung scan does 2R - 2 -
+        # log2 R, in 2 log2 R - 1 steps)
         _, nw, R = tensors[0].shape
         return nw * (R - 1) * cost["padd"], 2 * nbytes
     if name == "weighted_sum":
@@ -480,7 +482,8 @@ def warps_per_sm(name, kind, args):
     if name == "leaf_prefix":
         threads = t[0].shape[0] * t[0].shape[3] * _cuda.LEAF_GROUP[kind]
     elif name == "lane_offsets":
-        threads = t[0].shape[1] * 256
+        threads = (t[0].shape[1] * _cuda.LANES_THREADS[kind]
+                   * _cuda.LANES_CLUSTER[kind])
     elif name == "weighted_sum":
         threads = (t[0].shape[1] * _cuda.WSUM_THREADS[kind]
                    * _cuda.WSUM_CLUSTER[kind])
@@ -526,6 +529,22 @@ def wsum_critical_path(kind, bk, latency_ms):
               + dbls * sum(-(-m // g) for m in FOLD_PRODUCTS["pdbl"][k]))
     return (adds, dbls, levels, levels * latency_ms, rounds,
             rounds * latency_ms)
+
+
+def lanes_critical_path(kind, tot, latency_ms):
+    """The lane offsets' critical path at R = 2^K lanes: the 2K - 1 steps
+    of the Brent-Kung scan, one addition deep each, as (additions, their
+    levels of products, that path in ms at the measured latency of one
+    dependent product, lane 0's rounds of products at the group width,
+    that path by rounds)."""
+    from gnark_tpu_torch.ops import _cuda
+    k = 0 if kind == "g1" else 1
+    K = tot.shape[-1].bit_length() - 1
+    adds = max(2 * K - 1, 0)
+    levels = adds * FOLD_LEVELS["padd"][k]
+    g = _cuda.LANES_GROUP[kind]
+    rounds = adds * sum(-(-m // g) for m in FOLD_PRODUCTS["padd"][k])
+    return adds, levels, levels * latency_ms, rounds, rounds * latency_ms
 
 
 def fold_critical_path(kind, S, c, latency_ms):
@@ -672,8 +691,8 @@ def compare(kind, name, args, kern, plain, rates, work=None):
     """One kernel against its plain version on the same tensors: asserts
     equal limbs and that the kernel does not beat its bound, and returns
     the error, both times, the bounds and the warps a launch gives each
-    SM (and the critical paths of the Horner fold, the leaf and the
-    weighted sum)."""
+    SM (and the critical paths of the Horner fold, the leaf, the lane
+    offsets and the weighted sum)."""
     import torch
     from gnark_tpu_torch.ops import _cuda
     out_k = kern(*args)
@@ -703,6 +722,18 @@ def compare(kind, name, args, kern, plain, rates, work=None):
                  f"{rounds} rounds of products an addition on lane 0 at "
                  f"G = {_cuda.LEAF_GROUP[kind]}: {by_rounds:.4g} ms "
                  f"({share(by_rounds / ms)})")
+    elif work == "lane_offsets":
+        adds, lv, b["critical_path_ms"], rounds, by_rounds = \
+            lanes_critical_path(kind, args[0], rates[2])
+        extra = (f"; critical path {adds} additions (the scan's steps), "
+                 f"{lv} levels of products x {rates[2] * 1e6:.1f} ns = "
+                 f"{b['critical_path_ms']:.4g} ms "
+                 f"({share(b['critical_path_ms'] / ms)} of it reached), "
+                 f"{rounds} rounds of products on lane 0 at G = "
+                 f"{_cuda.LANES_GROUP[kind]}: {by_rounds:.4g} ms "
+                 f"({share(by_rounds / ms)}); {_cuda.LANES_CLUSTER[kind]} "
+                 f"block(s) of {_cuda.LANES_THREADS[kind]} threads a "
+                 f"window, the narrow steps on one")
     elif work == "weighted_sum":
         adds, dbls, lv, b["critical_path_ms"], rounds, by_rounds = \
             wsum_critical_path(kind, args[0], rates[2])

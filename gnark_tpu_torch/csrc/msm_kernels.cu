@@ -40,8 +40,16 @@
 //     width (G1 1.41 against 1.17 ms at its best, G2 5.87 against 4.31;
 //     ops/leaf_groups.py --csrc).  The group loads each point and stores
 //     each row together.
-//   * lane_offsets: one block per window, a Hillis-Steele scan over the R
-//     lane totals in ping-pong buffers in device memory.
+//   * lane_offsets: an exclusive scan of a window's R = 2^K lane totals.
+//     Hillis-Steele (the TPU kernel's) does R log2 R additions, one a
+//     thread, 4,608 a window at R = 512; the Brent-Kung scan in place does
+//     2R - 2 - K (1,013) in 2K - 1 steps of independent additions (widths
+//     256, 128, ..., 1, then 1, 3, ..., 255).  A window's cluster of
+//     LANES_CLUSTER blocks runs them step by step, a cluster barrier
+//     between, each addition on a group of LANES_GROUP threads as levels
+//     of products (fold_add), as the weighted sum does; a run of steps too
+//     narrow to fill one block's groups runs on one block with block
+//     barriers between (0-4 % faster than on the whole cluster).
 //   * weighted_sum: the plain version's halving fold is a chain of about
 //     110 point operations if each level waits for the last, but its
 //     dependency graph is 3K - 2 operations deep at nb = 2^K buckets (28
@@ -79,17 +87,18 @@
 //     the K chunk sums, sum_j 2^(jB) T_j, is horner_fold with c = B.
 // The complete formulas (ec_complete.cuh) take the identity, P + P and
 // P + (-P) without a branch, so every lane of a warp runs the same code.
-// None uses wgmma or TMA; only the weighted sum uses clusters.
+// None uses wgmma or TMA; the lane offsets and the weighted sum use
+// clusters.
 //
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
 // out), so a host harness that defines blockIdx, threadIdx, blockDim,
 // __global__, __shared__, __launch_bounds__, __syncthreads and __syncwarp
 // can run a grid one block at a time with blockDim.x = 1: every loop over
 // a block's work steps by blockDim.x, and every loop over a leaf group's
-// by G, so leaf_prefix_kernel<Curve, 1> and weighted_sum_kernel<Curve, 1,
-// 1, 1> (groups of one) and the other kernels run on one thread that does
-// it all, in order.  On the host the weighted sum's slots are a static
-// array.
+// by G, so leaf_prefix_kernel<Curve, 1>, lane_offsets_kernel<Curve, 1, 1,
+// 1> and weighted_sum_kernel<Curve, 1, 1, 1> (groups of one) and the other
+// kernels run on one thread that does it all, in order.  On the host
+// the cluster kernels' slots are a static array.
 
 #ifdef __CUDACC__
 #include <cooperative_groups.h>
@@ -112,6 +121,8 @@ struct G1 {
   static constexpr int LEAF_GROUP = 4;  // threads a leaf chain
   // threads a weighted-sum operation, threads a block, blocks a window
   static constexpr int WSUM_GROUP = 4, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
+  // the same for a lane-offsets addition
+  static constexpr int LANES_GROUP = 8, LANES_THREADS = 128, LANES_CLUSTER = 4;
   // resident ladder blocks an SM: caps G1's registers at 128 (ptxas takes
   // 164 otherwise, and 12 warps an SM stay resident, not 16)
   static constexpr int LADDER_BLOCKS = 4;
@@ -124,6 +135,7 @@ struct G2 {
   static constexpr bool B3_PRODUCT = true;  // b3 * a is a full fp2 product
   static constexpr int LEAF_GROUP = 4;
   static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
+  static constexpr int LANES_GROUP = 8, LANES_THREADS = 256, LANES_CLUSTER = 4;
   static constexpr int LADDER_BLOCKS = 2;
   // b' = 3 / (9 + u); b3 = 3b' in Montgomery form
   GT_HD static F b3() {
@@ -143,34 +155,6 @@ struct G2 {
   }
   GT_HD static F mul_b3(const F& a) { return mul(a, b3()); }
 };
-
-// tot, out: [3*L16, nw, R].  out[r] = sum of tot[0..r) (exclusive scan,
-// lane 0 = the identity (0 : 1 : 0)); rolled-in lanes of each step are
-// the identity, as in the plain version.  scratch: 2 * nw * R points.
-template <class Curve>
-__global__ void __launch_bounds__(256)
-    lane_offsets_kernel(const int64_t* tot, int64_t* out,
-                        Point<typename Curve::F>* scratch, int nw, int R) {
-  using P = Point<typename Curve::F>;
-  const int w = blockIdx.x;
-  const long stride = (long)nw * R;
-  P* a = scratch + (long)w * 2 * R;
-  P* b = a + R;
-  for (int r = threadIdx.x; r < R; r += blockDim.x)
-    a[r] = load_point<Curve>(tot + (long)w * R + r, stride);
-  __syncthreads();
-  for (int s = 1; s < R; s <<= 1) {
-    for (int r = threadIdx.x; r < R; r += blockDim.x)
-      b[r] = padd<Curve>(a[r], r >= s ? a[r - s] : identity<Curve>());
-    __syncthreads();
-    P* tmp = a;
-    a = b;
-    b = tmp;
-  }
-  for (int r = threadIdx.x; r < R; r += blockDim.x)
-    store_point<Curve>(r >= 1 ? a[r - 1] : identity<Curve>(),
-                       out + (long)w * R + r, stride);
-}
 
 // ---- point operations as levels of independent products ------------------
 
@@ -437,6 +421,19 @@ GT_INLINE void wsum_sync() {
     cluster_sync();
 }
 
+// The FoldShared slots of a block's groups of G threads: dynamic shared
+// memory on the card (above 48 KB for G2), a static array on the host.
+template <class F, int G, int THREADS, int CLUSTER>
+GT_INLINE FoldShared<F>* group_slots(int rank) {
+#ifdef __CUDACC__
+  extern __shared__ __align__(16) unsigned char group_shared[];
+  return reinterpret_cast<FoldShared<F>*>(group_shared);
+#else
+  __shared__ FoldShared<F> slots[CLUSTER][THREADS / G];
+  return slots[rank];
+#endif
+}
+
 // bk: [3*L16, nw, nb] with nb a power of two; out: [3*L16, nw] with
 // out[w] = sum_j (j+1) * bk[w, j], by the plain version's halving fold
 //   sum_{j<m} (j+1) B_j = sum_{j<H} (j+1) (B_j + B_{H+j}) + H sum_{j<H} B_{H+j}
@@ -449,8 +446,7 @@ GT_INLINE void wsum_sync() {
 // loading the operands from scratch and storing the result.  scratch: nw
 // * (nb + nb/2) points a window: B (folded in place: a step's trees read
 // only the high half), level k's tree (in place, its sum doubled there) at
-// T + 2^(k-2) - 1 for k >= 2 (level 1's sum is B[1]), and W.  The groups'
-// FoldShared slots are dynamic shared memory (above 48 KB for G2).
+// T + 2^(k-2) - 1 for k >= 2 (level 1's sum is B[1]), and W.
 template <class Curve, int G, int THREADS, int CLUSTER>
 __global__ void __launch_bounds__(THREADS)
     weighted_sum_kernel(const int64_t* bk, int64_t* out,
@@ -459,17 +455,10 @@ __global__ void __launch_bounds__(THREADS)
   using P = Point<F>;
   static_assert(G < 32 && 32 % G == 0, "a group lies inside one warp");
   const int w = blockIdx.x / CLUSTER, rank = blockIdx.x % CLUSTER;
-#ifdef __CUDACC__
-  extern __shared__ __align__(16) unsigned char wsum_shared[];
-  FoldShared<F>* slots = reinterpret_cast<FoldShared<F>*>(wsum_shared);
-#else
-  __shared__ FoldShared<F> cluster_slots[CLUSTER][THREADS / G];
-  FoldShared<F>* slots = cluster_slots[rank];
-#endif
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid % G, groups = CLUSTER * nt / G;
   const int group = rank * (nt / G) + tid / G;  // in the window's cluster
-  FoldShared<F>& sh = slots[tid / G];
+  FoldShared<F>& sh = group_slots<F, G, THREADS, CLUSTER>(rank)[tid / G];
   const GroupSync sync{((1u << G) - 1u) << (tid % 32 / G * G)};
   const long stride = (long)nw * nb;
   P* B = scratch + (long)w * (nb + nb / 2);
@@ -544,6 +533,84 @@ __global__ void __launch_bounds__(THREADS)
     }
     wsum_sync<CLUSTER>();
   }
+}
+
+// ---- the lane offsets, a Brent-Kung scan over a cluster -------------------
+
+// Step s of a Brent-Kung inclusive scan in place over R = 2^K lanes (K >=
+// 1; 2K - 1 steps): the up-sweep's level d = s for s < K, then the
+// down-sweep's d = 2K - 2 - s.  Each adds A[i - 2^d] to A[i] for i = first,
+// first + 2^(d+1), ... below R, first = 2^(d+1) - 1 going up and 3 2^d - 1
+// going down.  A step's additions are independent: it writes the lanes
+// -1 mod 2^(d+1) and reads on the left the lanes 2^d - 1 mod 2^(d+1).
+struct ScanStep {
+  int half, first, count;  // 2^d, the first lane written, the additions
+};
+GT_HD ScanStep scan_step(int K, int R, int s) {
+  const int d = s < K ? s : 2 * K - 2 - s;
+  const int first = (s < K ? 2 : 3) * (1 << d) - 1;
+  return {1 << d, first, (R - 1 - first) / (2 << d) + 1};
+}
+
+// tot, out: [3*L16, nw, R], R a power of two.  out[r] = tot[0] + ... +
+// tot[r - 1], lane 0 the identity (0 : 1 : 0): the plain version's
+// Brent-Kung scan (the same additions of the same operands in the same
+// order), then the exclusive shift.  A window's CLUSTER blocks (one, or a
+// thread-block cluster) load its totals into scratch (nw * R points, the
+// scan works in place) and run the 2K - 1 steps, a barrier between two;
+// a step's additions are dealt to the blocks' groups of G threads, each
+// run as levels of products over its group (fold_add) with lane 0 loading
+// the operands from scratch and storing the sum.  In a cluster, a run of
+// steps with fewer additions than a block has groups runs on rank 0's
+// block alone, __syncthreads between two, a cluster barrier at each end.
+template <class Curve, int G, int THREADS, int CLUSTER>
+__global__ void __launch_bounds__(THREADS)
+    lane_offsets_kernel(const int64_t* tot, int64_t* out,
+                        Point<typename Curve::F>* scratch, int nw, int R) {
+  using F = typename Curve::F;
+  using P = Point<F>;
+  static_assert(G < 32 && 32 % G == 0, "a group lies inside one warp");
+  const int w = blockIdx.x / CLUSTER, rank = blockIdx.x % CLUSTER;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid % G, per_block = nt / G;
+  FoldShared<F>& sh = group_slots<F, G, THREADS, CLUSTER>(rank)[tid / G];
+  const GroupSync sync{((1u << G) - 1u) << (tid % 32 / G * G)};
+  const long stride = (long)nw * R;
+  P* A = scratch + (long)w * R;
+  int K = 0;
+  while ((1 << K) < R) ++K;
+  for (int r = rank * nt + tid; r < R; r += CLUSTER * nt)
+    A[r] = load_point<Curve>(tot + (long)w * R + r, stride);
+  wsum_sync<CLUSTER>();
+  const int D = K ? 2 * K - 1 : 0;
+  auto alone = [&](int s) {  // step s on rank 0's block alone
+    return CLUSTER > 1 && s < D && scan_step(K, R, s).count < per_block;
+  };
+  for (int s = 0; s < D; ++s) {
+    const ScanStep st = scan_step(K, R, s);
+    const bool solo = alone(s);
+    if (!solo || rank == 0) {
+      const int groups = solo ? per_block : CLUSTER * per_block;
+      for (int o = (solo ? 0 : rank * per_block) + tid / G; o < st.count;
+           o += groups) {
+        const int i = st.first + 2 * st.half * o;
+        P a, b;  // lane 0's
+        if (lane == 0) {
+          a = A[i - st.half];
+          b = A[i];
+        }
+        fold_add<Curve>(a, b, sh, lane, G, sync);
+        if (lane == 0) A[i] = a;
+      }
+    }
+    if (!solo || !alone(s + 1))
+      wsum_sync<CLUSTER>();
+    else if (rank == 0)
+      __syncthreads();
+  }
+  for (int r = rank * nt + tid; r < R; r += CLUSTER * nt)
+    store_point<Curve>(r ? A[r - 1] : identity<Curve>(),
+                       out + (long)w * R + r, stride);
 }
 
 // ---- the leaf prefix, a thread group a chain -------------------------------
@@ -779,18 +846,18 @@ int launch_leaf_prefix(const void* sx, const void* sy, void* rows, int nw,
   return (int)cudaGetLastError();
 }
 
-// Above 48 KB of FoldShared slots a block needs the dynamic shared memory
-// attribute, which the kernel keeps once set; a cluster of blocks a window
-// is a launch attribute.
-template <class Curve, int G, int THREADS, int CLUSTER>
-int launch_weighted_sum(const void* bk, void* out, void* scratch, int nw,
-                        int nb, void* stream) {
-  using P = Point<typename Curve::F>;
-  constexpr int shared =
-      THREADS / G * (int)sizeof(FoldShared<typename Curve::F>);
+// A kernel that runs a window on a cluster of CLUSTER blocks of THREADS
+// threads (nw clusters), the FoldShared slots of its groups of G threads in
+// dynamic shared memory.  Above 48 KB of slots a block needs the dynamic
+// shared memory attribute, which the kernel keeps once set; the cluster is
+// a launch attribute.
+template <class F, int G, int THREADS, int CLUSTER, class... KArgs,
+          class... Args>
+int launch_cluster(void (*kern)(KArgs...), int nw, void* stream,
+                   Args... args) {
+  constexpr int shared = THREADS / G * (int)sizeof(FoldShared<F>);
   static_assert(shared <= 227 * 1024, "the slots pass a block's shared memory");
   static_assert(CLUSTER >= 1 && CLUSTER <= 8, "a portable cluster");
-  const auto kern = weighted_sum_kernel<Curve, G, THREADS, CLUSTER>;
   if (shared > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
@@ -808,10 +875,26 @@ int launch_weighted_sum(const void* bk, void* out, void* scratch, int nw,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = CLUSTER > 1 ? 1 : 0;
-  const cudaError_t rc =
-      cudaLaunchKernelEx(&cfg, kern, (const int64_t*)bk, (int64_t*)out,
-                         (P*)scratch, nw, nb);
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kern, args...);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
+template <class Curve, int G, int THREADS, int CLUSTER>
+int launch_weighted_sum(const void* bk, void* out, void* scratch, int nw,
+                        int nb, void* stream) {
+  return launch_cluster<typename Curve::F, G, THREADS, CLUSTER>(
+      weighted_sum_kernel<Curve, G, THREADS, CLUSTER>, nw, stream,
+      (const int64_t*)bk, (int64_t*)out, (Point<typename Curve::F>*)scratch,
+      nw, nb);
+}
+
+template <class Curve, int G, int THREADS, int CLUSTER>
+int launch_lane_offsets(const void* tot, void* out, void* scratch, int nw,
+                        int R, void* stream) {
+  return launch_cluster<typename Curve::F, G, THREADS, CLUSTER>(
+      lane_offsets_kernel<Curve, G, THREADS, CLUSTER>, nw, stream,
+      (const int64_t*)tot, (int64_t*)out, (Point<typename Curve::F>*)scratch,
+      nw, R);
 }
 
 #define GNARK_MSM_LAUNCHERS(NAME, CURVE)                                      \
@@ -824,10 +907,9 @@ int launch_weighted_sum(const void* bk, void* out, void* scratch, int nw,
   extern "C" int gnark_msm_lane_offsets_##NAME(                               \
       const void* tot, void* out, void* scratch, int nw, int R,               \
       void* stream) {                                                         \
-    lane_offsets_kernel<CURVE><<<nw, 256, 0, (cudaStream_t)stream>>>(         \
-        (const int64_t*)tot, (int64_t*)out,                                   \
-        (Point<CURVE::F>*)scratch, nw, R);                                    \
-    return (int)cudaGetLastError();                                           \
+    return launch_lane_offsets<CURVE, CURVE::LANES_GROUP,                     \
+                               CURVE::LANES_THREADS, CURVE::LANES_CLUSTER>(   \
+        tot, out, scratch, nw, R, stream);                                    \
   }                                                                           \
   extern "C" int gnark_msm_weighted_sum_##NAME(                               \
       const void* bk, void* out, void* scratch, int nw, int nb,               \

@@ -44,6 +44,11 @@ LEAF_GROUP = {"g1": 4, "g2": 4}   # and G1/G2::LEAF_GROUP: threads a leaf chain
 WSUM_GROUP = {"g1": 4, "g2": 8}
 WSUM_THREADS = {"g1": 256, "g2": 256}
 WSUM_CLUSTER = {"g1": 4, "g2": 4}
+# and G1/G2::LANES_GROUP, LANES_THREADS, LANES_CLUSTER: the same for a
+# lane-offsets addition (the narrow steps on one block)
+LANES_GROUP = {"g1": 8, "g2": 8}
+LANES_THREADS = {"g1": 128, "g2": 256}
+LANES_CLUSTER = {"g1": 4, "g2": 4}
 LADDER_CHUNKS = 16       # and its ladder_kernel: chunks a scalar,
 LADDER_WINDOW = 4        # bits a window
 KINDS = ("g1", "g2")
@@ -205,8 +210,10 @@ def _scratch(points, kind, device):
 def lane_offsets(tot, kind):
     _, nw, R = tot.shape
     _check(tot, (3 * _L16[kind], nw, R), "totals")
+    if R < 1 or R & (R - 1):
+        raise ValueError(f"lane count {R} is not a power of two")
     out = torch.empty_like(tot)
-    scratch = _scratch(2 * nw * R, kind, tot.device)
+    scratch = _scratch(nw * R, kind, tot.device)    # scanned in place
     _launch("lane_offsets", kind, tot.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), nw, R)
     return out

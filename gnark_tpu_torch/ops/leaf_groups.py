@@ -1,8 +1,8 @@
 """A group kernel at several thread-group widths and block sizes, on one card.
 
-    python -m gnark_tpu_torch.ops.leaf_groups [--kernel leaf_prefix|weighted_sum]
-                                              [--csrc DIR] [--baseline DIR]
-                                              [--out FILE]
+    python -m gnark_tpu_torch.ops.leaf_groups
+        [--kernel leaf_prefix|weighted_sum|lane_offsets]
+        [--csrc DIR] [--baseline DIR] [--out FILE]
 
 Builds one library that instantiates the kernel of ``csrc/msm_kernels.cu``
 (or that of ``--csrc``) at each trial shape and, with ``--baseline``, the
@@ -19,15 +19,21 @@ directory), the two compilers side by side:
     256 and 512 threads, the last two also in clusters of 2, 4 and 8
     blocks a window, on the 2^16 plan's buckets (24 windows of 1,024) for
     G1 and G2, made by the plain leaf, lane offsets and bucket steps on
-    the card.
+    the card;
+  * ``lane_offsets``: ``lane_offsets_kernel<Curve, G, THREADS, CLUSTER>``
+    for G1 at G = 2, 4, 8 and G2 at G = 4, 8, 16, each in blocks of 128
+    and 256 threads, in clusters of 1, 2 and 4 blocks a window, on the
+    2^16 plan's lane totals (24 windows of 512) for G1 and G2, made by
+    the plain leaf on the card.
 
 Every shape (and the baseline) is held against the plain version on the
 same CUDA tensors, bit for bit, and timed with CUDA events: 3 launches
 after a warm-up, in two rounds, the second in the reverse order, so that
 the baseline runs first and last.  Prints each kernel's ptxas line and
 one line a shape and, with ``--out``, writes the numbers as JSON.  The
-shapes that ship are ``G1/G2::LEAF_GROUP`` and ``WSUM_GROUP``,
-``WSUM_THREADS``, ``WSUM_CLUSTER``.
+shapes that ship are ``G1/G2::LEAF_GROUP``, ``WSUM_GROUP``,
+``WSUM_THREADS``, ``WSUM_CLUSTER`` and ``LANES_GROUP``, ``LANES_THREADS``,
+``LANES_CLUSTER``.
 """
 
 from __future__ import annotations
@@ -56,6 +62,8 @@ BLOCKS = (128, 256, 512)      # the weighted sum's threads a block
 CLUSTERS = (1, 2, 4, 8)       # and its blocks a window, from 256 threads
 WSUM_SHAPES = [(g, t, cl) for g in (2, 4, 8, 16) for t in BLOCKS
                for cl in (CLUSTERS if t >= 256 else (1,))]
+LANES_SHAPES = [(g, t, cl) for g in (2, 4, 8, 16) for t in (128, 256)
+                for cl in (1, 2, 4)]
 N = 1 << 16
 SEED = 7
 REPS = 3
@@ -80,6 +88,19 @@ _WSUM_TU = """#include "msm_kernels.cu"
               for k, ws in WIDTHS.items() for g, t, cl in WSUM_SHAPES
               if g in ws)
 
+_LANES_TU = """#include "msm_kernels.cu"
+#define TRIAL(NAME, CURVE, G, T, CL)                                        \\
+  extern "C" int lanes_trial_##NAME##_##G##_##T##_##CL(const void* tot,     \\
+      void* out, void* scratch, int nw, int R, void* stream) {              \\
+    return launch_lane_offsets<CURVE, G, T, CL>(tot, out, scratch, nw, R,   \\
+                                                stream);                    \\
+  }
+""" + "".join(f"TRIAL({k}, {k.upper()}, {g}, {t}, {cl})\n"
+              for k, ws in WIDTHS.items() for g, t, cl in LANES_SHAPES
+              if g in ws)
+_TU = {"leaf_prefix": _LEAF_TU, "weighted_sum": _WSUM_TU,
+       "lane_offsets": _LANES_TU}
+
 
 def _build(name, source, include):
     """nvcc of one translation unit into _build/; returns (library path,
@@ -99,9 +120,9 @@ def _build(name, source, include):
 
 
 def kernel_registers(report, kernel="leaf_prefix"):
-    """'G1 G=4' ('G1 G=4 T=256 CL=4' for the weighted sum, 'G1' for a kernel
-    without a width) -> the stack and register lines of each instantiation
-    of ``{kernel}_kernel``."""
+    """'G1 G=4' ('G1 G=4 T=256 CL=4' for the weighted sum and the lane
+    offsets, 'G1' for a kernel without a width) -> the stack and register
+    lines of each instantiation of ``{kernel}_kernel``."""
     out, name, props = {}, None, ""
     for line in report.splitlines():
         m = re.search(rf"Function properties for _Z\d+{kernel}_kernelI2"
@@ -185,8 +206,9 @@ def _checked(fn, *args):
 
 
 def leaf_cases(libs, rng, device):
-    """(label, case, want, {shape: fn(out) -> launch}, warps an SM of a
-    shape or None) for each leaf case."""
+    """(label, case, want (a tensor, or a function of the shape), {shape:
+    fn(out) -> launch}, warps an SM of a shape or None) for each leaf
+    case."""
     for kind, n in (("g1", N), ("g2", N), ("g1", N + 3)):
         plan, sx, sy, _ = _inputs(kind, n, rng, device)
         want = M.leaf_prefix_plain(sx, sy, plan.GC)
@@ -243,10 +265,61 @@ def wsum_cases(libs, rng, device):
                want, variants, warps)
 
 
+def hillis_steele_plain(tot, GC):
+    """The lane offsets by the Hillis-Steele scan of the kernel before the
+    Brent-Kung one (and of gnark_tpu's): the same points, other
+    representatives, so the baseline's yardstick.  Step s adds lane r - s
+    to lane r, the identity (0 : 1 : 0) rolled in below s."""
+    L, R = GC.F.L, tot.shape[-1]
+    P = M.split_points(tot, L)
+    ident = GC.inf(tot.shape[1:], tot.device)
+    s = 1
+    while s < R:
+        P = GC.add(P, tuple(torch.cat([i[..., :s], a[..., :R - s]], -1)
+                            for i, a in zip(ident, P)))
+        s *= 2
+    return torch.cat([torch.cat([i[..., :1], a[..., :R - 1]], -1)
+                      for i, a in zip(ident, P)])
+
+
+def lanes_cases(libs, rng, device):
+    """The same for the lane offsets, on the 2^16 plan's lane totals; the
+    baseline is held against hillis_steele_plain."""
+    for kind in ("g1", "g2"):
+        plan, sx, sy, _ = _inputs(kind, N, rng, device)
+        tot = plan.lane_totals(M.leaf_prefix_plain(sx, sy, plan.GC))
+        new = M.lane_offsets_plain(tot, plan.GC)
+        old = hillis_steele_plain(tot, plan.GC)
+
+        def want(v, new=new, old=old):
+            return old if v == "baseline" else new
+        _, nw, R = tot.shape
+        # the most either version takes: the parent's two buffers
+        scratch = torch.empty(2 * nw * R * 3 * _cuda._L16[kind] // 2,
+                              dtype=torch.int32, device=device)
+        fns = {f"G={g} T={t} CL={cl}": _bind(
+            libs["trial"], f"lanes_trial_{kind}_{g}_{t}_{cl}", 2)
+            for g, t, cl in LANES_SHAPES if g in WIDTHS[kind]}
+        if "baseline" in libs:
+            fns = {"baseline": _bind(libs["baseline"],
+                                     f"gnark_msm_lane_offsets_{kind}", 2),
+                   **fns}
+        variants = {v: (lambda out, f=f: _checked(
+            f, tot.data_ptr(), out.data_ptr(), scratch.data_ptr(), nw, R))
+            for v, f in fns.items()}
+
+        def warps(v, sms):
+            if "T=" not in v:
+                return None
+            t, cl = (int(x) for x in re.findall(r"[TL]=(\d+)", v))
+            return nw * t * cl / 32 / sms
+        yield (f"{kind} nw={nw} R={R}", {"kind": kind, "nw": nw, "R": R},
+               want, variants, warps)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("leaf_prefix", "weighted_sum"),
-                    default="leaf_prefix")
+    ap.add_argument("--kernel", choices=tuple(_TU), default="leaf_prefix")
     ap.add_argument("--csrc", default=_cuda._CSRC, help="the csrc "
                     "directory whose kernel runs at each shape")
     ap.add_argument("--baseline", help="a csrc directory whose "
@@ -256,11 +329,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("leaf_groups needs a CUDA card")
     device = torch.device("cuda", 0)
-    leaf = args.kernel == "leaf_prefix"
     tu = os.path.join(_cuda._BUILD, f"{args.kernel}_trial_{os.getpid()}.cu")
     os.makedirs(_cuda._BUILD, exist_ok=True)
     with open(tu, "w") as f:
-        f.write(_LEAF_TU if leaf else _WSUM_TU)
+        f.write(_TU[args.kernel])
     jobs = {"trial": (tu, os.path.abspath(args.csrc))}
     if args.baseline:
         base = os.path.abspath(args.baseline)
@@ -279,15 +351,17 @@ def main(argv=None):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(SEED)
     result = {"card": card, "kernel": args.kernel, "cases": []}
-    cases = leaf_cases if leaf else wsum_cases
+    cases = {"leaf_prefix": leaf_cases, "weighted_sum": wsum_cases,
+             "lane_offsets": lanes_cases}[args.kernel]
     for label, case, want, variants, warps in cases(libs, rng, device):
         times = {v: [] for v in variants}
         order = list(variants)
         for rnd in (order, order[::-1]):
             for v in rnd:
-                out = torch.empty_like(want)
+                expect = want(v) if callable(want) else want
+                out = torch.empty_like(expect)
                 times[v].append(_time(variants[v](out)))
-                assert torch.equal(out, want), f"{label} {v} != plain"
+                assert torch.equal(out, expect), f"{label} {v} != plain"
         case["ms"] = {}
         for v, ts in times.items():
             case["ms"][v] = sum(ts) / len(ts)

@@ -14,7 +14,8 @@ negation):
   1. sort the points by (|digit|, sign) and gather them into R lanes of
      C = n/R sorted points each;
   2. leaf: per lane, the running sum of complete mixed adds    [kernel]
-  3. lane offsets: exclusive scan of the R lane totals          [kernel]
+  3. lane offsets: exclusive scan of the R lane totals (a
+     Brent-Kung scan, R a power of two)                         [kernel]
   4. bucket sums as differences of global prefixes at the digit
      boundaries (searchsorted and row gathers, plain torch);
   5. S_w = sum_b b * bucket_b by a halving fold                 [kernel]
@@ -138,24 +139,46 @@ def leaf_prefix(sx, sy, GC: CompleteOps):
 
 # ---- kernel 2: lane offsets -------------------------------------------------
 
+def check_lanes(R: int):
+    """The lane offsets scan R = 2^K lanes: raise on any other R."""
+    if R < 1 or R & (R - 1):
+        raise ValueError(f"lane count {R} is not a power of two")
+
+
+def scan_steps(R: int):
+    """(2^d, first lane, additions) of each step of a Brent-Kung inclusive
+    scan over R = 2^K lanes (msm_kernels.cu's scan_step): the up-sweep's
+    levels d = 0 .. K-1, then the down-sweep's d = K-2 .. 0.  A step adds
+    A[i - 2^d] to A[i] for i = first, first + 2^(d+1), ... below R."""
+    K = R.bit_length() - 1
+    for s in range(2 * K - 1):
+        up = s < K
+        d = s if up else 2 * K - 2 - s
+        first = (2 if up else 3) * (1 << d) - 1
+        yield 1 << d, first, (R - 1 - first) // (2 << d) + 1
+
+
 def lane_offsets_plain(tot, GC: CompleteOps):
-    """tot: [3L, nw, R] lane totals -> [3L, nw, R] exclusive prefix sums
-    over the lane axis (Hillis-Steele; rolled-in lanes and lane 0 of the
-    result are the identity class (0 : 1 : 0))."""
+    """tot: [3L, nw, R] lane totals, R a power of two -> [3L, nw, R]
+    exclusive prefix sums over the lane axis: lane r holds tot[0] + ... +
+    tot[r-1], lane 0 the identity class (0 : 1 : 0).  A Brent-Kung scan in
+    place (scan_steps), each step one batched complete addition of the
+    left operands A[i - 2^d] and the right ones A[i], then the exclusive
+    shift: the kernel's additions in the kernel's order.  gnark_tpu's
+    Hillis-Steele scan gives the same group elements, other
+    representatives."""
     _count_plain(tot, "lane_offsets")
-    F = GC.F
-    L = F.L
-    P = split_points(tot, L)
+    L = GC.F.L
     R = tot.shape[-1]
-    ident = GC.inf(tot.shape[1:], tot.device)
-    s = 1
-    while s < R:
-        Q = tuple(torch.cat([i[..., :s], a[..., :R - s]], -1)
-                  for i, a in zip(ident, P))
-        P = GC.add(P, Q)
-        s *= 2
-    return torch.cat([torch.cat([i[..., :1], a[..., :R - 1]], -1)
-                      for i, a in zip(ident, P)])
+    check_lanes(R)
+    A = tot.clone()
+    for half, first, count in scan_steps(R):
+        right = A[..., first::2 * half]
+        left = A[..., first - half::2 * half][..., :count]
+        right.copy_(torch.cat(GC.add(split_points(left, L),
+                                     split_points(right, L))))
+    ident = torch.cat(GC.inf(tot.shape[1:-1] + (1,), tot.device))
+    return torch.cat([ident, A[..., :R - 1]], -1)
 
 
 def lane_offsets(tot, GC: CompleteOps):
@@ -369,6 +392,7 @@ class MSM:
         # 512 lanes of C = 128 points at 2^16; below 2^12 points, lanes
         # of 8 points (a short leaf chain)
         self.R = lanes or min(512, _next_pow2(max(1, n // 8)))
+        check_lanes(self.R)
         self.c = c or choose_c(n, total_bits, self.R)
         self.nwin = -(-(total_bits + 1) // self.c)
         self.nb = 1 << (self.c - 1)

@@ -9,6 +9,8 @@ The file imports no jax, so it runs where the port runs:
 
   * the weighted sum at the 2^16 plan's 24 windows of 1,024 buckets, at
     2 buckets, and with nine windows in ten all the identity;
+  * the lane offsets at the 2^16 plan's lane totals (24 windows of 512
+    lanes) and at their first 1, 2 and 8 lanes;
   * each of the four windowed-MSM kernels, the ladder kernel, the
     per-chunk reduction kernel and the fold of the chunk sums against its
     plain version on the same CUDA tensors, G1 and G2, bit for bit, one
@@ -188,6 +190,58 @@ def test_weighted_sum_matches_plain_on_cuda(dev, kind, case):
     torch.cuda.synchronize()
     assert _cuda.launches[f"weighted_sum_{kind}"] == before + 1
     assert torch.equal(S, M.weighted_sum_plain(bk, GC))
+
+
+_TOTALS = {}
+
+
+def _plan_totals(kind, dev):
+    """The 2^16 plan's lane totals [3L, 24, 512], from the leaf kernel on
+    points 2^(i mod 64) G (every 17th infinite) and random scalars."""
+    if kind not in _TOTALS:
+        G, H, gen = _group(kind)
+        n = 1 << 16
+        base, P = [], gen
+        for _ in range(64):
+            base.append(P)
+            P = H.double(P)
+        xs = G.F.pack([q[0] for q in base], dev).repeat(1, n // 64)
+        ys = G.F.pack([q[1] for q in base], dev).repeat(1, n // 64)
+        inf = torch.zeros(n, dtype=torch.bool, device=dev)
+        inf[::17] = True
+        rng = np.random.default_rng(14)
+        scalars = [int.from_bytes(rng.bytes(32), "little") % R_MOD
+                   for _ in range(n)]
+        sc = torch.from_numpy(
+            ints_to_limbs(scalars, BN254.fr.L).astype(np.int64)).to(dev)
+        plan = M.MSM(G, n, BN254.fr.L)
+        sx, sy, _ = plan._sort_gather(*plan._prep_window(xs, ys, inf, sc))
+        tot = plan.lane_totals(M.leaf_prefix(sx, sy, plan.GC))
+        assert tuple(tot.shape[1:]) == (24, 512)
+        _TOTALS[kind] = (plan.GC, tot)
+    return _TOTALS[kind]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [512, 1, 2, 8])
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_lane_offsets_match_plain_on_cuda(dev, kind, R):
+    """The lane offsets on the 2^16 plan's lane totals (24 windows of 512
+    lanes) and on their first R lanes: one launch each, bit for bit (R =
+    1: every lane the identity); a lane count that is not a power of two
+    raises."""
+    GC, tot = _plan_totals(kind, dev)
+    tot = tot[..., :R].contiguous()
+    before = _cuda.launches[f"lane_offsets_{kind}"]
+    offs = M.lane_offsets(tot, GC)
+    torch.cuda.synchronize()
+    assert _cuda.launches[f"lane_offsets_{kind}"] == before + 1
+    assert torch.equal(offs, M.lane_offsets_plain(tot, GC))
+    if R == 1:
+        assert torch.equal(offs, torch.cat(GC.inf((24, 1), dev)))
+    if R == 8:
+        with pytest.raises(ValueError):
+            M.lane_offsets(tot[..., :6].contiguous(), GC)
 
 
 def _ladder_on_cuda(G, args):

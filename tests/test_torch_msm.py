@@ -7,8 +7,9 @@
     repeated points;
   * the CUDA kernel sources, compiled for the host with g++ and run one
     thread at a time, against their plain versions, bit for bit, and the
-    leaf at the card's group width with its lanes on host threads
-    (tests/test_torch_cuda.py runs the kernels themselves on a card).
+    leaf, the lane offsets and the weighted sum at the card's shapes with
+    their lanes on host threads (tests/test_torch_cuda.py runs the kernels
+    themselves on a card).
 
 Tolerance: none.  Limbs compare exactly; result points compare as Python
 ints after conversion to affine.
@@ -232,9 +233,9 @@ template <class Cv> static void grid_leaf(const int64_t* sx, const int64_t* sy,
   }
 }
 template <class Cv> static void grid_lanes(const int64_t* t, int64_t* o, int nw, int R) {
-  std::vector<Point<typename Cv::F>> s(2 * (long)nw * R);
+  std::vector<Point<typename Cv::F>> s((long)nw * R);
   blockDim.x = 1; threadIdx.x = 0;
-  for (int w = 0; w < nw; ++w) { blockIdx.x = w; lane_offsets_kernel<Cv>(t, o, s.data(), nw, R); }
+  for (int w = 0; w < nw; ++w) { blockIdx.x = w; lane_offsets_kernel<Cv, 1, 1, 1>(t, o, s.data(), nw, R); }
 }
 template <class Cv> static void grid_fold(const int64_t* S, int64_t* o, int nw, int c) {
   blockDim.x = 1; threadIdx.x = 0; blockIdx.x = 0;
@@ -279,7 +280,9 @@ def host_kernels(tmp_path_factory):
 # sum at the card's group width, block size and blocks a window
 # (Curve::WSUM_GROUP, WSUM_THREADS, WSUM_CLUSTER), a window's blocks on
 # that many host threads, with __syncthreads a barrier over the block and
-# cluster_sync one over the window's blocks.
+# cluster_sync one over the window's blocks; the lane offsets the same way
+# at theirs (Curve::LANES_GROUP, LANES_THREADS, LANES_CLUSTER), the narrow
+# steps on one block.
 THREADED_HARNESS = r"""
 #include <barrier>
 #include <cstdint>
@@ -358,6 +361,30 @@ template <class Cv> static int grid_wsum_threads(const int64_t* bk, int64_t* out
     });
   return bad_masks;
 }
+// the lane offsets at their shipped group width, block size and blocks a
+// window, the narrow steps on one block, a window's cluster at a time
+template <class Cv> static int grid_lanes_threads(const int64_t* tot, int64_t* out,
+                                                  int nw, int R) {
+  constexpr int G = Cv::LANES_GROUP, T = Cv::LANES_THREADS, CL = Cv::LANES_CLUSTER;
+  std::vector<Point<typename Cv::F>> s((long)nw * R);
+  Point<typename Cv::F>* scratch = s.data();
+  bad_masks = 0;
+  for (int w = 0; w < nw; ++w)
+    run_cluster((unsigned)(w * CL), CL, T, G, [=] {
+      lane_offsets_kernel<Cv, G, T, CL>(tot, out, scratch, nw, R);
+    });
+  return bad_masks;
+}
+#define LANES_SHAPE(NAME, CV)                                                 \
+  extern "C" int host_lanes_threads_##NAME(const int64_t* a, int64_t* o,      \
+      int nw, int R) { return grid_lanes_threads<CV>(a, o, nw, R); }          \
+  extern "C" int host_lanes_shape_##NAME(int i) {                             \
+    const int v[3] = {CV::LANES_GROUP, CV::LANES_THREADS,                     \
+                      CV::LANES_CLUSTER};                                     \
+    return v[i];                                                              \
+  }
+LANES_SHAPE(g1, G1)
+LANES_SHAPE(g2, G2)
 extern "C" int host_leaf_threads_g1(const int64_t* a, const int64_t* b,
     int64_t* o, int nw, int C, int R) { return grid_leaf_threads<G1>(a, b, o, nw, C, R); }
 extern "C" int host_leaf_threads_g2(const int64_t* a, const int64_t* b,
@@ -475,6 +502,90 @@ def test_weighted_sum_wavefront_matches_plain_on_host_threads(
         _cuda.WSUM_THREADS[kind]
     assert getattr(threaded_leaf, f"host_wsum_cluster_{kind}")() == \
         _cuda.WSUM_CLUSTER[kind]
+
+
+def _lanes_case(run, case):
+    """The lane offsets' totals: the run's own (R = 8), its first lane or
+    two (R = 1: everything the identity; R = 2), or R = 512 over two
+    windows built from the run's totals, a third of them the identity,
+    with a P + P (lanes 4, 5) and a P + (-P) (lanes 10, 11) in the first
+    step and a P + P of two sums of four lanes (32-35 and 36-39) in the
+    third."""
+    if case == "run":
+        return run.tot
+    if case in ("R=1", "R=2"):
+        return run.tot[..., :int(case[2:])].contiguous()
+    GC, L = run.plan.GC, run.G.F.L
+    Q = M.split_points(run.tot[:, :2].contiguous(), L)
+    blocks = [Q]
+    for m in range(1, 64):
+        blocks.append(GC.add(blocks[-1], tuple(a.roll(m, -1) for a in Q)))
+    T = [torch.cat([b[i] for b in blocks], -1) for i in range(3)]
+    ident = GC.inf((2, 512), "cpu")
+    gone = (torch.arange(512) % 3 == 0).expand(2, 512)
+    T = [torch.where(gone, i, t) for i, t in zip(ident, T)]
+    neg = GC.neg(tuple(t[..., 10:11] for t in T))
+    for i in range(3):
+        T[i][..., 5] = T[i][..., 4]
+        T[i][..., 11] = neg[i][..., 0]
+        T[i][..., 36:40] = T[i][..., 32:36]
+    return torch.cat(T).contiguous()
+
+
+LANES_CASES = ["run", "R=1", "R=2",
+               "R=512, nw=2, identities, P+P, P+(-P)"]
+
+
+@pytest.mark.parametrize("case", LANES_CASES)
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_lane_offsets_scan_matches_plain_on_host_threads(
+        runs, threaded_leaf, kind, case):
+    """The lane offsets' source at the card's group width, block size and
+    blocks a window, the narrow steps on one block, every lane on a host
+    thread, bit for bit against the plain version; R = 1 gives the
+    identity."""
+    run = runs[kind]
+    tot = _lanes_case(run, case)
+    _, nw, R = tot.shape
+    want = M.lane_offsets_plain(tot, run.plan.GC)
+    if R == 1:
+        assert torch.equal(want, torch.cat(run.plan.GC.inf((nw, 1), "cpu")))
+    out = torch.empty_like(want)
+    fn = getattr(threaded_leaf, f"host_lanes_threads_{kind}")
+    assert fn(_ptr(tot), _ptr(out), nw, R) == 0   # group masks
+    assert torch.equal(out, want)
+    shape = getattr(threaded_leaf, f"host_lanes_shape_{kind}")
+    assert [shape(i) for i in range(3)] == [
+        _cuda.LANES_GROUP[kind], _cuda.LANES_THREADS[kind],
+        _cuda.LANES_CLUSTER[kind]]
+
+
+@pytest.mark.parametrize("case", LANES_CASES[1:])
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_lane_offsets_source_matches_plain_on_host(runs, host_kernels, kind,
+                                                   case):
+    """The lane offsets' source on one thread (a group of one, one block a
+    window) at R = 1, 2 and 512, bit for bit against the plain version (the
+    run's own R = 8: test_kernel_source_matches_plain_on_host)."""
+    run = runs[kind]
+    tot = _lanes_case(run, case)
+    _, nw, R = tot.shape
+    out = torch.empty_like(tot)
+    getattr(host_kernels, f"host_lane_offsets_{kind}")(_ptr(tot), _ptr(out),
+                                                      nw, R)
+    assert torch.equal(out, M.lane_offsets_plain(tot, run.plan.GC))
+
+
+def test_lane_offsets_need_a_power_of_two():
+    """A lane count that is not a power of two raises, in the plan and in
+    the plain version."""
+    run_G = _group("g1")[0]
+    with pytest.raises(ValueError):
+        M.MSM(run_G, 48, BN254.fr.L, c=6, lanes=6)
+    GC = M.complete_ops(run_G)
+    tot = torch.cat(GC.inf((2, 6), "cpu"))
+    with pytest.raises(ValueError):
+        M.lane_offsets(tot, GC)
 
 
 @pytest.mark.parametrize("kind", ["g1", "g2"])
