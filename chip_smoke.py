@@ -47,10 +47,20 @@ always measured:
   6. PLONK over KZG, a third request: a squaring chain of 2^16 - 4 gates
      (domain 2^16, quotient domain 2^18, SRS of 2^16 + 3 points).  Setup on
      the card, one cold and two warm proves with per-phase seconds, verify
-     (and reject a wrong public input).
+     (and reject a wrong public input);
+  7. the rollup (examples/rollup.py, EdDSA + Merkle, BASELINE config 5)
+     at the reference's size: 16 accounts, one transfer a proof.  The four
+     windowed kernels against their plain versions at the plan of its
+     Groth16 MSMs (32,768 points: c = 10, 512 buckets, C = 64), G1 and G2;
+     then the operator's transfer, RollupCircuit compiled under both
+     schemes (27,988 constraints and 28,011 wires; 38,790 gates), setup on
+     the card for each (domains 2^15 and 2^16), a cold and two warm
+     Groth16 proves and a cold and a warm PLONK prove through the scheme
+     dispatch, verify (and reject a wrong root_after), and a tampered
+     transfer (amount + 1) refused by the solver before any launch.
 
-The launch counts are set to zero just before each of the three paths (2, 5
-and 6) and read just after: every kernel of a path must have launched in
+The launch counts are set to zero just before each of the four paths (2, 5,
+6 and 7) and read just after: every kernel of a path must have launched in
 it, and no plain version may run on the card there.
 
 ``--profile`` adds a cProfile of one more warm 2^16 Groth16 prove (host
@@ -82,6 +92,12 @@ N_PLONK = 1 << 16        # the PLONK request's domain
 # (hashes, constraints, MSM points) of the two requests
 REQUESTS = {"mimc178": (178, 58741, N_MSM), "mimc12": (12, 3961, N_LADDER)}
 SEED = 7
+# the rollup (gnark_tpu_torch/examples/rollup.py): (constraints, wires) of
+# its R1CS and its sparse R1CS, the domains of the two schemes, and the
+# plan (c, windows, buckets, R, C) of every MSM of its Groth16 prove
+ROLLUP_SIZES = {"groth16": (27988, 28011), "plonk": (38790, None)}
+ROLLUP_DOMAINS = {"groth16": 1 << 15, "plonk": 1 << 16}
+ROLLUP_PLAN = (10, 26, 512, 512, 64)
 MICROBENCH_REPLACES = "scripts/dev_vpu_microbench.py:24"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FMA_PER_S = 67e12 / 2       # 67 TFLOP/s outside the tensor cores
@@ -581,6 +597,35 @@ def msm_bounds(products, nbytes, rates):
             "bound_ms_at_mad_rate": bound(muls, mad_per_s, nbytes)[0]}
 
 
+def windowed_cases(kind, n, device, rng):
+    """The four windowed kernels' inputs along the plan of an n-point MSM
+    over oracle inputs (1 point in 64 infinite): (the plan, {name: (args,
+    kernel, plain version)})."""
+    from gnark_tpu_torch.ops import msm as M
+    G, host, gen = groups()[kind]
+    xs, ys, inf, sc, _ = oracle_inputs(G, host, gen, device, rng, n)
+    inf[::64] = True
+    plan = M.MSM(G, n, 16)
+    log(f"[kernels {kind}] plan at n={n}: c={plan.c} nwin={plan.nwin} "
+        f"nb={plan.nb} R={plan.R} C={plan.C}")
+    GC = plan.GC
+    ptrows, dg, sg = plan._prep_window(xs, ys, inf, sc)
+    sx, sy, d_sorted = plan._sort_gather(ptrows, dg, sg)
+    assert bool((sg != 0).any()), "no negative digit in the inputs"
+    rows = M.leaf_prefix(sx, sy, GC)
+    tot = plan.lane_totals(rows)
+    offs = M.lane_offsets(tot, GC)
+    bk = plan._buckets(rows, offs, d_sorted)
+    S = M.weighted_sum(bk, GC)
+    sync()
+    return plan, {
+        "leaf_prefix": ((sx, sy, GC), M.leaf_prefix, M.leaf_prefix_plain),
+        "lane_offsets": ((tot, GC), M.lane_offsets, M.lane_offsets_plain),
+        "weighted_sum": ((bk, GC), M.weighted_sum, M.weighted_sum_plain),
+        "horner_fold": ((S, plan.c, GC), M.horner_fold, M.horner_fold_plain),
+    }
+
+
 def phase_kernels(device, rates):
     """Each kernel against its plain version on the same CUDA tensors:
     the windowed kernels at the shapes of the 2^16 plan, with infinity
@@ -597,34 +642,15 @@ def phase_kernels(device, rates):
     K = M.LADDER_CHUNKS
     B = M.chunk_bits(16)
     for kind, (G, host, gen) in groups().items():
-        xs, ys, inf, sc, _ = oracle_inputs(G, host, gen, device, rng)
-        inf[::64] = True
-        plan = M.MSM(G, N_MSM, 16)
-        log(f"[kernels {kind}] plan c={plan.c} nwin={plan.nwin} "
-            f"nb={plan.nb} R={plan.R} C={plan.C}")
-        GC = plan.GC
-        ptrows, dg, sg = plan._prep_window(xs, ys, inf, sc)
-        sx, sy, d_sorted = plan._sort_gather(ptrows, dg, sg)
-        assert bool((sg != 0).any()), "no negative digit in the inputs"
-        rows = M.leaf_prefix(sx, sy, GC)
-        tot = plan.lane_totals(rows)
-        offs = M.lane_offsets(tot, GC)
-        bk = plan._buckets(rows, offs, d_sorted)
-        S = M.weighted_sum(bk, GC)
+        plan, cases = windowed_cases(kind, N_MSM, device, rng)
+        GC, bk = plan.GC, cases["weighted_sum"][0][0]
         lx, ly, linf, lsc, _ = oracle_inputs(G, host, gen, device, rng,
                                              N_LADDER)
         linf[::64] = True
         lout = M.ladder(lx, ly, linf, lsc, GC)
         sync()
-        cases = {
-            "leaf_prefix": ((sx, sy, GC), M.leaf_prefix, M.leaf_prefix_plain),
-            "lane_offsets": ((tot, GC), M.lane_offsets, M.lane_offsets_plain),
-            "weighted_sum": ((bk, GC), M.weighted_sum, M.weighted_sum_plain),
-            "horner_fold": ((S, plan.c, GC), M.horner_fold,
-                            M.horner_fold_plain),
-            "ladder": ((lx, ly, linf, lsc, GC), M.ladder, M.ladder_plain),
-            "reduce": ((lout, GC), M.reduce, M.reduce_plain),
-        }
+        cases["ladder"] = ((lx, ly, linf, lsc, GC), M.ladder, M.ladder_plain)
+        cases["reduce"] = ((lout, GC), M.reduce, M.reduce_plain)
         for name, (args, kern, plain) in cases.items():
             results[f"{name}_{kind}"] = compare(kind, name, args, kern, plain,
                                                 rates)
@@ -1006,6 +1032,124 @@ def phase_plonk(device, trace=False):
     return launches
 
 
+def phase_rollup_kernels(device, rates):
+    """The four windowed kernels against their plain versions at the plan
+    of every MSM of the rollup's Groth16 prove (n_pad = 32,768), G1 and
+    G2, on the same CUDA tensors."""
+    results = {}
+    rng = np.random.default_rng(SEED + 2)
+    for kind in groups():
+        plan, cases = windowed_cases(kind, ROLLUP_DOMAINS["groth16"],
+                                     device, rng)
+        assert (plan.c, plan.nwin, plan.nb, plan.R, plan.C) == ROLLUP_PLAN
+        for name, (args, kern, plain) in cases.items():
+            results[f"{name}_{kind}"] = compare(
+                kind, f"{name} c={plan.c} C={plan.C}", args, kern, plain,
+                rates, work=name)
+    return results
+
+
+def phase_rollup(device):
+    """The users' circuit, BASELINE config 5: the rollup's operator over
+    16 accounts with seeded EdDSA keys makes one transfer; RollupCircuit
+    compiles under both schemes; setup on the card for each; then the
+    main path, through the scheme dispatch a user calls: a cold and two
+    warm Groth16 proves and a cold and a warm PLONK prove, with the launch
+    counts taken over them; each proof verifies and a wrong root_after is
+    rejected; a tampered transfer (amount + 1) fails in the solve, with no
+    launch."""
+    import copy
+    from gnark_tpu_torch import backend
+    from gnark_tpu_torch.backend.solver import UnsatisfiedConstraintError
+    from gnark_tpu_torch.curves import BN254
+    from gnark_tpu_torch.examples import rollup
+    from gnark_tpu_torch.frontend import schema
+    from gnark_tpu_torch.frontend.compile import compile_circuit
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import msm as M
+    t0 = time.perf_counter()
+    op = rollup.seeded_operator(BN254)
+    t1 = time.perf_counter()
+    w = op.transfer(0, 1, 100)
+    log(f"[rollup] operator over {len(op.accounts)} accounts: EdDSA keys "
+        f"{t1 - t0:.2f} s, one transfer (signed, 4 Merkle paths) "
+        f"{time.perf_counter() - t1:.2f} s")
+    values = schema.collect_values(w)
+    public = schema.collect_values(w, "public")
+    wrong = [public[0], public[1] + 1]                     # root_after + 1
+    tampered = copy.copy(w)
+    tampered.amount += 1
+    served = {}
+    for scheme, (n_constraints, n_wires) in ROLLUP_SIZES.items():
+        t0 = time.perf_counter()
+        cs = compile_circuit(rollup.RollupCircuit(), BN254, scheme=scheme)
+        log(f"[{scheme} rollup] compile {time.perf_counter() - t0:.2f} s: "
+            f"{cs.nb_constraints} constraints, {cs.nb_wires} wires")
+        assert cs.nb_constraints == n_constraints, cs.nb_constraints
+        assert n_wires is None or cs.nb_wires == n_wires, cs.nb_wires
+        t0 = time.perf_counter()
+        pk, vk = backend.setup(cs, BN254, rng=random.Random(42),
+                               device=device)
+        sync()
+        n = pk.domain_n if scheme == "groth16" else pk.n
+        log(f"[{scheme} rollup] setup on the card "
+            f"{time.perf_counter() - t0:.2f} s (domain {n}"
+            + (f", n_pad {pk.n_pad})" if scheme == "groth16" else
+               f", SRS of {len(pk.srs.g1)} points)"))
+        assert n == ROLLUP_DOMAINS[scheme] and pk.device == device
+        assert scheme == "plonk" or pk.n_pad == ROLLUP_DOMAINS[scheme]
+        served[scheme] = (cs, pk, vk)
+
+    _cuda.reset_launches()
+    for k in M.plain_on_cuda:
+        M.plain_on_cuda[k] = 0
+    proofs = {}
+    for scheme, labels in (("groth16", ("cold", "warm", "warm2")),
+                           ("plonk", ("cold", "warm"))):
+        cs, pk, vk = served[scheme]
+        for label in labels:
+            before = dict(_cuda.launches)
+            timings = {}
+            t0 = time.perf_counter()
+            proofs[scheme] = backend.prove(cs, pk, values,
+                                           rng=random.Random(7),
+                                           timings=timings)
+            total = time.perf_counter() - t0
+            phases = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+            log(f"[{scheme} rollup] prove {label} {total:.2f} s: {phases}")
+            ran = {k: v - before[k] for k, v in _cuda.launches.items()
+                   if v > before[k]}
+            log(f"[{scheme} rollup] launches in this prove: {ran}")
+            # every MSM has 2^15 or 2^16 + 3 points: the windowed plan
+            assert all(ran.get(f"{k}_g1") for k in _cuda.WINDOW_KERNELS), ran
+            assert scheme == "plonk" or all(
+                ran.get(f"{k}_g2") for k in _cuda.WINDOW_KERNELS), ran
+    launches = dict(_cuda.launches)
+    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    log(f"[rollup] launches during the five proves: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    for scheme, (cs, pk, vk) in served.items():
+        t0 = time.perf_counter()
+        assert backend.verify(proofs[scheme], vk, public), \
+            f"rollup {scheme}: proof does not verify"
+        assert not backend.verify(proofs[scheme], vk, wrong), \
+            f"rollup {scheme}: proof verifies a wrong root_after"
+        log(f"[{scheme} rollup] verify ok, wrong public input (root_after "
+            f"+ 1) rejected ({time.perf_counter() - t0:.2f} s)")
+        try:
+            backend.prove(cs, pk, schema.collect_values(tampered),
+                          rng=random.Random(7))
+        except UnsatisfiedConstraintError as e:
+            log(f"[{scheme} rollup] tampered transfer (amount + 1) fails in "
+                f"the solve: {str(e)[:80]}")
+        else:
+            raise AssertionError(f"rollup {scheme}: tampered transfer proved")
+    assert dict(_cuda.launches) == launches, "a tampered prove launched"
+    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    return launches
+
+
 ADD_TYPE = re.compile(r"^(IADD3|IADD|IMAD\.X|IMAD\.IADD|IADD32I|LEA)")
 MUL_TYPE = re.compile(r"^IMAD(\.WIDE|\.HI|\.U32|$)")
 
@@ -1114,8 +1258,8 @@ def main():
     micro, rates, peak, lat_ms = phase_microbench(device)
     log(f"[phase] microbenchmark {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kern = phase_kernels(device, (peak, rates["mad_wide_u32"]["ops_per_s"],
-                                  lat_ms))
+    msm_rates = (peak, rates["mad_wide_u32"]["ops_per_s"], lat_ms)
+    kern = phase_kernels(device, msm_rates)
     log(f"[phase] kernels vs plain {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_msm(device)
@@ -1127,6 +1271,10 @@ def main():
     t0 = time.perf_counter()
     l_plonk = phase_plonk(device, trace="--trace" in args)
     log(f"[phase] plonk {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kern_rollup = phase_rollup_kernels(device, msm_rates)
+    l_rollup = phase_rollup(device)
+    log(f"[phase] rollup {time.perf_counter() - t0:.1f} s")
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s")
 
     from gnark_tpu_torch.ops import msm as M
@@ -1142,9 +1290,14 @@ def main():
             "name": key, "route": "cuda",
             "source": "gnark_tpu_torch/csrc/msm_kernels.cu",
             "replaces": REPLACES[name],
-            "launches": l_groth16[key] + l_plonk[key],
+            "launches": l_groth16[key] + l_plonk[key] + l_rollup[key],
             "launches_groth16": l_groth16[key],
-            "launches_plonk": l_plonk[key], **r})
+            "launches_plonk": l_plonk[key],
+            "launches_rollup": l_rollup[key], **r})
+        if key in kern_rollup:
+            entries[-1]["at_rollup_plan"] = {
+                k: kern_rollup[key][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
     for key, r in micro.items():
         entries.append({
             "name": key, "route": "cuda",

@@ -56,29 +56,31 @@ def all_registered():
 # ---- builtins ---------------------------------------------------------------
 
 
-def _builtin(fn: HintFunction) -> HintFunction:
-    """Register a built-in under the reference package's name for it, so
-    that its uuid, and a constraint system that calls it, is the same in
-    both packages.  The name is a string: nothing of it is imported."""
-    fn._hint_name = f"gnark_tpu.backend.hints.{fn.__qualname__}"
+def register_as_reference(fn: HintFunction) -> HintFunction:
+    """Register a hint under the reference package's name for it (its
+    module's path with ``gnark_tpu_torch`` read as ``gnark_tpu``), so that
+    its uuid, and a constraint system that calls it, is the same in both
+    packages.  The name is a string: nothing of it is imported."""
+    rest = fn.__module__.partition(".")[2]
+    fn._hint_name = f"gnark_tpu.{rest}.{fn.__qualname__}"
     return register(fn)
 
 
-@_builtin
+@register_as_reference
 def is_zero(modulus, inputs, n_out):
     """m = 1 - a^(q-1): 1 if a == 0 else 0 (backend/hint/builtin.go:16)."""
     (a,) = inputs
     return [(1 - pow(a, modulus - 1, modulus)) % modulus]
 
 
-@_builtin
+@register_as_reference
 def n_bits(modulus, inputs, n_out):
     """Little-endian bits of the input (std/math/bits NBits)."""
     (a,) = inputs
     return [(a >> i) & 1 for i in range(n_out)]
 
 
-@_builtin
+@register_as_reference
 def ith_bit(modulus, inputs, n_out):
     """inputs = (n, i) -> i-th little-endian bit of n."""
     n, i = inputs
@@ -87,7 +89,7 @@ def ith_bit(modulus, inputs, n_out):
     return [(n >> i) & 1]
 
 
-@_builtin
+@register_as_reference
 def inv_zero(modulus, inputs, n_out):
     """a^{-1}, with 0 -> 0."""
     (a,) = inputs

@@ -14,7 +14,9 @@ The file imports no jax, so it runs where the port runs:
   * each of the four windowed-MSM kernels, the ladder kernel, the
     per-chunk reduction kernel and the fold of the chunk sums against its
     plain version on the same CUDA tensors, G1 and G2, bit for bit, one
-    launch each: at the small proof's 4096 points, at 37 points (a
+    launch each: at the small proof's 4096 points (the four windowed
+    kernels also at the rollup's plan, 32,768 points: c = 10, 512
+    buckets, C = 64), at 37 points (a
     ragged last block), with 64-bit scalars (a window a chunk) and with
     20-bit scalars (the fold of the chunk sums starts at chunk 1); the G1
     leaf also at a PLONK commitment's 2^16 + 3 points (C = 129);
@@ -72,7 +74,7 @@ def _group(kind):
             BN254.host_g2, BN254.g2_gen)
 
 
-def _oracle_inputs(kind, dev, seed):
+def _oracle_inputs(kind, dev, seed, n=N):
     """n points 2^(i mod 64) G (every 17th flagged infinite), random
     scalars, and the expected MSM."""
     G, H, gen = _group(kind)
@@ -80,13 +82,13 @@ def _oracle_inputs(kind, dev, seed):
     for _ in range(64):
         base.append(P)
         P = H.double(P)
-    xs = G.F.pack([q[0] for q in base], dev).repeat(1, N // 64)
-    ys = G.F.pack([q[1] for q in base], dev).repeat(1, N // 64)
-    inf = torch.zeros(N, dtype=torch.bool, device=dev)
+    xs = G.F.pack([q[0] for q in base], dev).repeat(1, n // 64)
+    ys = G.F.pack([q[1] for q in base], dev).repeat(1, n // 64)
+    inf = torch.zeros(n, dtype=torch.bool, device=dev)
     inf[::17] = True
     rng = np.random.default_rng(seed)
     scalars = [int.from_bytes(rng.bytes(32), "little") % R_MOD
-               for _ in range(N)]
+               for _ in range(n)]
     sc = torch.from_numpy(
         ints_to_limbs(scalars, BN254.fr.L).astype(np.int64)).to(dev)
     total = sum(s << (i % 64) for i, s in enumerate(scalars)
@@ -94,11 +96,11 @@ def _oracle_inputs(kind, dev, seed):
     return G, (xs, ys, inf, sc), H.scalar_mul(gen, total)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["g1", "g2"])
-def test_kernels_match_plain_on_cuda(dev, kind):
-    G, (xs, ys, inf, sc), _ = _oracle_inputs(kind, dev, 5)
-    plan = M.MSM(G, N, BN254.fr.L)
+def _windowed_kernels_match_plain(dev, kind, n, seed):
+    """The four windowed kernels, one launch each, against their plain
+    versions along the plan of an n-point MSM; -> the plan."""
+    G, (xs, ys, inf, sc), _ = _oracle_inputs(kind, dev, seed, n)
+    plan = M.MSM(G, n, BN254.fr.L)
     GC = plan.GC
     ptrows, dg, sg = plan._prep_window(xs, ys, inf, sc)
     sx, sy, d_sorted = plan._sort_gather(ptrows, dg, sg)
@@ -118,6 +120,23 @@ def test_kernels_match_plain_on_cuda(dev, kind):
     assert torch.equal(offs, M.lane_offsets_plain(tot, GC))
     assert torch.equal(S, M.weighted_sum_plain(bk, GC))
     assert torch.equal(P, M.horner_fold_plain(S, plan.c, GC))
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_kernels_match_plain_on_cuda(dev, kind):
+    _windowed_kernels_match_plain(dev, kind, N, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_kernels_match_plain_on_cuda_at_rollup_plan(dev, kind):
+    """The plan of every MSM of the rollup's Groth16 prove (n_pad =
+    32,768): 26 windows of c = 10, 512 buckets, R = 512 lanes of C = 64."""
+    plan = _windowed_kernels_match_plain(dev, kind, 1 << 15, 15)
+    assert (plan.c, plan.nwin, plan.nb, plan.R, plan.C) == (10, 26, 512,
+                                                           512, 64)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,9 @@ never falls back from a kernel.
     no result;
   * with ``jax`` and ``gnark_tpu`` both refused by a meta-path finder, every
     module of the port imports, and a circuit compiles, proves and
-    verifies under Groth16 and under PLONK on the CPU;
+    verifies under Groth16 and under PLONK on the CPU; the gadget library,
+    the engine and harness, the scheme dispatch and the examples import
+    by name, and the rollup compiles and solves;
   * ``chip_smoke.py`` alone in a directory exits nonzero;
   * no source line of the port imports jax or gnark_tpu;
   * the kernel path given a non-CUDA tensor, or with no CUDA present,
@@ -119,6 +121,46 @@ def test_port_proves_with_jax_and_gnark_tpu_refused():
     res = _run(STANDALONE_PROVE, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[0] == "ok"
+
+
+GADGETS_AND_EXAMPLES = REFUSE_BOTH + """
+import importlib
+mods = ["gnark_tpu_torch.std", "gnark_tpu_torch.std.bits",
+        "gnark_tpu_torch.std.twisted_edwards", "gnark_tpu_torch.std.eddsa",
+        "gnark_tpu_torch.std.merkle", "gnark_tpu_torch.std.fiat_shamir",
+        "gnark_tpu_torch.test_engine", "gnark_tpu_torch.test_harness",
+        "gnark_tpu_torch.backend", "gnark_tpu_torch.examples",
+        "gnark_tpu_torch.examples.cubic",
+        "gnark_tpu_torch.examples.exponentiate",
+        "gnark_tpu_torch.examples.mimc", "gnark_tpu_torch.examples.plonk_main",
+        "gnark_tpu_torch.examples.rollup"]
+for name in mods:
+    importlib.import_module(name)
+
+from gnark_tpu_torch import backend, std, test_harness
+from gnark_tpu_torch.curves import BN254
+from gnark_tpu_torch.examples import rollup
+from gnark_tpu_torch.frontend import compile_circuit, schema
+
+assert len(std.register_hints()) >= 7
+w = rollup.seeded_operator(BN254).transfer(0, 1, 100)
+test_harness.prover_succeeded(rollup.RollupCircuit, w, schemes=["groth16"])
+cs = compile_circuit(rollup.RollupCircuit(), BN254, scheme="plonk")
+backend.solve(cs, schema.collect_values(w))
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "gnark_tpu")]
+assert not bad, bad
+print("ok", cs.nb_constraints)
+"""
+
+
+def test_gadgets_harness_and_examples_run_with_jax_and_gnark_tpu_refused():
+    """The gadget library, the engine and harness, the scheme dispatch and
+    the examples import and compile and solve the rollup with ``jax`` and
+    ``gnark_tpu`` refused."""
+    res = _run(GADGETS_AND_EXAMPLES, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["ok", "38790"]
 
 
 def test_refusing_finder_refuses():
