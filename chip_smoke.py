@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py [--profile] [--trace] [--sass[=DIR]]
 
-Builds the CUDA kernels (the MSM library and the microbenchmark, the two
-compilers side by side) and the native host core from the sources in this
-checkout, and drives the port's main paths once, at the sizes the repo has
-always measured:
+Builds the CUDA kernels (BN254's MSM library, BLS24-315's G1 and G2
+libraries and the microbenchmark, the four compilers side by side) and the
+native host core from the sources in this checkout, and drives the port's
+main paths once, at the sizes the repo has always measured:
 
   1. environment: the card's name and power limit, torch and CUDA versions,
      the native solver library, the nvcc build times;
@@ -57,11 +57,32 @@ always measured:
      the card for each (domains 2^15 and 2^16), a cold and two warm
      Groth16 proves and a cold and a warm PLONK prove through the scheme
      dispatch, verify (and reject a wrong root_after), and a tampered
-     transfer (amount + 1) refused by the solver before any launch.
+     transfer (amount + 1) refused by the solver before any launch;
+  8. BLS24-315's kernels (msm_g1_bls24315.cu over its 10-word fp,
+     msm_g2_bls24315.cu over fp4): each of the six against its plain
+     version, bit for bit, with its bound, the windowed four at the 2^16
+     plan, the ladder, its reduction and the fold of the chunk sums at
+     4096 points; G1's windowed four also at the plan of phase 10's
+     commitments (2^14 + 3 points: c = 10, 512 buckets, C = 33);
+  9. Groth16 over the other five curves, routed as gnark_tpu routes them:
+     MiMC chains that fill a domain of 2^16 over BLS12-381, BLS12-377
+     (BASELINE config 4's curves) and BLS24-315, a 12-hash chain over
+     BLS24-315 (its ladder), and chains in a domain of 2^12 over BW6-761
+     and BW6-633.  Setup on the card (the key points on the native core
+     where fp has 24 or more 16-bit limbs), a cold and a warm prove each:
+     the quotient's NTTs on the card for every curve, the MSMs on the
+     native core for fp.L >= 24 and on BLS24-315's kernels; verify, and
+     reject a wrong public input;
+ 10. PLONK over BLS12-381 (commitments on the native core) and BLS24-315
+     (on its G1 kernels), a squaring chain in a domain of 2^14: setup on
+     the card, a cold and a warm prove (every BLS24-315 commitment on the
+     plan that phase 8 checks), verify, reject a wrong public input.
 
-The launch counts are set to zero just before each of the four paths (2, 5,
-6 and 7) and read just after: every kernel of a path must have launched in
-it, and no plain version may run on the card there.
+The launch counts are set to zero just before each of the six paths (2,
+5, 6, 7, 9 and 10) and read just after: every kernel of a path must have
+launched in it (each request of 9 and 10 exactly the kernels its route
+names, none on the native route), and no plain version may run on the
+card there.
 
 ``--profile`` adds a cProfile of one more warm 2^16 Groth16 prove (host
 time by function).  ``--trace`` takes one more warm 2^16 Groth16 prove and
@@ -89,6 +110,11 @@ N_MSM = 1 << 16
 N_LADDER = 1 << 12
 N_SLICE = 1 << 12        # columns of the 2^16 G2 ladder held against plain
 N_PLONK = 1 << 16        # the PLONK request's domain
+N_CURVE_PLONK = 1 << 14  # PLONK over BLS12-381 and BLS24-315
+N_BW6 = 1 << 12          # Groth16 over the BW6 curves
+# the plan (c, windows, buckets, R, C) of every commitment of a BLS24-315
+# PLONK prove at N_CURVE_PLONK: n + 2 and n + 3 coefficients
+CURVE_PLONK_PLAN = (10, 26, 512, 512, 33)
 # (hashes, constraints, MSM points) of the two requests
 REQUESTS = {"mimc178": (178, 58741, N_MSM), "mimc12": (12, 3961, N_LADDER)}
 SEED = 7
@@ -102,28 +128,64 @@ MICROBENCH_REPLACES = "scripts/dev_vpu_microbench.py:24"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FMA_PER_S = 67e12 / 2       # 67 TFLOP/s outside the tensor cores
 INT32_LANES_PER_SM = 64         # Hopper white paper: INT32 units per SM
-MULS_PER_PRODUCT = 136          # csrc/field.cuh: 2 N^2 + N at N = 8
-# the 32-bit halves those give: 2 N^2 full 64-bit products and N low halves
+def muls_per_product(kind):
+    """32-bit multiplies of one base-field product: 2 N^2 + N
+    (csrc/field.cuh), N the base field's words as the kind's library
+    reports them (8 for BN254's fp, 10 for BLS24-315's)."""
+    from gnark_tpu_torch.ops import _cuda
+    n = _cuda.shape(kind)["words"]
+    return 2 * n * n + n
+
+
+# the 32-bit halves of the microbenchmark's (BN254) product: 2 N^2 full
+# 64-bit products and N low halves
 HALVES_PER_PRODUCT = 4 * 8 * 8 + 8
 # ptxas pairs two dependent adds of a chain into one three-input IADD3
 # (--sass: 262 IADD3 for add_u32's 512 adds), so the adds need half as
 # many issue slots as there are adds
 ADDS_PER_IADD3 = 2
-# base-field products of one point operation, (G1, G2): an fp2 product is
-# three base products, and G2's b3 multiplication is a full fp2 product
-POINT_PRODUCTS = {
-    "padd": (12, 42), "padd_mixed": (11, 39), "pdbl": (8, 27),
-    "jdbl": (7, 21), "jadd_mixed": (11, 33), "jadd": (16, 48),
+POINT_OPS = {  # (field products, b3 multiplications)
+    "padd": (12, 2), "padd_mixed": (11, 2), "pdbl": (8, 1),
+    "jdbl": (7, 0), "jadd_mixed": (11, 0), "jadd": (16, 0),
 }
-# levels of independent base products of the Horner fold kernel's
-# doubling and addition, (G1, G2): G2's b3 product is a level of its own
-FOLD_LEVELS = {"pdbl": (2, 3), "padd": (2, 3)}
-# and their base products, level by level (fold_dbl, fold_add)
-FOLD_PRODUCTS = {"pdbl": ((4, 4), (12, 3, 12)), "padd": ((6, 6), (18, 6, 18))}
-# base products of each level of the leaf kernel's mixed addition, (G1,
-# G2): 5 then 6; G2 15, its two b3 products (6), then 18.  A group of G
-# lanes runs a level of m in ceil(m / G) rounds.
-LEAF_LEVELS = ((5, 6), (15, 6, 18))
+
+
+def point_products(kind):
+    """{point operation: its base-field products} for a kind, the least
+    count, for a bound: an F product over a degree-k extension as
+    Karatsuba's 3^log2 k base products (fp2's 3, fp4's 9; the kernels run
+    the schoolbook's 16 for fp4), and b3 * a, where it is a product
+    (B3_PRODUCT), as the fewer of those and k base products a nonzero
+    coefficient of b (BN254 G2's dense b3: 3; BLS24-315 G2's (0, 0, 0,
+    3/13): 4); G1's b3 are additions."""
+    from gnark_tpu_torch.ops import _cuda
+    shape = _cuda.shape(kind)
+    k = shape["degree"]
+    per_product = 3 ** (k.bit_length() - 1)
+    per_b3 = 0
+    if shape["b3_product"]:
+        b = groups((kind,))[kind][0].b
+        nonzero = sum(1 for c in (b if k > 1 else (b,)) if c)
+        per_b3 = min(per_product, k * nonzero)
+    return {op: m * per_product + b3 * per_b3
+            for op, (m, b3) in POINT_OPS.items()}
+
+
+def fold_products(kind, op):
+    """Base products of each level of the kernels' point operations as
+    they run them (fold_dbl, fold_add; the leaf's mixed addition): an F
+    product is Prod<F>::S base products (1, 3, 16), and where b3 is a
+    product (G2) it is a level of its own.  A group of G lanes runs a
+    level of m in ceil(m / G) rounds."""
+    from gnark_tpu_torch.ops import _cuda
+    shape = _cuda.shape(kind)
+    s = shape["prod_s"]
+    first, b3s, last = {"pdbl": (4, 1, 4), "padd": (6, 2, 6),
+                        "leaf": (5, 2, 6)}[op]
+    return ((first * s, b3s * s, last * s) if shape["b3_product"]
+            else (first * s, last * s))
+
+
 LATENCY_STEPS = 1024            # montmul products a chain, one element
 REPLACES = {
     "leaf_prefix": "gnark_tpu/ops/msm.py:496",
@@ -152,8 +214,8 @@ def ptxas_summary(report):
     its register count."""
     out, name, props = [], None, ""
     for line in report.splitlines():
-        m = re.search(r"Function properties for _Z\d+(\w+_kernel)I2(G[12])"
-                      r"((?:Li\d+E)*)E", line)
+        m = re.search(r"Function properties for _Z\d+(\w+_kernel)I\d+"
+                      r"(G[12](?:Bls24)?)((?:Li\d+E)*)E", line)
         if "Function properties for" in line:
             name = (f"{m.group(1)}<" + ", ".join(
                 [m.group(2)] + re.findall(r"Li(\d+)E", m.group(3))) + ">"
@@ -243,7 +305,7 @@ def phase_microbench(device):
         ms = MB.time_op(op, x, y)
         ops = n * 4 * steps * MB.OPS_PER_STEP[op]
         if montmul:
-            ops *= MULS_PER_PRODUCT
+            ops *= muls_per_product("g1")     # BN254's product
         elif op == "add_u32":
             ops //= ADDS_PER_IADD3
         nbytes = 3 * x.numel() * x.element_size()
@@ -310,41 +372,53 @@ def device_busy(label, fn):
             for e in rows[:6]))
 
 
-def groups():
-    from gnark_tpu_torch.curves import BN254
-    from gnark_tpu_torch.ops.ec import CurveOps
-    from gnark_tpu_torch.ops.limbs import field_ops
-    from gnark_tpu_torch.ops.towers import fp2_ops
-    return {
-        "g1": (CurveOps(field_ops(BN254.fp), b=BN254.b), BN254.host_g1,
-               BN254.g1_gen),
-        "g2": (CurveOps(fp2_ops(BN254.fp, BN254.fp2_beta), b=BN254.b2),
-               BN254.host_g2, BN254.g2_gen),
-    }
+BN254_KINDS = ("g1", "g2")
+BLS24_KINDS = ("g1_bls24315", "g2_bls24315")
 
 
-def oracle_inputs(G, host, gen, device, rng, n=None):
+def groups(kinds=BN254_KINDS):
+    """{kind: (curve ops, host curve, generator)}: the groups the kernels
+    are built for, BN254's by default."""
+    from gnark_tpu_torch.backend.groth16 import _Groups
+    from gnark_tpu_torch.curves import BLS24_315, BN254
+    out = {}
+    for kind in kinds:
+        curve = BLS24_315 if kind in BLS24_KINDS else BN254
+        K = _Groups(curve)
+        if kind.startswith("g1"):
+            out[kind] = (K.g1, curve.host_g1, curve.g1_gen)
+        else:
+            out[kind] = (K.g2, curve.host_g2, curve.g2_gen)
+    return out
+
+
+def scalar_modulus(kind):
+    from gnark_tpu_torch.curves import BLS24_315, BN254
+    return (BLS24_315 if kind in BLS24_KINDS else BN254).fr.modulus
+
+
+def oracle_inputs(G, host, gen, device, rng, n=None, r=None):
     """n (default N_MSM) points, point i = 2^(i mod 64) * gen, random
-    full-width scalars, and the expected MSM as one host scalar
-    multiplication."""
+    full-width scalars below r (default BN254's scalar field), and the
+    expected MSM as one host scalar multiplication."""
     import torch
     n = n or N_MSM
     from gnark_tpu_torch.curves import BN254
     from gnark_tpu_torch.ops.limbs import ints_to_limbs
+    r = r or BN254.fr.modulus
     base, P = [], gen
     for _ in range(64):
         base.append(P)
         P = host.double(P)
-    reps = n // 64
-    xs = G.F.pack([p[0] for p in base], device).repeat(1, reps)
-    ys = G.F.pack([p[1] for p in base], device).repeat(1, reps)
+    reps = -(-n // 64)
+    xs = G.F.pack([p[0] for p in base], device).repeat(1, reps)[:, :n]
+    ys = G.F.pack([p[1] for p in base], device).repeat(1, reps)[:, :n]
     inf = torch.zeros(n, dtype=torch.bool, device=device)
-    scalars = [int.from_bytes(rng.bytes(32), "little") % BN254.fr.modulus
+    scalars = [int.from_bytes(rng.bytes(32), "little") % r
                for _ in range(n)]
     sc = torch.from_numpy(ints_to_limbs(scalars, BN254.fr.L).astype(
         np.int64)).to(device)
-    total = sum(s << (i % 64) for i, s in enumerate(scalars)) % \
-        BN254.fr.modulus
+    total = sum(s << (i % 64) for i, s in enumerate(scalars)) % r
     return xs, ys, inf, sc, host.scalar_mul(gen, total)
 
 
@@ -356,8 +430,7 @@ def kernel_work(name, kind, args):
     import torch
     from gnark_tpu_torch.ops import _cuda
     from gnark_tpu_torch.ops.limbs import limbs_to_ints
-    k = 0 if kind == "g1" else 1
-    cost = {op: v[k] for op, v in POINT_PRODUCTS.items()}
+    cost = point_products(kind)
     L3 = 3 * _cuda._L16[kind]
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
@@ -496,17 +569,18 @@ def warps_per_sm(name, kind, args):
            if torch.cuda.is_available() else 132)    # 132: a CPU rehearsal
     t = [a for a in args if hasattr(a, "shape")]
     if name == "leaf_prefix":
-        threads = t[0].shape[0] * t[0].shape[3] * _cuda.LEAF_GROUP[kind]
+        threads = t[0].shape[0] * t[0].shape[3] * _cuda.shape(kind)["leaf_group"]
     elif name == "lane_offsets":
-        threads = (t[0].shape[1] * _cuda.LANES_THREADS[kind]
-                   * _cuda.LANES_CLUSTER[kind])
+        threads = (t[0].shape[1] * _cuda.shape(kind)["lanes_threads"]
+                   * _cuda.shape(kind)["lanes_cluster"])
     elif name == "weighted_sum":
-        threads = (t[0].shape[1] * _cuda.WSUM_THREADS[kind]
-                   * _cuda.WSUM_CLUSTER[kind])
+        threads = (t[0].shape[1] * _cuda.shape(kind)["wsum_threads"]
+                   * _cuda.shape(kind)["wsum_cluster"])
     elif name == "horner_fold":
         threads = 32
     elif name == "ladder":
-        threads = -(-t[0].shape[1] // 8) * 8 * M.LADDER_CHUNKS
+        pts = _cuda.shape(kind)["ladder_points"]
+        threads = -(-t[0].shape[1] // pts) * pts * M.LADDER_CHUNKS
     elif name == "reduce":
         threads = t[0].shape[1] * _cuda.REDUCE_LANES
     else:
@@ -520,8 +594,8 @@ def leaf_critical_path(kind, sy, latency_ms):
     group width, that chain in ms at the measured latency of one
     dependent product by levels and by rounds)."""
     from gnark_tpu_torch.ops import _cuda
-    levels = LEAF_LEVELS[0 if kind == "g1" else 1]
-    g = _cuda.LEAF_GROUP[kind]
+    levels = fold_products(kind, "leaf")
+    g = _cuda.shape(kind)["leaf_group"]
     rounds = sum(-(-m // g) for m in levels)
     adds = int((((sy[:, :, 0, :] >> 16) & 1) == 0).sum(1).max())
     return (adds, len(levels), rounds, adds * len(levels) * latency_ms,
@@ -536,13 +610,13 @@ def wsum_critical_path(kind, bk, latency_ms):
     latency of one dependent product by levels, lane 0's rounds of
     products at the group width, that path by rounds)."""
     from gnark_tpu_torch.ops import _cuda
-    k = 0 if kind == "g1" else 1
     K = bk.shape[-1].bit_length() - 1
     adds, dbls = 2 * K - 1, K - 1
-    levels = adds * FOLD_LEVELS["padd"][k] + dbls * FOLD_LEVELS["pdbl"][k]
-    g = _cuda.WSUM_GROUP[kind]
-    rounds = (adds * sum(-(-m // g) for m in FOLD_PRODUCTS["padd"][k])
-              + dbls * sum(-(-m // g) for m in FOLD_PRODUCTS["pdbl"][k]))
+    padd, pdbl = fold_products(kind, "padd"), fold_products(kind, "pdbl")
+    levels = adds * len(padd) + dbls * len(pdbl)
+    g = _cuda.shape(kind)["wsum_group"]
+    rounds = (adds * sum(-(-m // g) for m in padd)
+              + dbls * sum(-(-m // g) for m in pdbl))
     return (adds, dbls, levels, levels * latency_ms, rounds,
             rounds * latency_ms)
 
@@ -554,20 +628,20 @@ def lanes_critical_path(kind, tot, latency_ms):
     dependent product, lane 0's rounds of products at the group width,
     that path by rounds)."""
     from gnark_tpu_torch.ops import _cuda
-    k = 0 if kind == "g1" else 1
     K = tot.shape[-1].bit_length() - 1
     adds = max(2 * K - 1, 0)
-    levels = adds * FOLD_LEVELS["padd"][k]
-    g = _cuda.LANES_GROUP[kind]
-    rounds = adds * sum(-(-m // g) for m in FOLD_PRODUCTS["padd"][k])
+    padd = fold_products(kind, "padd")
+    levels = adds * len(padd)
+    g = _cuda.shape(kind)["lanes_group"]
+    rounds = adds * sum(-(-m // g) for m in padd)
     return adds, levels, levels * latency_ms, rounds, rounds * latency_ms
 
 
 def fold_critical_path(kind, S, c, latency_ms):
     """(products on the Horner fold's longest dependent chain, that chain
     in ms at the measured latency of one dependent product)."""
-    k = 0 if kind == "g1" else 1
-    chain = fold_top(S) * (c * FOLD_LEVELS["pdbl"][k] + FOLD_LEVELS["padd"][k])
+    chain = fold_top(S) * (c * len(fold_products(kind, "pdbl"))
+                           + len(fold_products(kind, "padd")))
     return chain, chain * latency_ms
 
 
@@ -583,7 +657,7 @@ def bound(ops, ops_per_s, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def msm_bounds(products, nbytes, rates):
+def msm_bounds(products, nbytes, rates, kind):
     """An MSM kernel's two bounds, as entries of the kernels line.  The
     bound proper holds its 32-bit multiplies to the card's integer issue
     peak, one a lane a clock, as the microbenchmark's rows are held: no
@@ -591,7 +665,7 @@ def msm_bounds(products, nbytes, rates):
     microbenchmark measured for its mad.wide.u32 chain, carry adds
     included: what multiply-adds of field.cuh's form reach today."""
     peak, mad_per_s = rates[:2]
-    muls = products * MULS_PER_PRODUCT
+    muls = products * muls_per_product(kind)
     b_ms, by = bound(muls, peak, nbytes)
     return {"bound_ms": b_ms, "bound_by": by,
             "bound_ms_at_mad_rate": bound(muls, mad_per_s, nbytes)[0]}
@@ -602,8 +676,9 @@ def windowed_cases(kind, n, device, rng):
     over oracle inputs (1 point in 64 infinite): (the plan, {name: (args,
     kernel, plain version)})."""
     from gnark_tpu_torch.ops import msm as M
-    G, host, gen = groups()[kind]
-    xs, ys, inf, sc, _ = oracle_inputs(G, host, gen, device, rng, n)
+    G, host, gen = groups((kind,))[kind]
+    xs, ys, inf, sc, _ = oracle_inputs(G, host, gen, device, rng, n,
+                                       scalar_modulus(kind))
     inf[::64] = True
     plan = M.MSM(G, n, 16)
     log(f"[kernels {kind}] plan at n={n}: c={plan.c} nwin={plan.nwin} "
@@ -689,7 +764,8 @@ def phase_kernels(device, rates):
     want, plain_ms = wall_ms(lambda: M.ladder_plain(*part, GC))
     assert torch.equal(lout[..., cols], want), "ladder g2 2^16 != plain"
     ms = cuda_ms(lambda: M.ladder(lx, ly, linf, lsc, GC), 3)
-    b = msm_bounds(*kernel_work("ladder", "g2", (lx, ly, linf, lsc)), rates)
+    b = msm_bounds(*kernel_work("ladder", "g2", (lx, ly, linf, lsc)), rates,
+                   "g2")
     assert ms >= b["bound_ms"], ("ladder g2 2^16 beats its bound", ms, b)
     log(f"[kernels g2] ladder n={N_MSM}: {N_SLICE} points, one in every "
         f"{step} from 0 to {N_MSM - 1}, bit-exact (tolerance 0; all points "
@@ -728,8 +804,9 @@ def compare(kind, name, args, kern, plain, rates, work=None):
     assert torch.equal(out_k, out_p), f"{name} {kind}: kernel != plain"
     ms = cuda_ms(lambda: kern(*args), 3)
     work = work or name
+    shape = _cuda.shape(kind)
     products, nbytes = kernel_work(work, kind, args)
-    b = msm_bounds(products, nbytes, rates)
+    b = msm_bounds(products, nbytes, rates, kind)
     assert ms >= b["bound_ms"], (f"{name} {kind} beats its bound", ms, b)
     b["warps_per_sm"] = warps_per_sm(work, kind, args)
     extra = ""
@@ -746,7 +823,7 @@ def compare(kind, name, args, kern, plain, rates, work=None):
                  f"{rates[2] * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached), "
                  f"{rounds} rounds of products an addition on lane 0 at "
-                 f"G = {_cuda.LEAF_GROUP[kind]}: {by_rounds:.4g} ms "
+                 f"G = {shape['leaf_group']}: {by_rounds:.4g} ms "
                  f"({share(by_rounds / ms)})")
     elif work == "lane_offsets":
         adds, lv, b["critical_path_ms"], rounds, by_rounds = \
@@ -756,9 +833,9 @@ def compare(kind, name, args, kern, plain, rates, work=None):
                  f"{b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached), "
                  f"{rounds} rounds of products on lane 0 at G = "
-                 f"{_cuda.LANES_GROUP[kind]}: {by_rounds:.4g} ms "
-                 f"({share(by_rounds / ms)}); {_cuda.LANES_CLUSTER[kind]} "
-                 f"block(s) of {_cuda.LANES_THREADS[kind]} threads a "
+                 f"{shape['lanes_group']}: {by_rounds:.4g} ms "
+                 f"({share(by_rounds / ms)}); {shape['lanes_cluster']} "
+                 f"block(s) of {shape['lanes_threads']} threads a "
                  f"window, the narrow steps on one")
     elif work == "weighted_sum":
         adds, dbls, lv, b["critical_path_ms"], rounds, by_rounds = \
@@ -768,9 +845,9 @@ def compare(kind, name, args, kern, plain, rates, work=None):
                  f"{b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached), "
                  f"{rounds} rounds of products on lane 0 at G = "
-                 f"{_cuda.WSUM_GROUP[kind]}: {by_rounds:.4g} ms "
-                 f"({share(by_rounds / ms)}); {_cuda.WSUM_CLUSTER[kind]} "
-                 f"block(s) of {_cuda.WSUM_THREADS[kind]} threads a window")
+                 f"{shape['wsum_group']}: {by_rounds:.4g} ms "
+                 f"({share(by_rounds / ms)}); {shape['wsum_cluster']} "
+                 f"block(s) of {shape['wsum_threads']} threads a window")
     log(f"[kernels {kind}] {name}: bit-exact (tolerance 0), "
         f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{b['bound_ms']:.4g} ms by {b['bound_by']} ({products} field "
@@ -847,7 +924,9 @@ def phase_msm(device):
                 f"takes the {'ladder' if n < M.LADDER_MAX else 'windowed'})")
 
 
-def mimc_chain(n_hashes):
+def mimc_chain(n_hashes, curve=None):
+    """The MiMC chain of n_hashes hashes over ``curve`` (BN254 by default),
+    compiled, with its preimage and digest."""
     from gnark_tpu_torch.curves import BN254
     from gnark_tpu_torch.frontend.compile import compile_circuit
     from gnark_tpu_torch.frontend.schema import Circuit, Public, Secret
@@ -865,13 +944,15 @@ def mimc_chain(n_hashes):
                 acc = h.sum()
             api.assert_is_equal(acc, self.digest)
 
+    curve = curve or BN254
     t0 = time.perf_counter()
-    cs = compile_circuit(MiMCChain(), BN254)
-    log(f"[groth16] compile {n_hashes} hashes {time.perf_counter() - t0:.2f} "
-        f"s: {cs.nb_constraints} constraints, {cs.nb_wires} wires")
+    cs = compile_circuit(MiMCChain(), curve)
+    log(f"[groth16] compile {n_hashes} hashes over {curve.name} "
+        f"{time.perf_counter() - t0:.2f} s: {cs.nb_constraints} "
+        f"constraints, {cs.nb_wires} wires")
     pre = acc = 12345
     for _ in range(n_hashes):
-        h = MiMCHost(BN254)
+        h = MiMCHost(curve)
         h.write(acc)
         acc = h.sum()
     return cs, pre, acc
@@ -916,8 +997,8 @@ def phase_groth16(device, profile=False, trace=False):
             ran = {k: v - before[k] for k, v in _cuda.launches.items()
                    if v > before[k]}
             log(f"[groth16 {name}] launches in this prove: {ran}")
-    launches = {k: v for k, v in _cuda.launches.items()
-                if not k.startswith("microbench_")}
+    launches = {f"{k}_{kind}": _cuda.launches[f"{k}_{kind}"]
+                for k in _cuda.KERNELS for kind in BN254_KINDS}
     assert all(v > 0 for v in launches.values()), launches
     assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
     log(f"[groth16] launches during the four proves: {launches}")
@@ -953,10 +1034,11 @@ def phase_groth16(device, profile=False, trace=False):
     return launches
 
 
-def square_chain(n_sq):
+def square_chain(n_sq, curve=None):
     """The circuit of scripts/dev_plonk_e2e.py: y = x^(2^n_sq), one
-    multiplication gate per squaring."""
+    multiplication gate per squaring, over ``curve`` (BN254 by default)."""
     from gnark_tpu_torch.curves import BN254
+    curve = curve or BN254
     from gnark_tpu_torch.frontend.compile import compile_circuit
     from gnark_tpu_torch.frontend.schema import Circuit, Public, Secret
 
@@ -971,12 +1053,12 @@ def square_chain(n_sq):
             api.assert_is_equal(v, self.y)
 
     t0 = time.perf_counter()
-    cs = compile_circuit(SquareChain(), BN254, scheme="plonk")
-    log(f"[plonk] compile {n_sq} squarings {time.perf_counter() - t0:.2f} s: "
-        f"{cs.nb_constraints} gates")
+    cs = compile_circuit(SquareChain(), curve, scheme="plonk")
+    log(f"[plonk] compile {n_sq} squarings over {curve.name} "
+        f"{time.perf_counter() - t0:.2f} s: {cs.nb_constraints} gates")
     x0 = y = 3
     for _ in range(n_sq):
-        y = y * y % BN254.fr.modulus
+        y = y * y % curve.fr.modulus
     return cs, x0, y
 
 
@@ -1150,6 +1232,233 @@ def phase_rollup(device):
     return launches
 
 
+def phase_bls24_kernels(device, rates):
+    """BLS24-315's two kinds, G1 over its fp (N = 10) and G2 over fp4:
+    each of the six kernels against its plain version on the same CUDA
+    tensors, bit for bit, with its bound: the four windowed kernels at the
+    2^16 plan, the ladder, its reduction and the fold of the chunk sums
+    at 4096 points, infinity points among them; G1's four windowed
+    kernels also at the plan of the PLONK commitments of phase 10
+    (N_CURVE_PLONK + 3 points: c = 10, 512 buckets, C = 33).  Returns
+    (the results, those at the PLONK plan)."""
+    from gnark_tpu_torch.ops import msm as M
+    results, at_plonk = {}, {}
+    rng = np.random.default_rng(SEED + 3)
+    B = M.chunk_bits(16)
+    for kind in BLS24_KINDS:
+        G, host, gen = groups(BLS24_KINDS)[kind]
+        plan, cases = windowed_cases(kind, N_MSM, device, rng)
+        GC = plan.GC
+        lx, ly, linf, lsc, _ = oracle_inputs(G, host, gen, device, rng,
+                                             N_LADDER, scalar_modulus(kind))
+        linf[::64] = True
+        lout = M.ladder(lx, ly, linf, lsc, GC)
+        sync()
+        cases["ladder"] = ((lx, ly, linf, lsc, GC), M.ladder, M.ladder_plain)
+        cases["reduce"] = ((lout, GC), M.reduce, M.reduce_plain)
+        for name, (args, kern, plain) in cases.items():
+            results[f"{name}_{kind}"] = compare(kind, name, args, kern, plain,
+                                                rates)
+        T = M.reduce(lout, GC)
+        compare(kind, f"horner_fold chunks nw={M.LADDER_CHUNKS} c={B}",
+                (T, B, GC), M.horner_fold, M.horner_fold_plain, rates,
+                work="horner_fold")
+    kind = BLS24_KINDS[0]
+    plan, cases = windowed_cases(kind, N_CURVE_PLONK + 3, device, rng)
+    assert (plan.c, plan.nwin, plan.nb, plan.R, plan.C) == CURVE_PLONK_PLAN
+    for name, (args, kern, plain) in cases.items():
+        at_plonk[f"{name}_{kind}"] = compare(
+            kind, f"{name} c={plan.c} C={plan.C}", args, kern, plain, rates,
+            work=name)
+    return results, at_plonk
+
+
+# Groth16 over the other curves: request -> (curve, MiMC hashes, MSM
+# points).  The 2^16 chains fill a domain of 2^16 about as BN254's 178
+# hashes do (BLS12-377's MiMC takes the inverse round: 62 constraints a
+# hash, not 330); BLS24-315's 12-hash chain is its small request (the
+# ladder); the BW6 curves' at 2^12, their host MSMs over 761- and 633-bit
+# fp setting the cut.
+CURVE_GROTH16 = {
+    "bls12_381 mimc": ("bls12_381", 176, N_MSM),
+    "bls12_377 mimc": ("bls12_377", 947, N_MSM),
+    "bls24_315 mimc": ("bls24_315", 180, N_MSM),
+    "bls24_315 mimc12": ("bls24_315", 12, N_LADDER),
+    "bw6_761 mimc": ("bw6_761", 9, N_BW6),
+    "bw6_633 mimc": ("bw6_633", 10, N_BW6),
+}
+CURVE_PLONK = ("bls12_381", "bls24_315")
+
+
+def expected_launches(curve, n_msm, scheme="groth16"):
+    """The kernels a prove over ``curve`` launches, as gnark_tpu routes it:
+    none on the native route (fp.L >= 24); BLS24-315's windowed kernels
+    from 8192 points, its ladder, reduction and fold below (G1 alone under
+    PLONK)."""
+    from gnark_tpu_torch.backend.groth16 import native_route
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import msm as M
+    if native_route(curve):
+        return set()
+    names = (_cuda.WINDOW_KERNELS if n_msm >= M.LADDER_MAX
+             else ("ladder", "reduce", "horner_fold"))
+    kinds = BLS24_KINDS if scheme == "groth16" else BLS24_KINDS[:1]
+    return {f"{k}_{kind}" for k in names for kind in kinds}
+
+
+def watch_compute_h(groth16, seen):
+    """Wrap groth16.compute_h so that each call records whether its three
+    inputs are CUDA tensors; returns the original."""
+    orig = groth16.compute_h
+
+    def watched(domain, a, b, c):
+        seen.append(all(t.is_cuda for t in (a, b, c)))
+        return orig(domain, a, b, c)
+
+    groth16.compute_h = watched
+    return orig
+
+
+def phase_curves_groth16(device):
+    """Groth16 over BLS12-381, BLS12-377, BLS24-315, BW6-761 and BW6-633,
+    routed as gnark_tpu routes them: setup on the card (the key points on
+    the native core for fp.L >= 24), then the main path, each request
+    proved cold and warm with the launch counts taken over all of them;
+    the quotient's NTTs on the card for every curve (compute_h's inputs
+    are CUDA tensors), the MSMs on the native core for fp.L >= 24 and on
+    BLS24-315's kernels; each proof verifies, a wrong public input fails."""
+    from gnark_tpu_torch.backend import groth16
+    from gnark_tpu_torch.curves import ALL_CURVES
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import msm as M
+    served = {}
+    for name, (cname, n_hashes, n_msm) in CURVE_GROTH16.items():
+        curve = ALL_CURVES[cname]
+        cs, pre, digest = mimc_chain(n_hashes, curve)
+        t0 = time.perf_counter()
+        pk, vk = groth16.setup(cs, curve, rng=random.Random(42),
+                               device=device)
+        sync()
+        route = ("native core" if groth16.native_route(curve)
+                 else "the card's fixed-base")
+        log(f"[groth16 {name}] setup {time.perf_counter() - t0:.2f} s, key "
+            f"points on {route} (domain {pk.domain_n}, n_pad {pk.n_pad})")
+        assert pk.n_pad == n_msm and pk.device == device, pk.n_pad
+        served[name] = (curve, cs, pk, vk, pre, digest, n_msm)
+
+    seen = []
+    orig = watch_compute_h(groth16, seen)
+    _cuda.reset_launches()
+    for k in M.plain_on_cuda:
+        M.plain_on_cuda[k] = 0
+    proofs = {}
+    try:
+        for name, (curve, cs, pk, vk, pre, digest, n_msm) in served.items():
+            for label in ("cold", "warm"):
+                before = dict(_cuda.launches)
+                timings = {}
+                t0 = time.perf_counter()
+                proofs[name] = groth16.prove(cs, pk, [digest, pre],
+                                             rng=random.Random(7),
+                                             timings=timings)
+                total = time.perf_counter() - t0
+                log(f"[groth16 {name}] prove {label} {total:.2f} s: "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+                ran = {k: v - before[k] for k, v in _cuda.launches.items()
+                       if v > before[k]}
+                log(f"[groth16 {name}] launches in this prove: {ran}")
+                assert set(ran) == expected_launches(curve, n_msm), ran
+    finally:
+        groth16.compute_h = orig
+    assert len(seen) == 2 * len(served) and all(seen), seen
+    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    launches = {k: v for k, v in _cuda.launches.items() if v}
+    log(f"[groth16 curves] launches during the {2 * len(served)} proves: "
+        f"{launches}; compute_h on CUDA tensors in each")
+
+    for name, (curve, cs, pk, vk, pre, digest, _) in served.items():
+        t0 = time.perf_counter()
+        assert groth16.verify(proofs[name], vk, [digest]), \
+            f"{name}: proof does not verify"
+        assert not groth16.verify(proofs[name], vk, [digest + 1]), \
+            f"{name}: proof verifies a wrong public input"
+        log(f"[groth16 {name}] verify ok, wrong public input rejected "
+            f"({time.perf_counter() - t0:.2f} s)")
+    return launches
+
+
+def phase_curves_plonk(device):
+    """PLONK over BLS12-381 (commitments on the native core) and BLS24-315
+    (on its G1 kernels): a squaring chain in a domain of N_CURVE_PLONK,
+    setup on the card, then the main path, a cold and a warm prove each
+    with the launch counts taken over them; verify, and reject a wrong
+    public input."""
+    from gnark_tpu_torch.backend import plonk
+    from gnark_tpu_torch.curves import ALL_CURVES
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import msm as M
+    served = {}
+    for cname in CURVE_PLONK:
+        curve = ALL_CURVES[cname]
+        cs, x0, y = square_chain(N_CURVE_PLONK - 4, curve)
+        t0 = time.perf_counter()
+        pk, vk = plonk.setup(cs, curve, rng=random.Random(42), device=device)
+        sync()
+        log(f"[plonk {cname}] setup on the card {time.perf_counter() - t0:.2f}"
+            f" s (domain {pk.n}, SRS of {len(pk.srs.g1)} points)")
+        assert pk.n == N_CURVE_PLONK and pk.device == device
+        served[cname] = (curve, cs, pk, vk, x0, y)
+
+    # the windowed plans the proves' commitments take: phase 8 holds the
+    # kernels against their plain versions at CURVE_PLONK_PLAN
+    plans, orig_plan = set(), M._plan
+
+    def watched_plan(G, n, limbs):
+        plan = orig_plan(G, n, limbs)
+        plans.add((plan.c, plan.nwin, plan.nb, plan.R, plan.C))
+        return plan
+
+    _cuda.reset_launches()
+    for k in M.plain_on_cuda:
+        M.plain_on_cuda[k] = 0
+    proofs = {}
+    M._plan = watched_plan
+    try:
+        for cname, (curve, cs, pk, vk, x0, y) in served.items():
+            for label in ("cold", "warm"):
+                before = dict(_cuda.launches)
+                timings = {}
+                t0 = time.perf_counter()
+                proofs[cname] = plonk.prove(cs, pk, [y, x0],
+                                            rng=random.Random(7),
+                                            timings=timings)
+                total = time.perf_counter() - t0
+                log(f"[plonk {cname}] prove {label} {total:.2f} s: "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+                ran = {k: v - before[k] for k, v in _cuda.launches.items()
+                       if v > before[k]}
+                log(f"[plonk {cname}] launches in this prove: {ran}")
+                assert set(ran) == expected_launches(
+                    curve, len(pk.srs.g1), "plonk"), ran
+    finally:
+        M._plan = orig_plan
+    log(f"[plonk curves] windowed plans (c, windows, buckets, R, C) of the "
+        f"commitments: {sorted(plans)}")
+    assert plans == {CURVE_PLONK_PLAN}, plans
+    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    launches = {k: v for k, v in _cuda.launches.items() if v}
+    log(f"[plonk curves] launches during the four proves: {launches}")
+    for cname, (curve, cs, pk, vk, x0, y) in served.items():
+        t0 = time.perf_counter()
+        assert plonk.verify(proofs[cname], vk, [y]), f"{cname}: no verify"
+        assert not plonk.verify(proofs[cname], vk,
+                                [(y + 1) % curve.fr.modulus]), \
+            f"{cname}: proof verifies a wrong public input"
+        log(f"[plonk {cname}] verify ok, wrong public input rejected "
+            f"({time.perf_counter() - t0:.2f} s)")
+    return launches
+
+
 ADD_TYPE = re.compile(r"^(IADD3|IADD|IMAD\.X|IMAD\.IADD|IADD32I|LEA)")
 MUL_TYPE = re.compile(r"^IMAD(\.WIDE|\.HI|\.U32|$)")
 
@@ -1248,8 +1557,9 @@ def main():
     log(f"[env] nvcc builds, side by side, {time.perf_counter() - t0:.1f} s")
     for name, info in _cuda.build_info.items():
         log(f"[env] nvcc {name} {info['seconds']:.1f} s: {info['command']}")
-    for line in ptxas_summary(_cuda.build_info["msm"]["ptxas"]):
-        log(f"[ptxas] {line}")
+    for lib in ("msm", "msm_g1_bls24315", "msm_g2_bls24315"):
+        for line in ptxas_summary(_cuda.build_info[lib]["ptxas"]):
+            log(f"[ptxas] {line}")
     for a in args:
         if a.split("=")[0] == "--sass":
             sass_report(a.partition("=")[2] or None)
@@ -1275,6 +1585,15 @@ def main():
     kern_rollup = phase_rollup_kernels(device, msm_rates)
     l_rollup = phase_rollup(device)
     log(f"[phase] rollup {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kern_bls24, kern_bls24_plonk = phase_bls24_kernels(device, msm_rates)
+    log(f"[phase] BLS24-315 kernels vs plain {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    l_curves = phase_curves_groth16(device)
+    log(f"[phase] groth16 other curves {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    l_curves_plonk = phase_curves_plonk(device)
+    log(f"[phase] plonk other curves {time.perf_counter() - t0:.1f} s")
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s")
 
     from gnark_tpu_torch.ops import msm as M
@@ -1297,6 +1616,19 @@ def main():
         if key in kern_rollup:
             entries[-1]["at_rollup_plan"] = {
                 k: kern_rollup[key][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    for key, r in kern_bls24.items():
+        name, kind = key.split("_g")[0], "g" + key.split("_g")[1]
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": f"gnark_tpu_torch/csrc/msm_{kind}.cu",
+            "replaces": REPLACES[name],
+            "launches": l_curves.get(key, 0) + l_curves_plonk.get(key, 0),
+            "launches_groth16": l_curves.get(key, 0),
+            "launches_plonk": l_curves_plonk.get(key, 0), **r})
+        if key in kern_bls24_plonk:
+            entries[-1]["at_plonk_plan"] = {
+                k: kern_bls24_plonk[key][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
     for key, r in micro.items():
         entries.append({

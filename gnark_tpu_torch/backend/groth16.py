@@ -1,14 +1,25 @@
 """Groth16 setup / prove / verify on PyTorch (counterpart of
-gnark_tpu/backend/groth16.py, BN254 device path).
+gnark_tpu/backend/groth16.py), over the six curves of ``curves``.
 
-  * setup: the native-core QAP at tau, then the key points on the device
-    with the plain-torch fixed-base tables and a batch ``to_affine``;
-  * prove: the witness solver (backend/solver.py), the quotient by NTT on the device,
-    five MSMs (four G1, one G2 over fp2) through ``ops.msm.msm``: the
+  * setup: the native-core QAP at tau, then the key points: on the device
+    with the plain-torch fixed-base tables and a batch ``to_affine``; for
+    a base field of 24 or more 16-bit limbs (BLS12-381, BLS12-377, BW6-761,
+    BW6-633) on the native core, as gnark_tpu routes them; with
+    ``host=True`` as host point lists;
+  * prove: the witness solver (backend/solver.py), the quotient by NTT on
+    the device, five MSMs (four G1, one G2) through ``ops.msm.msm``: the
     ladder below 8192 points, the windowed plan from there (the MSM
-    kernels run on a CUDA device), and the host assembly with the
-    blinding terms r and s, drawn in the same order as gnark_tpu's;
+    kernels run on a CUDA device); for ``fp.L >= 24`` all five on the
+    native core's Pippenger; then the host assembly with the blinding
+    terms r and s, drawn in the same order as gnark_tpu's.  A host key
+    proves on host ints and the native core (``_prove_host``);
   * verify: the host pairing check.
+
+G2 lives over fp2 (BN254, BLS12-381, BLS12-377), over fp4 (BLS24-315)
+or over fp itself (BW6-761, BW6-633).  gnark_tpu's native route sends
+BLS12's G2 to a native core that only knew fp and fails there
+(``TypeError`` in ``native_fixed_base``); the port's native core takes
+fp2 too, so the route runs on every curve it names.
 
 The protocol pieces of ``gnark_tpu/backend/groth16.py`` have their
 counterparts here: the key and proof dataclasses, ``_sampler``,
@@ -25,7 +36,8 @@ import time
 import numpy as np
 import torch
 
-from gnark_tpu_torch.backend.native_field import nat_for
+from gnark_tpu_torch.backend.native_field import (
+    nat_for, native_fixed_base, native_fixed_base_affine, native_msm)
 from gnark_tpu_torch.backend.solver import solve
 from gnark_tpu_torch.curves import ALL_CURVES
 from gnark_tpu_torch.curves.pairing import pairing_for
@@ -35,11 +47,11 @@ from gnark_tpu_torch.ops.fixed_base import FixedBaseTable
 from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs, limbs_to_ints
 from gnark_tpu_torch.ops.msm import _next_pow2, msm
 from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm
-from gnark_tpu_torch.ops.towers import fp2_ops
+from gnark_tpu_torch.ops.towers import fp2_ops, fpk_ops
 
 __all__ = ["ProvingKey", "VerifyingKey", "Proof", "setup", "prove",
-           "verify", "compute_h", "proving_key_from_jax", "ints_to_limbs",
-           "limbs_to_ints"]
+           "verify", "compute_h", "proving_key_from_jax", "pk_to_device",
+           "ints_to_limbs", "limbs_to_ints"]
 
 
 @dataclasses.dataclass
@@ -67,16 +79,16 @@ class ProvingKey:
     beta_g2: tuple
     delta_g2: tuple
     # (x, y, inf): affine Montgomery limb planes [L, n_pad] and a [n_pad]
-    # bool mask, all on one device
+    # bool mask, tensors on ``device``, or numpy arrays on the native route
+    # (the native core's MSMs read them); with host=True, lists of host
+    # affine points (None = infinity)
     A: tuple
     B1: tuple
-    B2: tuple               # fp2 coordinates [2L, n_pad]
+    B2: tuple               # G2 coordinates ([2L, n_pad] over fp2)
     K: tuple                # private wires only
     Z: tuple                # domain points, bit-reversed order
-
-    @property
-    def device(self):
-        return self.A[0].device
+    host: bool = False
+    device: object = None   # where the prove runs; None for a host key
 
 
 @dataclasses.dataclass
@@ -104,7 +116,12 @@ def _sampler(rng):
 
 
 class _Groups:
-    """G1 over fp and G2 over fp2 for one curve."""
+    """G1 over fp and G2 over its coordinate field for one curve, as
+    gnark_tpu's ``_CurveKernels`` picks it (groth16.py:198-224): fp itself
+    for BW6, fp4 for BLS24, fp2 with the curve's beta otherwise.  G2 keeps
+    its curve coefficient b on every curve: the MSM runs on the complete
+    formulas, which need it (gnark_tpu drops it for fp4 G2, whose Jacobian
+    ladder does not)."""
 
     _cache = {}
 
@@ -113,11 +130,27 @@ class _Groups:
             self = super().__new__(cls)
             self.fr = field_ops(curve.fr)
             self.fp = field_ops(curve.fp)
-            self.fp2 = fp2_ops(curve.fp, curve.fp2_beta)
+            # g2_beta: the native core's field for G2, fp (0) or fp2
+            self.g2_beta = 0
+            if curve.g2_over_fp:
+                self.fp2, self.g2_zero = self.fp, 0
+            elif curve.g2_tower_k == 4:
+                self.fp2 = fpk_ops(curve.fp, 4, curve.g2_tower_c)
+                self.g2_zero = (0, 0, 0, 0)
+            else:
+                self.fp2 = fp2_ops(curve.fp, curve.fp2_beta)
+                self.g2_zero, self.g2_beta = (0, 0), curve.fp2_beta
             self.g1 = CurveOps(self.fp, b=curve.b)
             self.g2 = CurveOps(self.fp2, b=curve.b2)
             cls._cache[curve.name] = self
         return cls._cache[curve.name]
+
+
+def native_route(curve) -> bool:
+    """gnark_tpu's cut (groth16.py:415, 688; kzg.py:124): key points and
+    MSMs of a base field of 24 or more 16-bit limbs go to the native core;
+    only the quotient's NTTs stay on the device.  By the curve alone."""
+    return curve.fp.L >= 24
 
 
 # ---- setup ---------------------------------------------------------------------
@@ -145,10 +178,14 @@ def _qap_at_tau_native(cs, fr_spec, tau: int, n: int, nat):
     return A, B, C, zt
 
 
-def setup(cs, curve, rng=None, *, device="cuda"):
-    """-> (ProvingKey, VerifyingKey) with the key points on ``device``:
-    the card unless the caller names another (raises when there is none)."""
-    device = _device(device)
+def setup(cs, curve, rng=None, host: bool = False, *, device="cuda"):
+    """-> (ProvingKey, VerifyingKey).  The key points go to ``device``:
+    the card unless the caller names another (raises when there is none);
+    on the native core for ``native_route(curve)``, on the device's
+    fixed-base tables otherwise.  ``host=True`` keeps host point lists
+    and touches no device (tiny circuits, protocol tests)."""
+    if not host:
+        device = _device(device)
     q = curve.fr.modulus
     rnd = _sampler(rng)
 
@@ -177,23 +214,56 @@ def setup(cs, curve, rng=None, *, device="cuda"):
 
     n_pad = _next_pow2(max(cs.nb_wires, n, 2))
     Ls = curve.fr.L
-
-    def planes(rows64):
-        p = nat.planes(rows64, Ls).astype(np.int64)
-        p = np.pad(p, ((0, 0), (0, n_pad - p.shape[1])))
-        return torch.from_numpy(p).to(device)
-
     K = _Groups(curve)
-    scalar_bits = curve.fr.L * W
-    fb1 = FixedBaseTable(K.g1, curve.host_g1, curve.g1_gen, scalar_bits,
-                         device)
-    fb2 = FixedBaseTable(K.g2, curve.host_g2, curve.g2_gen, scalar_bits,
-                         device)
-    A_pts = K.g1.to_affine(fb1(planes(A64)))
-    B1_pts = K.g1.to_affine(fb1(planes(B64)))
-    K_pts = K.g1.to_affine(fb1(planes(pk_k64)))
-    Z_pts = K.g1.to_affine(fb1(planes(zs_brev64)))
-    B2_pts = K.g2.to_affine(fb2(planes(B64)))
+
+    def rows_padded(rows64):
+        return np.concatenate([rows64, np.zeros(
+            (n_pad - rows64.shape[0], rows64.shape[1]), np.uint64)])
+
+    if host:
+        def g1_batch(rows64):
+            return native_fixed_base_affine(
+                curve, nat.unpack(rows_padded(rows64)), curve.g1_gen)
+
+        def g2_batch(rows64):
+            vals = nat.unpack(rows_padded(rows64))
+            if curve.g2_tower_k == 4:        # fp4: no native core
+                return [None if v % q == 0 else
+                        curve.host_g2.scalar_mul(curve.g2_gen, v % q)
+                        for v in vals]
+            return native_fixed_base_affine(curve, vals, curve.g2_gen,
+                                            beta=K.g2_beta)
+    elif native_route(curve):
+        def g1_batch(rows64):
+            return native_fixed_base(curve, rows_padded(rows64),
+                                     curve.g1_gen)
+
+        def g2_batch(rows64):
+            return native_fixed_base(curve, rows_padded(rows64),
+                                     curve.g2_gen, beta=K.g2_beta)
+    else:
+        def planes(rows64):
+            p = nat.planes(rows64, Ls).astype(np.int64)
+            p = np.pad(p, ((0, 0), (0, n_pad - p.shape[1])))
+            return torch.from_numpy(p).to(device)
+
+        scalar_bits = curve.fr.L * W
+        fb1 = FixedBaseTable(K.g1, curve.host_g1, curve.g1_gen, scalar_bits,
+                             device)
+        fb2 = FixedBaseTable(K.g2, curve.host_g2, curve.g2_gen, scalar_bits,
+                             device)
+
+        def g1_batch(rows64):
+            return K.g1.to_affine(fb1(planes(rows64)))
+
+        def g2_batch(rows64):
+            return K.g2.to_affine(fb2(planes(rows64)))
+
+    A_pts = g1_batch(A64)
+    B1_pts = g1_batch(B64)
+    K_pts = g1_batch(pk_k64)
+    Z_pts = g1_batch(zs_brev64)
+    B2_pts = g2_batch(B64)
 
     host1, host2 = curve.host_g1, curve.host_g2
     g1, g2 = curve.g1_gen, curve.g2_gen
@@ -210,7 +280,8 @@ def setup(cs, curve, rng=None, *, device="cuda"):
         curve=curve, domain_n=n, n_pad=n_pad,
         alpha_g1=alpha_g1, beta_g1=beta_g1, delta_g1=delta_g1,
         beta_g2=beta_g2, delta_g2=delta_g2,
-        A=A_pts, B1=B1_pts, B2=B2_pts, K=K_pts, Z=Z_pts)
+        A=A_pts, B1=B1_pts, B2=B2_pts, K=K_pts, Z=Z_pts, host=host,
+        device=None if host else device)
     vk = VerifyingKey(
         curve=curve, alpha_g1=alpha_g1, beta_g2=beta_g2,
         gamma_g2=gamma_g2, delta_g2=delta_g2, K=vk_k_host,
@@ -219,35 +290,59 @@ def setup(cs, curve, rng=None, *, device="cuda"):
     return pk, vk
 
 
-def proving_key_from_jax(pk, device) -> ProvingKey:
-    """A gnark_tpu ProvingKey -> this package's key on ``device``.
+_KEY_POINTS = ("A", "B1", "B2", "K", "Z")
 
-    Reads the dataclass fields only (no jax import): host point lists
-    (``host=True``) are packed; device arrays are expected as numpy
-    arrays already (Montgomery uint32 limb planes and bool masks).  The
-    curve becomes this package's own spec of the same name."""
+
+def pk_to_device(pk: ProvingKey, device) -> ProvingKey:
+    """A host key (setup(host=True)) -> the same key proved on ``device``
+    (gnark_tpu's pk_to_device): its points packed as limb planes there, or
+    as numpy planes on the native route.  Packing only."""
+    if not pk.host:
+        return pk
+    K = _Groups(pk.curve)
+    device = torch.device(device)
+    native = native_route(pk.curve)
+    pts = {}
+    for name in _KEY_POINTS:
+        planes = points_to_device(K.g2 if name == "B2" else K.g1,
+                                  getattr(pk, name),
+                                  K.g2_zero if name == "B2" else 0,
+                                  "cpu" if native else device)
+        pts[name] = (tuple(a.numpy() for a in planes) if native
+                     else planes)
+    return dataclasses.replace(pk, host=False, device=device, **pts)
+
+
+def proving_key_from_jax(pk, device=None) -> ProvingKey:
+    """A gnark_tpu ProvingKey -> this package's key, on any curve.
+
+    Reads the dataclass fields only (no jax import).  A host key
+    (``host=True``) stays a host key when ``device`` is None and is packed
+    onto ``device`` otherwise; device arrays are expected as numpy arrays
+    already (Montgomery uint32 limb planes and bool masks).  The curve
+    becomes this package's own spec of the same name."""
     curve = ALL_CURVES[pk.curve.name]
-    K = _Groups(curve)
-
-    def g1(v):
-        if pk.host:
-            return points_to_device(K.g1, v, 0, device)
-        return _planes_from_numpy(v, device)
-
-    def g2(v):
-        if pk.host:
-            return points_to_device(K.g2, v, (0, 0), device)
-        return _planes_from_numpy(v, device)
-
-    return ProvingKey(
+    if device is None and not pk.host:
+        raise ValueError("a device key needs a device")
+    native = native_route(curve)
+    key = ProvingKey(
         curve=curve, domain_n=pk.domain_n, n_pad=pk.n_pad,
         alpha_g1=pk.alpha_g1, beta_g1=pk.beta_g1, delta_g1=pk.delta_g1,
-        beta_g2=pk.beta_g2, delta_g2=pk.delta_g2,
-        A=g1(pk.A), B1=g1(pk.B1), B2=g2(pk.B2), K=g1(pk.K), Z=g1(pk.Z))
+        beta_g2=pk.beta_g2, delta_g2=pk.delta_g2, host=bool(pk.host),
+        device=None if pk.host else torch.device(device),
+        **{name: (list(getattr(pk, name)) if pk.host
+                  else _planes_from_numpy(getattr(pk, name), device,
+                                          native))
+           for name in _KEY_POINTS})
+    return key if device is None else pk_to_device(key, device)
 
 
-def _planes_from_numpy(v, device):
+def _planes_from_numpy(v, device, native):
+    """(x, y, inf) as numpy arrays -> the key's planes: numpy on the
+    native route, tensors on ``device`` otherwise."""
     x, y, inf = (np.asarray(a) for a in v)
+    if native:
+        return x, y, inf.astype(bool)
     return (torch.from_numpy(x.astype(np.int64)).to(device),
             torch.from_numpy(y.astype(np.int64)).to(device),
             torch.from_numpy(inf.astype(bool)).to(device))
@@ -337,16 +432,18 @@ class _Phases:
 def prove(cs, pk: ProvingKey, witness_values, rng=None, check: bool = True,
           timings: dict | None = None) -> Proof:
     """witness_values: [public (no one-wire) | secret] ints.  Runs on the
-    device that holds pk; ``timings`` (a dict) receives per-phase
-    seconds."""
+    key's device (a host key on host ints and the native core);
+    ``timings`` (a dict) receives per-phase seconds."""
     curve = pk.curve
     q = curve.fr.modulus
     rnd = _sampler(rng)
     device = pk.device
-    ph = _Phases(timings, device)
+    ph = _Phases(timings, device or torch.device("cpu"))
 
     sol = solve(cs, witness_values, check=check)
     ph.mark("solve")
+    if pk.host:
+        return _prove_host(cs, pk, sol, rnd, ph)
     K = _Groups(curve)
     n, n_pad, Ls = pk.domain_n, pk.n_pad, curve.fr.L
 
@@ -369,26 +466,43 @@ def prove(cs, pk: ProvingKey, witness_values, rng=None, check: bool = True,
     wires = limb_planes("values", 0, n_pad)
     priv = limb_planes("values", cs.nb_public, n_pad)
     r, s = rnd(q), rnd(q)
+    native = native_route(curve)
 
-    ar_j = msm(K.g1, *pk.A, wires)
-    ph.mark("msm_g1_A")
-    bs1_j = msm(K.g1, *pk.B1, wires)
-    ph.mark("msm_g1_B1")
-    bs2_j = msm(K.g2, *pk.B2, wires)
-    ph.mark("msm_g2_B2")
-    krs_pk = msm(K.g1, *pk.K, priv)
-    ph.mark("msm_g1_K")
-    krs_z = msm(K.g1, *pk.Z, h)
-    ph.mark("msm_g1_Z")
+    def run(name, G, scalars):
+        """One MSM: a Jacobian point on the device, or the native core's
+        host affine point (None = infinity) over the key's numpy planes."""
+        if not native:
+            return msm(G, *getattr(pk, name), scalars)
+        x, y, inf = getattr(pk, name)
+        sc = scalars.cpu().numpy()
+        k = min(sc.shape[1], x.shape[1])
+        return native_msm(curve, x[:, :k], y[:, :k], inf[:k], sc[:, :k],
+                          coords_mont=True,
+                          beta=K.g2_beta if G is K.g2 else 0)
 
-    # host assembly (small): fold in the blinding terms r, s
+    out = {}
+    for name, G, scalars in (("A", K.g1, wires), ("B1", K.g1, wires),
+                             ("B2", K.g2, wires), ("K", K.g1, priv),
+                             ("Z", K.g1, h)):
+        out[name] = run(name, G, scalars)
+        ph.mark(f"msm_{'g2' if G is K.g2 else 'g1'}_{name}")
+    if not native:
+        for name in out:
+            G = K.g2 if name == "B2" else K.g1
+            out[name] = _to_host(G, curve.host_g2 if name == "B2"
+                                 else curve.host_g1, out[name])
+        ph.mark("to_host")
+    ar_p, bs1_p, bs2_p, krs_p, krsz_p = out.values()
+    proof = _assemble(pk, ar_p, bs1_p, bs2_p, krs_p, krsz_p, r, s)
+    ph.mark("assembly")
+    return proof
+
+
+def _assemble(pk, ar_p, bs1_p, bs2_p, krs_p, krsz_p, r, s) -> Proof:
+    """The host assembly (small): fold in the blinding terms r, s."""
+    curve = pk.curve
+    q = curve.fr.modulus
     host1, host2 = curve.host_g1, curve.host_g2
-    ar_p = _to_host(K.g1, host1, ar_j)
-    bs1_p = _to_host(K.g1, host1, bs1_j)
-    bs2_p = _to_host(K.g2, host2, bs2_j)
-    krs_p = _to_host(K.g1, host1, krs_pk)
-    krsz_p = _to_host(K.g1, host1, krs_z)
-    ph.mark("to_host")
     ar = host1.add(host1.add(ar_p, pk.alpha_g1),
                    host1.scalar_mul(pk.delta_g1, r))
     bs1 = host1.add(host1.add(bs1_p, pk.beta_g1),
@@ -399,8 +513,74 @@ def prove(cs, pk: ProvingKey, witness_values, rng=None, check: bool = True,
     krs = host1.add(krs, host1.scalar_mul(ar, s))
     krs = host1.add(krs, host1.scalar_mul(bs1, r))
     krs = host1.add(krs, host1.scalar_mul(pk.delta_g1, (-r * s) % q))
-    ph.mark("assembly")
     return Proof(ar=ar, bs=bs, krs=krs)
+
+
+def _prove_host(cs, pk, sol, rnd, ph):
+    """A host key's prove (gnark_tpu's ``_prove_host``): the quotient on
+    host ints, the MSMs on the native core (G2 over fp4 by host scalar
+    multiplications), the same blinding draws."""
+    curve = pk.curve
+    q = curve.fr.modulus
+    n = pk.domain_n
+    spec = curve.fr
+    omega = spec.root_of_unity(n)
+    g = spec.multiplicative_generator % q
+
+    def pad(v):
+        return [x % q for x in v] + [0] * (n - len(v))
+
+    def coset_evals(vals):
+        coeffs = _host_ntt(pad(vals), omega, q, inverse=True)
+        shifted = [c * pow(g, i, q) % q for i, c in enumerate(coeffs)]
+        return _host_ntt(shifted, omega, q)
+
+    ae, be, ce = (coset_evals(v) for v in (sol.a, sol.b, sol.c))
+    den = pow(pow(g, n, q) - 1, -1, q)
+    he = [(a * b - c) % q * den % q for a, b, c in zip(ae, be, ce)]
+    h_shift = _host_ntt(he, omega, q, inverse=True)
+    ginv = pow(g, -1, q)
+    h = [c * pow(ginv, i, q) % q for i, c in enumerate(h_shift)]
+    h_brev = [h[i] for i in bit_reverse_perm(n)]
+    ph.mark("compute_h")
+    K = _Groups(curve)
+
+    def hmsm(points, scalars, g2=False):
+        k = min(len(points), len(scalars))
+        if g2 and curve.g2_tower_k == 4:
+            host2, acc = curve.host_g2, None
+            for P, v in zip(points[:k], scalars[:k]):
+                if P is not None and v % q:
+                    acc = host2.add(acc, host2.scalar_mul(P, v % q))
+            return acc
+        zero = K.g2_zero if g2 else 0
+        pts = [(zero, zero) if P is None else P for P in points[:k]]
+        beta = K.g2_beta if g2 else 0
+
+        def coords(i):
+            vals = [P[i] for P in pts]
+            if beta:
+                return np.concatenate([ints_to_limbs([v[j] for v in vals],
+                                                     curve.fp.L)
+                                       for j in range(2)])
+            return ints_to_limbs(vals, curve.fp.L)
+
+        inf = np.array([P is None or v % q == 0
+                        for P, v in zip(points[:k], scalars[:k])])
+        sc = ints_to_limbs([v % q for v in scalars[:k]], curve.fr.L)
+        return native_msm(curve, coords(0), coords(1), inf, sc, beta=beta)
+
+    wires = sol.values
+    r, s = rnd(q), rnd(q)
+    ar_p = hmsm(pk.A, wires)
+    bs1_p = hmsm(pk.B1, wires)
+    bs2_p = hmsm(pk.B2, wires, g2=True)
+    krs_p = hmsm(pk.K, wires[cs.nb_public:])
+    krsz_p = hmsm(pk.Z, h_brev)
+    ph.mark("msm")
+    proof = _assemble(pk, ar_p, bs1_p, bs2_p, krs_p, krsz_p, r, s)
+    ph.mark("assembly")
+    return proof
 
 
 def _to_host(G: CurveOps, host, P):

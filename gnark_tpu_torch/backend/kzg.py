@@ -1,5 +1,5 @@
 """KZG polynomial commitments over the device MSM (counterpart of
-gnark_tpu/backend/kzg.py, BN254).
+gnark_tpu/backend/kzg.py), over the six curves of ``curves``.
 
 Reference surface (SURVEY §2.9): kzg.{NewSRS, Commit, Open,
 BatchOpenSinglePoint, FoldProof, BatchVerifyMultiPoints} called from the
@@ -9,7 +9,9 @@ Commit = MSM over the SRS G1 powers through ``ops.msm.msm`` (the CUDA
 kernels when the SRS lives on a card); quotient-poly synthetic division is
 on the native core (O(n) mulmods — cheap beside the MSM); pairing checks
 are host-side.  ``host=True`` keeps everything off the device: the SRS by
-the native fixed-base, commits by the native Pippenger.
+the native fixed-base, commits by the native Pippenger.  Commits over a
+base field of 24 or more 16-bit limbs (``groth16.native_route``) take the
+native Pippenger too, as gnark_tpu's do (kzg.py:124).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import secrets
 import numpy as np
 import torch
 
-from gnark_tpu_torch.backend.groth16 import _Groups, _device, _to_host
+from gnark_tpu_torch.backend.groth16 import (
+    _Groups, _device, _to_host, native_route)
 from gnark_tpu_torch.backend.native_field import (
     nat_for, native_fixed_base_affine, native_msm)
 from gnark_tpu_torch.curves.pairing import pairing_for
@@ -128,7 +131,7 @@ def commit(srs: SRS, coeffs: list, host: bool = False):
         raise ValueError(
             f"polynomial degree {len(coeffs) - 1} exceeds SRS size {len(srs.g1)}")
     sc = ints_to_limbs(coeffs, curve.fr.L, q=q)
-    if host:
+    if host or native_route(curve):
         # native C Pippenger, device-free
         k = len(coeffs)
         xs, ys, inf = srs.host_planes

@@ -199,15 +199,30 @@ def _msm_window(n: int, total_bits: int) -> int:
     return min(range(4, 17), key=cost)
 
 
+def _split_rows(a, parts):
+    """[n, parts * N] rows -> ``parts`` int lists (one per coefficient)."""
+    return [a[:, i * (a.shape[1] // parts):(i + 1) * (a.shape[1] // parts)]
+            for i in range(parts)]
+
+
+def _pack_el(nat_p, v, beta):
+    """One fp (beta = 0) or fp2 element -> [1, W] u64 words."""
+    if beta:
+        return np.concatenate([nat_p.pack([v[0]]), nat_p.pack([v[1]])], 1)
+    return nat_p.pack([v])
+
+
 def native_msm(curve, xs_planes, ys_planes, inf_mask, scalars_planes,
-               c: int | None = None, coords_mont: bool = False):
+               c: int | None = None, coords_mont: bool = False,
+               beta: int = 0):
     """Host Pippenger MSM on the C core for wide-field curves.
 
-    xs/ys: [Lp16, n] uint32/uint64 16-bit limb planes (regular form);
-    scalars: [Lr16, n] planes (regular form).  Returns a host affine
-    point or None.  Reference: gnark-crypto MultiExp (bucket method) —
-    this is the CPU path the 16-bit limb layout can't beat at
-    761-bit field widths.  Bucket accumulation is batch-affine (a
+    xs/ys: [Lp16, n] uint32/uint64 16-bit limb planes (regular form), or
+    with ``beta`` != 0 points over fp2 = fp[u]/(u^2 - beta): [2 Lp16, n],
+    c0's planes over c1's; scalars: [Lr16, n] planes (regular form).
+    Returns a host affine point or None.  Reference: gnark-crypto MultiExp
+    (bucket method) -- this is the CPU path the 16-bit limb layout can't
+    beat at 761-bit field widths.  Bucket accumulation is batch-affine (a
     pairing tree with one shared inversion per round — msm_core.cpp);
     GLV is deliberately NOT used here: halving the scalar bits doubles
     the point count, so the dominant bits*n/c leaf term is invariant
@@ -223,6 +238,7 @@ def native_msm(curve, xs_planes, ys_planes, inf_mask, scalars_planes,
     nat_p = nat_for(p)
     nat_r = nat_for(curve.fr.modulus)
     n = xs_planes.shape[1]
+    parts = 2 if beta else 1
 
     def planes_to_rows(planes, N):
         a = np.ascontiguousarray(
@@ -234,30 +250,46 @@ def native_msm(curve, xs_planes, ys_planes, inf_mask, scalars_planes,
                 [a, np.zeros((n, pad), np.uint16)], axis=1)
         return np.ascontiguousarray(a).view(np.uint64).reshape(n, N)
 
-    xs64 = planes_to_rows(xs_planes, nat_p.N)
-    ys64 = planes_to_rows(ys_planes, nat_p.N)
+    def coords(planes):
+        L16 = planes.shape[0] // parts
+        return np.ascontiguousarray(np.concatenate(
+            [planes_to_rows(planes[i * L16:(i + 1) * L16], nat_p.N)
+             for i in range(parts)], 1))
+
+    xs64, ys64 = coords(xs_planes), coords(ys_planes)
     sc64 = planes_to_rows(scalars_planes, nat_r.N)
     infu = np.ascontiguousarray(np.asarray(inf_mask, np.uint8))
-    out = np.zeros((3, nat_p.N), np.uint64)
+    out = np.zeros((3, parts * nat_p.N), np.uint64)
     rc = lib.gnark_msm(
-        ctypes.c_int(nat_p.N), nat_p._ptr(nat_p._mod), nat_p._ptr(nat_p._r2),
-        nat_p._ptr(nat_p._one), ctypes.c_int64(n),
+        ctypes.c_int(nat_p.N), ctypes.c_int(beta), nat_p._ptr(nat_p._mod),
+        nat_p._ptr(nat_p._r2), nat_p._ptr(nat_p._one), ctypes.c_int64(n),
         nat_p._ptr(xs64), nat_p._ptr(ys64),
         infu.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         ctypes.c_int(nat_r.N), nat_r._ptr(sc64),
         ctypes.c_int(c), ctypes.c_int(1 if coords_mont else 0),
         nat_p._ptr(out))
     assert rc == 0, rc
-    X, Y, Z = nat_p.unpack(out)
-    if Z == 0:
+    X, Y, Z = (list(zip(*(nat_p.unpack(h) for h in _split_rows(
+        out[i:i + 1], parts)))) [0] for i in range(3))
+    if not beta:
+        X, Y, Z = X[0], Y[0], Z[0]
+        if Z == 0:
+            return None
+        zinv = pow(Z, -1, p)
+        z2 = zinv * zinv % p
+        return (X * z2 % p, Y * z2 % p * zinv % p)
+    from gnark_tpu_torch.curves.host import HostFp2
+    F = HostFp2(p, beta)
+    if F.is_zero(Z):
         return None
-    zinv = pow(Z, -1, p)
-    z2 = zinv * zinv % p
-    return (X * z2 % p, Y * z2 % p * zinv % p)
+    zinv = F.inv(Z)
+    z2 = F.sqr(zinv)
+    return (F.mul(X, z2), F.mul(Y, F.mul(z2, zinv)))
 
 
-def native_fixed_base_affine(curve, scalars_ints, base):
-    """Batch scalar*base -> list of host affine points (None = inf).
+def native_fixed_base_affine(curve, scalars_ints, base, beta: int = 0):
+    """Batch scalar*base -> list of host affine points (None = inf); with
+    ``beta`` != 0 over fp2 (see native_msm).
 
     Modulus-generic C-core route for the host=True setup/SRS paths
     (the python scalar-mul loop is far slower)."""
@@ -265,49 +297,64 @@ def native_fixed_base_affine(curve, scalars_ints, base):
     nat_r = nat_for(q)
     nat_p = nat_for(curve.fp.modulus)
     rows = nat_r.pack([s % q for s in scalars_ints])
-    x_pl, y_pl, inf = native_fixed_base(curve, rows, base)
+    x_pl, y_pl, inf = native_fixed_base(curve, rows, base, beta=beta)
     # coords come back in Montgomery form: one plain vecmul by R^{-1}
     rinv = pow(1 << (64 * nat_p.N), -1, curve.fp.modulus)
+    parts = 2 if beta else 1
 
     def to_ints(planes):
-        a = np.ascontiguousarray(np.asarray(planes, np.uint16).T)
-        pad = 4 * nat_p.N - a.shape[1]
-        if pad:
-            a = np.concatenate(
-                [a, np.zeros((a.shape[0], pad), np.uint16)], axis=1)
-        rows64 = np.ascontiguousarray(a).view(np.uint64).reshape(
-            a.shape[0], nat_p.N)
-        return nat_p.unpack(nat_p.vecmul(rows64, rinv))
+        L16 = planes.shape[0] // parts
+        cols = []
+        for i in range(parts):
+            a = np.ascontiguousarray(
+                np.asarray(planes[i * L16:(i + 1) * L16], np.uint16).T)
+            pad = 4 * nat_p.N - a.shape[1]
+            if pad:
+                a = np.concatenate(
+                    [a, np.zeros((a.shape[0], pad), np.uint16)], axis=1)
+            rows64 = np.ascontiguousarray(a).view(np.uint64).reshape(
+                a.shape[0], nat_p.N)
+            cols.append(nat_p.unpack(nat_p.vecmul(rows64, rinv)))
+        return cols[0] if parts == 1 else list(zip(*cols))
 
     xs, ys = to_ints(x_pl), to_ints(y_pl)
     return [None if inf[i] else (xs[i], ys[i])
             for i in range(len(scalars_ints))]
 
 
-def native_fixed_base(curve, scalars_rows, base, c: int = 8):
+def native_fixed_base(curve, scalars_rows, base, c: int = 8, beta: int = 0):
     """Batch scalar*base on the C core (wide-field setup path).
 
-    scalars_rows: [n, Nr] u64 regular; base: host affine (x, y) ints.
-    Returns (x_planes, y_planes, inf) with coords in MONTGOMERY form,
-    matching the device fixed-base output layout (uint32 planes).
+    scalars_rows: [n, Nr] u64 regular; base: host affine (x, y), ints or,
+    with ``beta`` != 0, fp2 pairs.  Returns (x_planes, y_planes, inf) with
+    coords in MONTGOMERY form, matching the device fixed-base output
+    layout (uint32 planes; fp2: c0's planes over c1's).
     """
     from gnark_tpu_torch.native import solver_lib
     lib = solver_lib()
     nat_p = nat_for(curve.fp.modulus)
     nat_r = nat_for(curve.fr.modulus)
+    parts = 2 if beta else 1
+    W = parts * nat_p.N
     n = scalars_rows.shape[0]
-    out_x = np.zeros((n, nat_p.N), np.uint64)
-    out_y = np.zeros((n, nat_p.N), np.uint64)
+    out_x = np.zeros((n, W), np.uint64)
+    out_y = np.zeros((n, W), np.uint64)
     out_inf = np.zeros(n, np.uint8)
     rc = lib.gnark_fixed_base(
-        ctypes.c_int(nat_p.N), nat_p._ptr(nat_p._mod), nat_p._ptr(nat_p._r2),
-        nat_p._ptr(nat_p._one), ctypes.c_int64(n), ctypes.c_int(nat_r.N),
+        ctypes.c_int(nat_p.N), ctypes.c_int(beta), nat_p._ptr(nat_p._mod),
+        nat_p._ptr(nat_p._r2), nat_p._ptr(nat_p._one), ctypes.c_int64(n),
+        ctypes.c_int(nat_r.N),
         nat_r._ptr(np.ascontiguousarray(scalars_rows)),
-        nat_p._ptr(nat_p.pack([base[0]])), nat_p._ptr(nat_p.pack([base[1]])),
+        nat_p._ptr(_pack_el(nat_p, base[0], beta)),
+        nat_p._ptr(_pack_el(nat_p, base[1], beta)),
         ctypes.c_int(c), nat_p._ptr(out_x), nat_p._ptr(out_y),
         out_inf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     assert rc == 0, rc
     L16 = curve.fp.L
-    return (nat_p.planes(out_x, L16).astype(np.uint32),
-            nat_p.planes(out_y, L16).astype(np.uint32),
-            out_inf.astype(bool))
+
+    def planes(rows):
+        return np.concatenate([nat_p.planes(np.ascontiguousarray(h), L16)
+                               for h in _split_rows(rows, parts)]
+                              ).astype(np.uint32)
+
+    return planes(out_x), planes(out_y), out_inf.astype(bool)

@@ -25,7 +25,7 @@
 #define GT_POINT inline
 #endif
 
-// Uniform load/store/constants over Fp and Fp2.
+// Uniform load/store/constants over Fp, Fp2 and FpK.
 template <class F>
 struct FieldIO;
 
@@ -47,6 +47,24 @@ struct FieldIO<Fp2<P>> {
   }
   GT_HD static F zero() { return {fp_zero<P>(), fp_zero<P>()}; }
   GT_HD static F one() { return {fp_one<P>(), fp_zero<P>()}; }
+};
+
+template <class P, int K, int C>
+struct FieldIO<FpK<P, K, C>> {
+  using F = FpK<P, K, C>;
+  GT_HD static F load(const int64_t* s, long stride, uint32_t* flags = nullptr) {
+    return loadK<P, K, C>(s, stride, flags);
+  }
+  GT_HD static F zero() {
+    F r;
+    for (int i = 0; i < K; ++i) r.c[i] = fp_zero<P>();
+    return r;
+  }
+  GT_HD static F one() {
+    F r = zero();
+    r.c[0] = fp_one<P>();
+    return r;
+  }
 };
 
 template <class F>

@@ -16,6 +16,10 @@
 // template parameters (a traits struct), so BLS12-381's 12-limb fp is a
 // new traits struct, not a rewrite.
 //
+// BLS24-315's base field (N = 10) and its quartic extension FpK<P, 4, 13>
+// (towers.py::FpKOps: 16 base products a product, then the c-multiples
+// of the high columns) serve that curve's G1 and G2.
+//
 // On the device (__CUDA_ARCH__, N = 8) the product, add, sub and the
 // conditional subtraction are PTX carry chains: mad.lo.cc / madc.hi.cc /
 // addc for a CIOS row, add.cc / sub.cc for the rest.  The portable C++
@@ -60,6 +64,28 @@ struct BN254Fp {
     return v[i];
   }
   static constexpr uint32_t INV = 0xe4866389u;  // -p^-1 mod 2^32
+};
+
+// BLS24-315 base field, 315 bits in 10 words (gnark_tpu_torch.fields
+// BLS24_315_FP; tests/test_torch_msm.py recomputes p, one and INV).
+// N = 10 takes the portable C++ form everywhere (no carry chain yet).
+struct BLS24315Fp {
+  static constexpr int N = 10;
+  GT_HD static uint32_t p(int i) {
+    constexpr uint32_t v[10] = {0x40300001u, 0x6fe802ffu, 0x52bde502u,
+                                0x421ee5dau, 0xa27a1ae0u, 0xdec1d01au,
+                                0xe97c5eafu, 0xd3f7498bu, 0xb586d650u,
+                                0x04c23a02u};
+    return v[i];
+  }
+  GT_HD static uint32_t one(int i) {
+    constexpr uint32_t v[10] = {0xb60fffcbu, 0xd4f76127u, 0xdeaf967eu,
+                                0x4f9a69ccu, 0x5cb86f92u, 0xe1dfea7cu,
+                                0xa9406596u, 0x1dcdc608u, 0x6b15a144u,
+                                0x03c9fd70u};
+    return v[i];
+  }
+  static constexpr uint32_t INV = 0x402fffffu;  // -p^-1 mod 2^32
 };
 
 template <class P>
@@ -444,4 +470,110 @@ template <class P>
 GT_HD void store(const Fp2<P>& a, int64_t* dst, long stride) {
   store(a.c0, dst, stride);
   store(a.c1, dst + Fp<P>::L16 * stride, stride);
+}
+
+// ---- fp^K = fp[u] / (u^K - C) --------------------------------------------
+
+template <class P, int K, int C>
+struct FpK {
+  static constexpr int N = K * P::N;
+  static constexpr int L16 = K * Fp<P>::L16;  // coefficient i's planes at i
+  Fp<P> c[K];
+};
+
+// x * C for the small constant C, by doublings and additions
+template <int C, class P>
+GT_HD Fp<P> mul_const(const Fp<P>& x) {
+  static_assert(C > 0 && C < 4096, "a small positive constant");
+  Fp<P> acc = fp_zero<P>(), bit = x;
+  for (int k = C; k; k >>= 1) {
+    if (k & 1) acc = add(acc, bit);
+    if (k > 1) bit = dbl(bit);
+  }
+  return acc;
+}
+
+template <class P, int K, int C>
+GT_HD bool is_zero(const FpK<P, K, C>& a) {
+  bool z = true;
+  for (int i = 0; i < K; ++i) z = z && is_zero(a.c[i]);
+  return z;
+}
+
+template <class P, int K, int C>
+GT_HD FpK<P, K, C> add(const FpK<P, K, C>& a, const FpK<P, K, C>& b) {
+  FpK<P, K, C> r;
+  for (int i = 0; i < K; ++i) r.c[i] = add(a.c[i], b.c[i]);
+  return r;
+}
+
+template <class P, int K, int C>
+GT_HD FpK<P, K, C> sub(const FpK<P, K, C>& a, const FpK<P, K, C>& b) {
+  FpK<P, K, C> r;
+  for (int i = 0; i < K; ++i) r.c[i] = sub(a.c[i], b.c[i]);
+  return r;
+}
+
+template <class P, int K, int C>
+GT_HD FpK<P, K, C> neg(const FpK<P, K, C>& a) {
+  FpK<P, K, C> r;
+  for (int i = 0; i < K; ++i) r.c[i] = neg(a.c[i]);
+  return r;
+}
+
+template <class P, int K, int C>
+GT_HD FpK<P, K, C> dbl(const FpK<P, K, C>& a) {
+  return add(a, a);
+}
+
+// The high columns of a product folded into the low ones: r_m = t_m + C
+// t_(K+m).  Shared by mul and the fold's Prod (msm_kernels.cu).
+template <class P, int K, int C>
+GT_HD FpK<P, K, C> fold_columns(const Fp<P>* t) {
+  FpK<P, K, C> r;
+  for (int m = 0; m < K - 1; ++m) r.c[m] = add(t[m], mul_const<C>(t[K + m]));
+  r.c[K - 1] = t[K - 1];
+  return r;
+}
+
+// Schoolbook, as towers.py::FpKOps.mul: t_(i+j) += a_i b_j over the K^2
+// base products, then fold_columns.  The loops stay rolled: one base
+// product in the code, not K^2 of them (nvcc's time and the code size).
+// Inlined at its call sites (GT_FPK_MUL): made a called function
+// (__noinline__), the ladder kernel over fp4 disagreed with its plain
+// version on an H100 while the host harness agreed; ops/inline_check.py
+// builds both and compares them (PERF.md).
+#ifndef GT_FPK_MUL
+#define GT_FPK_MUL GT_HD
+#endif
+template <class P, int K, int C>
+GT_FPK_MUL FpK<P, K, C> mul(const FpK<P, K, C>& a, const FpK<P, K, C>& b) {
+  Fp<P> t[2 * K - 1];
+#pragma unroll 1
+  for (int m = 0; m < 2 * K - 1; ++m) t[m] = fp_zero<P>();
+#pragma unroll 1
+  for (int i = 0; i < K; ++i)
+#pragma unroll 1
+    for (int j = 0; j < K; ++j) t[i + j] = add(t[i + j], mul(a.c[i], b.c[j]));
+  return fold_columns<P, K, C>(t);
+}
+
+template <class P, int K, int C>
+GT_HD FpK<P, K, C> sqr(const FpK<P, K, C>& a) {
+  return mul(a, a);
+}
+
+template <class P, int K, int C>
+GT_HD FpK<P, K, C> loadK(const int64_t* src, long stride, uint32_t* flags) {
+  FpK<P, K, C> r;
+  for (int i = 0; i < K; ++i)
+    r.c[i] = load<P>(src + (long)i * Fp<P>::L16 * stride, stride,
+                     i == 0 ? flags : nullptr);
+  return r;
+}
+
+template <class P, int K, int C>
+GT_HD void store(const FpK<P, K, C>& a, int64_t* dst, long stride) {
+  for (int i = 0; i < K; ++i)
+    store(a.c[i], dst + (long)i * Fp<P>::L16 * stride, stride);
 }

@@ -1,0 +1,11 @@
+// The MSM kernels of msm_kernels.cu for BLS24-315's G2 over fp4 =
+// fp[u]/(u^4 - 13)
+// (kind g2_bls24315): a library of its own, built by an nvcc of its
+// own beside the others (gnark_tpu_torch/ops/_cuda.py).
+
+#define GNARK_MSM_BLS24315
+#include "msm_kernels.cu"
+
+#ifdef __CUDACC__
+GNARK_MSM_LAUNCHERS(g2_bls24315, G2Bls24)
+#endif

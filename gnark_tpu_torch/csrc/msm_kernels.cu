@@ -1,4 +1,5 @@
-// The kernels of the MSM, for BN254 G1 (over Fp) and G2 (over Fp2): the
+// The kernels of the MSM, for BN254 G1 (over Fp) and G2 (over Fp2), and
+// BLS24-315 G1 (over its 10-word Fp) and G2 (over FpK<.., 4, 13>): the
 // four of the signed windowed Pippenger plan, and the double-and-add
 // ladder that serves small MSMs with the reduction of its output, built
 // with
@@ -90,6 +91,18 @@
 // None uses wgmma or TMA; the lane offsets and the weighted sum use
 // clusters.
 //
+// This file instantiates BN254's kernels (kinds g1, g2).  BLS24-315's
+// G1 and G2 (g1_bls24315, g2_bls24315) are libraries of their own,
+// msm_g1_bls24315.cu and msm_g2_bls24315.cu, which include this file with
+// GNARK_MSM_BLS24315 defined: three nvcc runs side by side.  BLS24-315's
+// kernels are the same templates, not redesigned for its widths: an fp4
+// element is 40 words and a point 120, so lane 0's
+// registers spill, and its FoldShared slot (16 base products a product)
+// is 11.5 KB: its leaf runs blocks of one warp (four slots of static
+// shared memory), its weighted sum and lane offsets blocks of 128
+// threads (16 slots, 184 KB of dynamic shared memory), its ladder 4
+// points a block (a 30 KB table).
+//
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
 // out), so a host harness that defines blockIdx, threadIdx, blockDim,
 // __global__, __shared__, __launch_bounds__, __syncthreads and __syncwarp
@@ -126,6 +139,7 @@ struct G1 {
   // resident ladder blocks an SM: caps G1's registers at 128 (ptxas takes
   // 164 otherwise, and 12 warps an SM stay resident, not 16)
   static constexpr int LADDER_BLOCKS = 4;
+  static constexpr int LADDER_POINTS = 8;  // points a ladder block
   // b = 3, b3 = 9: 8a + a
   GT_HD static F mul_b3(const F& a) { return add(dbl(dbl(dbl(a))), a); }
 };
@@ -137,6 +151,7 @@ struct G2 {
   static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
   static constexpr int LANES_GROUP = 8, LANES_THREADS = 256, LANES_CLUSTER = 4;
   static constexpr int LADDER_BLOCKS = 2;
+  static constexpr int LADDER_POINTS = 8;
   // b' = 3 / (9 + u); b3 = 3b' in Montgomery form
   GT_HD static F b3() {
     constexpr uint32_t c0[8] = {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu,
@@ -151,6 +166,42 @@ struct G2 {
       r.c0.v[i] = c0[i];
       r.c1.v[i] = c1[i];
     }
+    return r;
+  }
+  GT_HD static F mul_b3(const F& a) { return mul(a, b3()); }
+};
+
+// BLS24-315 G1: y^2 = x^3 + 1, b3 = 3: 2a + a
+struct G1Bls24 {
+  using F = Fp<BLS24315Fp>;
+  static constexpr bool B3_PRODUCT = false;
+  static constexpr int LEAF_GROUP = 4;
+  static constexpr int WSUM_GROUP = 4, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
+  static constexpr int LANES_GROUP = 8, LANES_THREADS = 128, LANES_CLUSTER = 4;
+  static constexpr int LADDER_BLOCKS = 2;
+  static constexpr int LADDER_POINTS = 8;
+  GT_HD static F mul_b3(const F& a) { return add(dbl(a), a); }
+};
+
+// BLS24-315 G2 over fp4 = fp[u]/(u^4 - 13): y^2 = x^3 + 1/u; b3 = 3/u =
+// (0, 0, 0, 3/13) in Montgomery form (tests/test_torch_msm.py
+// derives it from the curve's b2)
+struct G2Bls24 {
+  using F = FpK<BLS24315Fp, 4, 13>;
+  static constexpr bool B3_PRODUCT = true;
+  static constexpr int LEAF_GROUP = 8;
+  static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 128, WSUM_CLUSTER = 4;
+  static constexpr int LANES_GROUP = 8, LANES_THREADS = 128, LANES_CLUSTER = 4;
+  static constexpr int LADDER_BLOCKS = 1;
+  static constexpr int LADDER_POINTS = 4;
+  GT_HD static F b3() {
+    constexpr uint32_t c3[10] = {0x91789d7eu, 0xf9b9b51cu, 0xf0c0536cu,
+                                 0x66e0bf96u, 0xca0ac19fu, 0xec4323b0u,
+                                 0x6d2b00c8u, 0x1d538510u, 0x7238da1bu,
+                                 0x02b4647du};
+    F r;
+    for (int k = 0; k < 3; ++k) r.c[k] = fp_zero<BLS24315Fp>();
+    for (int i = 0; i < 10; ++i) r.c[3].v[i] = c3[i];
     return r;
   }
   GT_HD static F mul_b3(const F& a) { return mul(a, b3()); }
@@ -195,6 +246,44 @@ struct Prod<Fp2<P>> {
     return {add(v0, mul_beta(v1)), sub(sub(s, v0), v1)};
   }
 };
+
+template <class P, int K, int C>
+struct Prod<FpK<P, K, C>> {
+  using Base = Fp<P>;
+  static constexpr int S = K * K;  // the schoolbook's base products
+  GT_HD static void put(Base* A, Base* B, int k, const FpK<P, K, C>& a,
+                        const FpK<P, K, C>& b) {
+    for (int i = 0; i < K; ++i)
+      for (int j = 0; j < K; ++j) {
+        A[S * k + i * K + j] = a.c[i];
+        B[S * k + i * K + j] = b.c[j];
+      }
+  }
+  GT_HD static FpK<P, K, C> get(const Base* R, int k) {
+    Base t[2 * K - 1];
+    for (int m = 0; m < 2 * K - 1; ++m) t[m] = fp_zero<P>();
+    for (int i = 0; i < K; ++i)
+      for (int j = 0; j < K; ++j) t[i + j] = add(t[i + j], R[S * k + i * K + j]);
+    return fold_columns<P, K, C>(t);
+  }
+};
+
+// A kind's shape, for ops/_cuda.py (its SHAPE names these, in this
+// order): the base field's 32-bit words, the coordinate field's degree
+// over it, Prod<F>::S, B3_PRODUCT, the curve struct's launch shapes and a
+// point's bytes.  Host code too, so that the tests' g++ harness reads it.
+#define GNARK_MSM_SHAPE(NAME, CURVE)                                          \
+  extern "C" void gnark_msm_shape_##NAME(int* out) {                          \
+    using F = CURVE::F;                                                       \
+    using Base = Prod<F>::Base;                                               \
+    const int v[] = {Base::N, F::N / Base::N, Prod<F>::S,                     \
+                     (int)CURVE::B3_PRODUCT, CURVE::LEAF_GROUP,               \
+                     CURVE::WSUM_GROUP, CURVE::WSUM_THREADS,                  \
+                     CURVE::WSUM_CLUSTER, CURVE::LANES_GROUP,                 \
+                     CURVE::LANES_THREADS, CURVE::LANES_CLUSTER,              \
+                     CURVE::LADDER_POINTS, (int)sizeof(Point<F>)};            \
+    for (int i = 0; i < (int)(sizeof v / sizeof v[0]); ++i) out[i] = v[i];    \
+  }
 
 // The operands and results of one level: at most 6 F-products.
 template <class F>
@@ -721,11 +810,13 @@ __global__ void __launch_bounds__(LeafBlock<typename Curve::F, G>::THREADS)
 
 // ---- the chunked, windowed ladder ---------------------------------------------
 
-constexpr int LADDER_POINTS = 8;   // points a block
 constexpr int LADDER_CHUNKS = 16;  // K: chunks a scalar, a thread each
 constexpr int LADDER_WINDOW = 4;   // w: bits a window
 constexpr int LADDER_TABLE = 1 << LADDER_WINDOW;
-constexpr int LADDER_THREADS = LADDER_POINTS * LADDER_CHUNKS;
+// threads a block: Curve::LADDER_POINTS points (8, or 4 where the table of
+// 8 would pass 48 KB of static shared memory) x K chunks
+template <class Curve>
+constexpr int ladder_threads() { return Curve::LADDER_POINTS * LADDER_CHUNKS; }
 
 // Levels of the table recipe T[2k] = 2 T[k], T[2k+1] = T[2k] + T[1]:
 // entry e is ready after table_depth(e) of them.
@@ -751,13 +842,14 @@ GT_HD uint32_t scalar_bits(const int64_t* sc, long n, long i, int lo, int nb) {
 // doublings and acc + T[digit], T[0] the identity (0 : 1 : 0).  Blocks of
 // LADDER_POINTS points x K chunks.
 template <class Curve>
-__global__ void __launch_bounds__(LADDER_THREADS, Curve::LADDER_BLOCKS)
+__global__ void __launch_bounds__(ladder_threads<Curve>(), Curve::LADDER_BLOCKS)
     ladder_kernel(const int64_t* xs, const int64_t* ys, const uint8_t* inf,
                   const int64_t* sc, int64_t* out, int n, int Ls) {
   using F = typename Curve::F;
   using P = Point<F>;
   using IO = FieldIO<F>;
   constexpr int K = LADDER_CHUNKS, w = LADDER_WINDOW;
+  constexpr int LADDER_POINTS = Curve::LADDER_POINTS;
   __shared__ P table[LADDER_POINTS][LADDER_TABLE];
   const int tid = threadIdx.x, nt = blockDim.x;
   const long first = (long)blockIdx.x * LADDER_POINTS;
@@ -927,8 +1019,9 @@ int launch_lane_offsets(const void* tot, void* out, void* scratch, int nw,
   extern "C" int gnark_msm_ladder_##NAME(                                    \
       const void* xs, const void* ys, const void* inf, const void* sc,        \
       void* out, int n, int Ls, void* stream) {                               \
-    ladder_kernel<CURVE><<<(n + LADDER_POINTS - 1) / LADDER_POINTS,           \
-                           LADDER_THREADS, 0, (cudaStream_t)stream>>>(        \
+    ladder_kernel<CURVE><<<(n + CURVE::LADDER_POINTS - 1) /                   \
+                               CURVE::LADDER_POINTS,                          \
+                           ladder_threads<CURVE>(), 0, (cudaStream_t)stream>>>( \
         (const int64_t*)xs, (const int64_t*)ys, (const uint8_t*)inf,          \
         (const int64_t*)sc, (int64_t*)out, n, Ls);                            \
     return (int)cudaGetLastError();                                           \
@@ -941,11 +1034,11 @@ int launch_lane_offsets(const void* tot, void* out, void* scratch, int nw,
         K);                                                                   \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
-  extern "C" int gnark_msm_point_bytes_##NAME() {                             \
-    return (int)sizeof(Point<CURVE::F>);                                      \
-  }
+  GNARK_MSM_SHAPE(NAME, CURVE)
 
+#ifndef GNARK_MSM_BLS24315
 GNARK_MSM_LAUNCHERS(g1, G1)
 GNARK_MSM_LAUNCHERS(g2, G2)
+#endif
 
 #endif  // __CUDACC__

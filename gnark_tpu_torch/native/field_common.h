@@ -9,6 +9,7 @@ typedef uint64_t u64;
 
 template <int N>
 struct Field {
+    static constexpr int W = N;   // u64 words an element
     u64 p[N];
     u64 pinv;      // -p^{-1} mod 2^64
     u64 r2[N];     // R^2 mod p (for to-Montgomery)
@@ -166,3 +167,87 @@ struct Field {
     }
 };
 
+
+// fp2 = fp[u] / (u^2 - beta) over Field<N> for a small signed beta, with
+// Field<N>'s interface (an element is c0's N words, then c1's): the MSM
+// core's G2 over fp2 (BLS12-381, BLS12-377).  Every result is canonical.
+template <int N>
+struct Fp2Field {
+    static constexpr int W = 2 * N;
+    Field<N> b;
+    int beta;
+    u64 one[2 * N];
+
+    void init(const u64* mod, const u64* r2_in, const u64* one_in,
+              int beta_in) {
+        b.init(mod, r2_in, one_in);
+        beta = beta_in;
+        std::memcpy(one, b.one, sizeof(u64) * N);
+        std::memset(one + N, 0, sizeof(u64) * N);
+    }
+
+    static bool is_zero(const u64* a) {
+        return Field<N>::is_zero(a) && Field<N>::is_zero(a + N);
+    }
+
+    void add(const u64* x, const u64* y, u64* out) const {
+        b.add(x, y, out);
+        b.add(x + N, y + N, out + N);
+    }
+
+    void sub(const u64* x, const u64* y, u64* out) const {
+        b.sub(x, y, out);
+        b.sub(x + N, y + N, out + N);
+    }
+
+    // out = beta * x in the base field (by additions; beta is small)
+    void mul_beta(const u64* x, u64* out) const {
+        const int k = beta < 0 ? -beta : beta;
+        u64 t[N];
+        std::memcpy(t, x, sizeof(t));
+        for (int i = 1; i < k; i++) b.add(t, x, t);
+        if (beta < 0) {
+            u64 z[N] = {0};
+            b.sub(z, t, out);
+        } else {
+            std::memcpy(out, t, sizeof(t));
+        }
+    }
+
+    // Karatsuba; out may alias x or y
+    void mmul(const u64* x, const u64* y, u64* out) const {
+        u64 v0[N], v1[N], sx[N], sy[N], s[N], t[N];
+        b.mmul(x, y, v0);
+        b.mmul(x + N, y + N, v1);
+        b.add(x, x + N, sx);
+        b.add(y, y + N, sy);
+        b.mmul(sx, sy, s);
+        b.sub(s, v0, s);
+        b.sub(s, v1, out + N);
+        mul_beta(v1, t);
+        b.add(v0, t, out);
+    }
+
+    void to_mont(const u64* a, u64* out) const {
+        b.to_mont(a, out);
+        b.to_mont(a + N, out + N);
+    }
+
+    void from_mont(const u64* a, u64* out) const {
+        b.from_mont(a, out);
+        b.from_mont(a + N, out + N);
+    }
+
+    // inverse of a regular value: (c0 - u c1) / (c0^2 - beta c1^2); 0 -> 0
+    void invmod(const u64* a, u64* out) const {
+        u64 s0[N], s1[N], t[N], nrm[N], ninv[N], z[N] = {0};
+        b.mulmod(a, a, s0);
+        b.mulmod(a + N, a + N, s1);
+        mul_beta(s1, t);
+        b.sub(s0, t, nrm);
+        b.invmod(nrm, ninv);
+        b.mulmod(a, ninv, out);
+        b.mulmod(a + N, ninv, t);
+        b.sub(z, t, out + N);
+    }
+};

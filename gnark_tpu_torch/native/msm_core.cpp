@@ -20,25 +20,26 @@
 
 namespace {
 
-template <int N>
+template <class FF>
 struct Jac {
-    u64 X[N], Y[N], Z[N];   // Z == 0 encodes infinity
+    u64 X[FF::W], Y[FF::W], Z[FF::W];   // Z == 0 encodes infinity
 };
 
-template <int N>
-inline bool jac_is_inf(const Jac<N>& P) {
-    return Field<N>::is_zero(P.Z);
+template <class FF>
+inline bool jac_is_inf(const Jac<FF>& P) {
+    return FF::is_zero(P.Z);
 }
 
-template <int N>
-inline void jac_set_inf(const Field<N>& F, Jac<N>& P) {
+template <class FF>
+inline void jac_set_inf(const FF& F, Jac<FF>& P) {
     std::memset(&P, 0, sizeof(P));
     std::memcpy(P.Y, F.one, sizeof(P.Y));
 }
 
 // dbl-2009-l
-template <int N>
-void jac_double(const Field<N>& F, Jac<N>& P) {
+template <class FF>
+void jac_double(const FF& F, Jac<FF>& P) {
+    constexpr int N = FF::W;
     if (jac_is_inf(P)) return;
     u64 A[N], B[N], C[N], D[N], E[N], G[N], t[N], t2[N];
     F.mmul(P.X, P.X, A);
@@ -72,9 +73,10 @@ void jac_double(const Field<N>& F, Jac<N>& P) {
 }
 
 // madd-2007-bl: P += (x2, y2) affine (Montgomery form)
-template <int N>
-void jac_add_mixed(const Field<N>& F, Jac<N>& P, const u64* x2,
+template <class FF>
+void jac_add_mixed(const FF& F, Jac<FF>& P, const u64* x2,
                    const u64* y2) {
+    constexpr int N = FF::W;
     if (jac_is_inf(P)) {
         std::memcpy(P.X, x2, sizeof(P.X));
         std::memcpy(P.Y, y2, sizeof(P.Y));
@@ -88,8 +90,8 @@ void jac_add_mixed(const Field<N>& F, Jac<N>& P, const u64* x2,
     F.mmul(S2, Z1Z1, S2);
     F.sub(U2, P.X, H);
     F.sub(S2, P.Y, r);
-    if (Field<N>::is_zero(H)) {
-        if (Field<N>::is_zero(r)) {
+    if (FF::is_zero(H)) {
+        if (FF::is_zero(r)) {
             jac_double(F, P);
             return;
         }
@@ -122,8 +124,9 @@ void jac_add_mixed(const Field<N>& F, Jac<N>& P, const u64* x2,
 }
 
 // full Jacobian add: P += Q
-template <int N>
-void jac_add(const Field<N>& F, Jac<N>& P, const Jac<N>& Q) {
+template <class FF>
+void jac_add(const FF& F, Jac<FF>& P, const Jac<FF>& Q) {
+    constexpr int N = FF::W;
     if (jac_is_inf(Q)) return;
     if (jac_is_inf(P)) { P = Q; return; }
     u64 Z1Z1[N], Z2Z2[N], U1[N], U2[N], S1[N], S2[N], H[N], I[N], J[N];
@@ -138,8 +141,8 @@ void jac_add(const Field<N>& F, Jac<N>& P, const Jac<N>& Q) {
     F.mmul(S2, Z1Z1, S2);
     F.sub(U2, U1, H);
     F.sub(S2, S1, r);
-    if (Field<N>::is_zero(H)) {
-        if (Field<N>::is_zero(r)) { jac_double(F, P); return; }
+    if (FF::is_zero(H)) {
+        if (FF::is_zero(r)) { jac_double(F, P); return; }
         jac_set_inf(F, P);
         return;
     }
@@ -175,8 +178,9 @@ void jac_add(const Field<N>& F, Jac<N>& P, const Jac<N>& Q) {
 // within each bucket segment, every round sharing ONE batched modular
 // inversion.  An affine add costs ~6 mmuls (incl. the 3-mmul batched
 // inversion share) vs ~11 for the Jacobian mixed add.
-template <int N>
+template <class FF>
 struct AffineTree {
+    static constexpr int N = FF::W;
     std::vector<u64> wx, wy;       // per-window work coords [n][N]
     std::vector<uint8_t> valid;    // slot holds a point (not infinity)
     std::vector<int64_t> start, cnt, perm, hist;
@@ -194,7 +198,6 @@ struct AffineTree {
     }
 };
 
-template <int N>
 inline u64 window_digit(const u64* s, int nlimbs_fr, int bit0, int c) {
     int q = bit0 >> 6, sh = bit0 & 63;
     u64 d = s[q] >> sh;
@@ -204,8 +207,9 @@ inline u64 window_digit(const u64* s, int nlimbs_fr, int bit0, int c) {
 
 // one pairing round over all segments; returns true if another round
 // is needed (some segment still has >1 element)
-template <int N>
-bool affine_round(const Field<N>& F, AffineTree<N>& T, int64_t nb) {
+template <class FF>
+bool affine_round(const FF& F, AffineTree<FF>& T, int64_t nb) {
+    constexpr int N = FF::W;
     int64_t nsched = 0;       // entries in the inversion batch
     bool more = false;
     // schedule: for each segment pair (2j, 2j+1) -> slot j
@@ -234,7 +238,7 @@ bool affine_round(const Field<N>& F, AffineTree<N>& T, int64_t nb) {
             u64 t[N];
             if (std::memcmp(xa, xb, sizeof(u64) * N) == 0) {
                 F.add(ya, yb, t);
-                if (Field<N>::is_zero(t)) {     // P + (-P): cancels
+                if (FF::is_zero(t)) {     // P + (-P): cancels
                     T.valid[io] = 0;
                     continue;
                 }
@@ -313,11 +317,12 @@ bool affine_round(const Field<N>& F, AffineTree<N>& T, int64_t nb) {
     return more;
 }
 
-template <int N>
-int64_t msm_run(const Field<N>& F, int64_t n,
+template <class FF>
+int64_t msm_run(const FF& F, int64_t n,
                 const u64* xs, const u64* ys, const uint8_t* inf,
                 int nlimbs_fr, const u64* scalars, int c,
                 int coords_mont, u64* out_xyz) {
+    constexpr int N = FF::W;
     const int total_bits = nlimbs_fr * 64;
     const int nwin = (total_bits + c - 1) / c;
     const int64_t nb = (int64_t(1) << c) - 1;
@@ -334,9 +339,9 @@ int64_t msm_run(const Field<N>& F, int64_t n,
         }
     }
 
-    AffineTree<N> T;
+    AffineTree<FF> T;
     T.init(n, nb);
-    Jac<N> acc;
+    Jac<FF> acc;
     jac_set_inf(F, acc);
 
     for (int w = nwin - 1; w >= 0; w--) {
@@ -347,7 +352,7 @@ int64_t msm_run(const Field<N>& F, int64_t n,
         std::fill(T.hist.begin(), T.hist.end(), 0);
         for (int64_t i = 0; i < n; i++) {
             if (inf[i]) continue;
-            const u64 d = window_digit<N>(
+            const u64 d = window_digit(
                 scalars + i * nlimbs_fr, nlimbs_fr, bit0, c);
             if (d) T.hist[d - 1]++;
         }
@@ -361,7 +366,7 @@ int64_t msm_run(const Field<N>& F, int64_t n,
         T.start[nb] = off;
         for (int64_t i = 0; i < n; i++) {
             if (inf[i]) continue;
-            const u64 d = window_digit<N>(
+            const u64 d = window_digit(
                 scalars + i * nlimbs_fr, nlimbs_fr, bit0, c);
             if (!d) continue;
             const int64_t pos = T.hist[d - 1]++;
@@ -376,7 +381,7 @@ int64_t msm_run(const Field<N>& F, int64_t n,
 
         // weighted reduction: running suffix + sum of suffixes
         // (buckets are affine now -> mixed adds)
-        Jac<N> run, sum;
+        Jac<FF> run, sum;
         jac_set_inf(F, run);
         jac_set_inf(F, sum);
         for (int64_t b = nb - 1; b >= 0; b--) {
@@ -395,15 +400,16 @@ int64_t msm_run(const Field<N>& F, int64_t n,
 }
 
 // Montgomery-domain batch inversion of Jacobian Z coords; zeros skip.
-template <int N>
-void batch_inv_mont_z(const Field<N>& F, std::vector<Jac<N>>& pts,
+template <class FF>
+void batch_inv_mont_z(const FF& F, std::vector<Jac<FF>>& pts,
                       std::vector<u64>& zinv) {
+    constexpr int N = FF::W;
     const int64_t n = pts.size();
     std::vector<u64> prefix((n + 1) * N);
     std::memcpy(prefix.data(), F.one, sizeof(u64) * N);
     for (int64_t i = 0; i < n; i++) {
         const u64* z = pts[i].Z;
-        if (Field<N>::is_zero(z))
+        if (FF::is_zero(z))
             std::memcpy(prefix.data() + (i + 1) * N, prefix.data() + i * N,
                         sizeof(u64) * N);
         else
@@ -415,7 +421,7 @@ void batch_inv_mont_z(const Field<N>& F, std::vector<Jac<N>>& pts,
     F.to_mont(tinv, run);
     for (int64_t i = n - 1; i >= 0; i--) {
         const u64* z = pts[i].Z;
-        if (Field<N>::is_zero(z)) {
+        if (FF::is_zero(z)) {
             std::memset(zinv.data() + i * N, 0, sizeof(u64) * N);
         } else {
             F.mmul(run, prefix.data() + i * N, zinv.data() + i * N);
@@ -424,24 +430,25 @@ void batch_inv_mont_z(const Field<N>& F, std::vector<Jac<N>>& pts,
     }
 }
 
-template <int N>
-int64_t fixed_base_run(const Field<N>& F, int64_t n, int nlimbs_fr,
+template <class FF>
+int64_t fixed_base_run(const FF& F, int64_t n, int nlimbs_fr,
                        const u64* scalars, const u64* bx, const u64* by,
                        int c, u64* out_x, u64* out_y, uint8_t* out_inf) {
+    constexpr int N = FF::W;
     const int total_bits = nlimbs_fr * 64;
     const int nwin = (total_bits + c - 1) / c;
     const int64_t row = (int64_t(1) << c) - 1;
 
     // window tables: table[w][d-1] = d * 2^(cw) * B, affine Montgomery
-    Jac<N> step;
+    Jac<FF> step;
     std::memcpy(step.X, bx, sizeof(step.X));
     std::memcpy(step.Y, by, sizeof(step.Y));
     std::memcpy(step.Z, F.one, sizeof(step.Z));
     F.to_mont(bx, step.X);
     F.to_mont(by, step.Y);
-    std::vector<Jac<N>> table(nwin * row);
+    std::vector<Jac<FF>> table(nwin * row);
     for (int w = 0; w < nwin; w++) {
-        Jac<N> acc = step;
+        Jac<FF> acc = step;
         for (int64_t d = 0; d < row; d++) {
             table[w * row + d] = acc;
             jac_add(F, acc, step);
@@ -460,9 +467,9 @@ int64_t fixed_base_run(const Field<N>& F, int64_t n, int nlimbs_fr,
         F.mmul(table[i].Y, z3, ty.data() + i * N);
     }
 
-    std::vector<Jac<N>> res(n);
+    std::vector<Jac<FF>> res(n);
     for (int64_t i = 0; i < n; i++) {
-        Jac<N> acc;
+        Jac<FF> acc;
         jac_set_inf(F, acc);
         const u64* s = scalars + i * nlimbs_fr;
         for (int w = 0; w < nwin; w++) {
@@ -501,36 +508,45 @@ int64_t fixed_base_run(const Field<N>& F, int64_t n, int nlimbs_fr,
 
 extern "C" {
 
-// out coords are affine MONTGOMERY form [n][N]; base given regular
+// out coords are affine MONTGOMERY form [n][W]; base given regular.  W = N
+// for fp; with beta != 0 the points lie over fp2 = fp[u]/(u^2 - beta), W =
+// 2N words an element (c0 then c1).
 int64_t gnark_fixed_base(
-    int nlimbs, const u64* modulus, const u64* r2, const u64* one_mont,
-    int64_t n, int nlimbs_fr, const u64* scalars,
+    int nlimbs, int beta, const u64* modulus, const u64* r2,
+    const u64* one_mont, int64_t n, int nlimbs_fr, const u64* scalars,
     const u64* base_x, const u64* base_y, int c,
     u64* out_x, u64* out_y, uint8_t* out_inf) {
+#define RUN(FT, ...) { FT F; F.init(modulus, r2, one_mont __VA_ARGS__); \
+        return fixed_base_run(F, n, nlimbs_fr, scalars, base_x, base_y, \
+                              c, out_x, out_y, out_inf); }
+#define CASE(NN) case NN: if (beta) RUN(Fp2Field<NN>, , beta) \
+        else RUN(Field<NN>)
     switch (nlimbs) {
-#define CASE(NN) case NN: { Field<NN> F; F.init(modulus, r2, one_mont); \
-        return fixed_base_run<NN>(F, n, nlimbs_fr, scalars, base_x, base_y, \
-                                  c, out_x, out_y, out_inf); }
         CASE(4) CASE(5) CASE(6) CASE(8) CASE(10) CASE(12)
-#undef CASE
         default: return -4;
     }
+#undef CASE
+#undef RUN
 }
 
-// returns 0; out_xyz = [3][N] u64 Jacobian coords, regular form
+// returns 0; out_xyz = [3][W] u64 Jacobian coords, regular form (W as
+// above)
 int64_t gnark_msm(
-    int nlimbs, const u64* modulus, const u64* r2, const u64* one_mont,
-    int64_t n, const u64* xs, const u64* ys, const uint8_t* inf,
-    int nlimbs_fr, const u64* scalars, int c, int coords_mont,
-    u64* out_xyz) {
+    int nlimbs, int beta, const u64* modulus, const u64* r2,
+    const u64* one_mont, int64_t n, const u64* xs, const u64* ys,
+    const uint8_t* inf, int nlimbs_fr, const u64* scalars, int c,
+    int coords_mont, u64* out_xyz) {
+#define RUN(FT, ...) { FT F; F.init(modulus, r2, one_mont __VA_ARGS__); \
+        return msm_run(F, n, xs, ys, inf, nlimbs_fr, scalars, c, \
+                       coords_mont, out_xyz); }
+#define CASE(NN) case NN: if (beta) RUN(Fp2Field<NN>, , beta) \
+        else RUN(Field<NN>)
     switch (nlimbs) {
-#define CASE(NN) case NN: { Field<NN> F; F.init(modulus, r2, one_mont); \
-        return msm_run<NN>(F, n, xs, ys, inf, nlimbs_fr, scalars, c, \
-                           coords_mont, out_xyz); }
         CASE(4) CASE(5) CASE(6) CASE(8) CASE(10) CASE(12)
-#undef CASE
         default: return -4;
     }
+#undef CASE
+#undef RUN
 }
 
 }  // extern "C"

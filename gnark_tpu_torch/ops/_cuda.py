@@ -1,22 +1,25 @@
-"""Build and bind the CUDA kernels (csrc/msm_kernels.cu, csrc/microbench.cu).
+"""Build and bind the CUDA kernels (csrc/msm_kernels.cu,
+csrc/msm_{g1,g2}_bls24315.cu, csrc/microbench.cu).
 
 On first use, nvcc compiles a library's sources in this checkout into a
 shared library with a plain C interface under ``gnark_tpu_torch/_build/``
 (the file name carries a hash of the sources, so an edit rebuilds), and
-ctypes loads it.  The two libraries are separate translation units, so
-that the short microbenchmark build does not wait for the MSM kernels';
-``build_all`` runs both compilers at once.  No torch headers are
-compiled in.  Every launcher returns ``cudaGetLastError()``; a nonzero
+ctypes loads it.  The four libraries are separate translation units:
+BN254's MSM kernels (kinds ``g1``, ``g2``), BLS24-315's G1 (kind
+``g1_bls24315``, over its fp), its G2 (``g2_bls24315``, over fp4) and the
+microbenchmark; ``build_all`` runs the four compilers at once.  No torch
+headers are compiled in.  Every launcher returns ``cudaGetLastError()``; a nonzero
 code raises.
 
 ``launches`` counts kernel launches by name (``leaf_prefix_g1``, ...,
-``microbench_mul_u32``, ...); only the wrappers here add to it, where they
-launch.
+``ladder_g2_bls24315``, ``microbench_mul_u32``, ...); only the wrappers
+here add to it, where they launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,27 +35,37 @@ _BUILD = os.path.join(_PKG, "_build")
 # library -> the sources its hash covers; the last one is compiled
 _SOURCES = {
     "msm": ("field.cuh", "ec_complete.cuh", "msm_kernels.cu"),
+    "msm_g1_bls24315": ("field.cuh", "ec_complete.cuh", "msm_kernels.cu",
+                        "msm_g1_bls24315.cu"),
+    "msm_g2_bls24315": ("field.cuh", "ec_complete.cuh", "msm_kernels.cu",
+                        "msm_g2_bls24315.cu"),
     "microbench": ("field.cuh", "microbench.cu"),
 }
 
 WINDOW_KERNELS = ("leaf_prefix", "lane_offsets", "weighted_sum", "horner_fold")
 KERNELS = WINDOW_KERNELS + ("ladder", "reduce")
 REDUCE_LANES = 256       # msm_kernels.cu's reduce_kernel
-LEAF_GROUP = {"g1": 4, "g2": 4}   # and G1/G2::LEAF_GROUP: threads a leaf chain
-# and G1/G2::WSUM_GROUP, WSUM_THREADS, WSUM_CLUSTER: threads a
-# weighted-sum operation, threads a block, blocks a window
-WSUM_GROUP = {"g1": 4, "g2": 8}
-WSUM_THREADS = {"g1": 256, "g2": 256}
-WSUM_CLUSTER = {"g1": 4, "g2": 4}
-# and G1/G2::LANES_GROUP, LANES_THREADS, LANES_CLUSTER: the same for a
-# lane-offsets addition (the narrow steps on one block)
-LANES_GROUP = {"g1": 8, "g2": 8}
-LANES_THREADS = {"g1": 128, "g2": 256}
-LANES_CLUSTER = {"g1": 4, "g2": 4}
-LADDER_CHUNKS = 16       # and its ladder_kernel: chunks a scalar,
-LADDER_WINDOW = 4        # bits a window
-KINDS = ("g1", "g2")
-_L16 = {"g1": 16, "g2": 32}     # 16-bit limb planes of one coordinate
+# the kinds (msm_kernels.cu's curve structs G1, G2, G1Bls24, G2Bls24) and
+# the library each is built into
+LIBRARY = {"g1": "msm", "g2": "msm", "g1_bls24315": "msm_g1_bls24315",
+           "g2_bls24315": "msm_g2_bls24315"}
+KINDS = tuple(LIBRARY)
+_L16 = {"g1": 16, "g2": 32,     # 16-bit limb planes of one coordinate
+        "g1_bls24315": 20, "g2_bls24315": 80}
+# a kind's shape as its library reports it (msm_kernels.cu's
+# GNARK_MSM_SHAPE, in this order): the base field's 32-bit words, the
+# coordinate field's degree over it, an F-product's base products in the
+# fold (Prod<F>::S), whether b3 * a is a product (B3_PRODUCT), the curve
+# struct's LEAF_GROUP (threads a leaf chain), WSUM_GROUP, WSUM_THREADS,
+# WSUM_CLUSTER (threads a weighted-sum operation, threads a block, blocks
+# a window), LANES_GROUP, LANES_THREADS, LANES_CLUSTER (the same for a
+# lane-offsets addition), LADDER_POINTS (points a ladder block), and a
+# Point<F>'s bytes
+SHAPE = ("words", "degree", "prod_s", "b3_product", "leaf_group",
+         "wsum_group", "wsum_threads", "wsum_cluster", "lanes_group",
+         "lanes_threads", "lanes_cluster", "ladder_points", "point_bytes")
+LADDER_CHUNKS = 16       # msm_kernels.cu's ladder_kernel: chunks a
+LADDER_WINDOW = 4        # scalar, bits a window
 # microbench.cu's enum Op, in order; then the two kernels of their own
 MICROBENCH_U32_OPS = ("mul_u32", "mul16_u32", "add_u32", "mad_wide_u32",
                       "mad_lo_hi_u32")
@@ -119,22 +132,21 @@ def build_all():
         list(pool.map(_load, _SOURCES))
 
 
-def load():
-    """The MSM kernel library."""
-    return _load("msm")
+def load(kind="g1"):
+    """The MSM kernel library of a kind."""
+    return _load(LIBRARY[kind])
 
 
-def _bind_msm(lib):
+def _bind_msm(lib, library):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for kind in KINDS:
+    for kind in (k for k, v in LIBRARY.items() if v == library):
         for name, args in (
                 ("leaf_prefix", [vp, vp, vp, ci, ci, ci, vp]),
                 ("lane_offsets", [vp, vp, vp, ci, ci, vp]),
                 ("weighted_sum", [vp, vp, vp, ci, ci, vp]),
                 ("horner_fold", [vp, vp, ci, ci, vp]),
                 ("ladder", [vp, vp, vp, vp, vp, ci, ci, vp]),
-                ("reduce", [vp, vp, vp, ci, ci, vp]),
-                ("point_bytes", [])):
+                ("reduce", [vp, vp, vp, ci, ci, vp])):
             fn = getattr(lib, f"gnark_msm_{name}_{kind}")
             fn.argtypes = args
             fn.restype = ci
@@ -151,20 +163,27 @@ def _bind_microbench(lib):
         fn.restype = ci
 
 
-_BIND = {"msm": _bind_msm, "microbench": _bind_microbench}
+_BIND = {"microbench": _bind_microbench,
+         **{lib: functools.partial(_bind_msm, library=lib)
+            for lib in set(LIBRARY.values())}}
 
 
 def kind_of(GC) -> str:
-    """'g1' or 'g2' for the BN254 groups the kernels are built for."""
-    from gnark_tpu_torch.curves import BN254
-    F, p = GC.F, BN254.fp.modulus
-    if hasattr(F, "base"):
-        if F.base.spec.modulus == p and F.beta == BN254.fp2_beta \
-                and tuple(GC.b) == tuple(BN254.b2):
-            return "g2"
-    elif F.spec.modulus == p and GC.b == BN254.b:
-        return "g1"
-    raise NotImplementedError("the MSM kernels are built for BN254 G1/G2 only")
+    """The kernels' kind of a group: 'g1' or 'g2' for BN254's, 'g1_bls24315'
+    or 'g2_bls24315' for BLS24-315's; raises for any other group."""
+    from gnark_tpu_torch.curves import BLS24_315, BN254
+    F = GC.F
+    for curve, suffix in ((BN254, ""), (BLS24_315, "_bls24315")):
+        p = curve.fp.modulus
+        if not hasattr(F, "base"):
+            if F.spec.modulus == p and GC.b == curve.b:
+                return "g1" + suffix
+        elif F.base.spec.modulus == p and tuple(GC.b) == tuple(curve.b2) \
+                and getattr(F, "beta", None) == (curve.fp2_beta or None) \
+                and getattr(F, "c", None) == (curve.g2_tower_c or None):
+            return "g2" + suffix
+    raise NotImplementedError("the MSM kernels are built for BN254 and "
+                              "BLS24-315 G1/G2 only")
 
 
 def _check(t: torch.Tensor, shape, name):
@@ -178,7 +197,7 @@ def _check(t: torch.Tensor, shape, name):
 
 
 def _launch(name, kind, *args):
-    lib = load()
+    lib = load(kind)
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib, f"gnark_msm_{name}_{kind}")(*args, stream)
     if rc != 0:
@@ -186,8 +205,18 @@ def _launch(name, kind, *args):
     launches[f"{name}_{kind}"] += 1
 
 
-def _point_bytes(kind) -> int:
-    return getattr(load(), f"gnark_msm_point_bytes_{kind}")()
+def read_shape(fn) -> dict:
+    """{SHAPE name: value} from a library's gnark_msm_shape_<kind>."""
+    out = (ctypes.c_int * len(SHAPE))()
+    fn.argtypes, fn.restype = [ctypes.c_void_p], None
+    fn(out)
+    return dict(zip(SHAPE, out))
+
+
+@functools.cache
+def shape(kind) -> dict:
+    """A kind's shape (SHAPE), read from its library once."""
+    return read_shape(getattr(load(kind), f"gnark_msm_shape_{kind}"))
 
 
 def leaf_prefix(sx, sy, kind):
@@ -203,7 +232,7 @@ def leaf_prefix(sx, sy, kind):
 
 
 def _scratch(points, kind, device):
-    nbytes = points * _point_bytes(kind)
+    nbytes = points * shape(kind)["point_bytes"]
     return torch.empty((nbytes + 3) // 4, dtype=torch.int32, device=device)
 
 

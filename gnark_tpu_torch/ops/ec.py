@@ -3,7 +3,7 @@ gnark_tpu/ops/ec.py::CurveOps).
 
 Short Weierstrass, a = 0.  A point batch is a tuple (X, Y, Z) of field
 element batches; Z == 0 encodes infinity.  Generic over the field ops
-(FieldOps for G1, Fp2Ops for G2).  Setup's fixed-base step and the
+(FieldOps for G1, Fp2Ops or FpKOps for G2).  Setup's fixed-base step and the
 conversion of results to affine use these; the MSM uses the complete
 formulas of ec_complete.py.
 """

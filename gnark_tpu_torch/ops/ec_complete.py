@@ -18,25 +18,26 @@ from gnark_tpu_torch.ops.limbs import _col, _limb_list
 class CompleteOps:
     """Complete projective group ops bound to field ops F and curve b.
 
-    b is the curve coefficient in regular form: an int for fp, a (c0, c1)
-    pair for fp2.  b3 = 3b goes through ``mul_small`` when it is a small
-    fp constant (BN254 G1: 9) and through a Montgomery product with the
-    constant otherwise (BN254 G2).
+    b is the curve coefficient in regular form: an int for fp, a tuple of
+    coefficients for an extension (fp2's (c0, c1), fp4's four).  b3 = 3b
+    goes through ``mul_small`` when it is a small fp constant (BN254 G1:
+    9) and through a Montgomery product with the constant otherwise
+    (BN254 G2, BLS24-315 G2).
     """
 
     def __init__(self, F, b):
         self.F = F
         self.b = b
-        fp2 = hasattr(F, "base")
-        spec = F.base.spec if fp2 else F.spec
+        ext = hasattr(F, "base")
+        spec = F.base.spec if ext else F.spec
         q, R = spec.modulus, spec.R
-        b3 = [3 * c % q for c in (b if fp2 else (b,))]
-        self._b3_small = b3[0] if not fp2 and b3[0] < (1 << 12) else None
+        b3 = [3 * c % q for c in (b if ext else (b,))]
+        self._b3_small = b3[0] if not ext and b3[0] < (1 << 12) else None
         self._b3_mont = [x for c in b3 for x in _limb_list(c * R % q, spec.L)]
         self._b3_dev = {}
 
     def _b3_planes(self, device):
-        """b3 in Montgomery form, one [L] (fp) or [2L] (fp2) column."""
+        """b3 in Montgomery form, one [L] (fp) or [kL] (fp^k) column."""
         c = self._b3_dev.get(device)
         if c is None:
             c = torch.tensor(self._b3_mont, dtype=torch.int64, device=device)

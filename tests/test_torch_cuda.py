@@ -28,7 +28,12 @@ The file imports no jax, so it runs where the port runs:
   * every op of the integer-multiply microbenchmark kernel against its
     plain version on the same CUDA tensors, one launch each;
   * PLONK setup and prove on the card give the host mode's key and proof
-    for the same rng; the default device is the card.
+    for the same rng; the default device is the card;
+  * BLS24-315's kinds (``g1_bls24315`` over its fp, ``g2_bls24315`` over
+    fp4) through the same kernel checks (not the rollup's plan), and a
+    BLS24-315 Groth16 proof on the card equal to the host mode's; a
+    BLS12-381 one too, its quotient on the card and its MSMs on the
+    native core.
 
 Tolerance: none.  Limbs compare exactly; points compare as Python ints.
 The microbenchmark's ``fma_f32`` alone compares within
@@ -43,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from gnark_tpu_torch.curves import BN254
+from gnark_tpu_torch.curves import BLS12_381, BLS24_315, BN254
 from gnark_tpu_torch.frontend.compile import compile_circuit
 from gnark_tpu_torch.frontend.schema import Circuit, Public, Secret
 from gnark_tpu_torch.backend import groth16 as tg
@@ -51,9 +56,9 @@ from gnark_tpu_torch.backend import plonk as tp
 from gnark_tpu_torch.ops import _cuda
 from gnark_tpu_torch.ops import microbench as MB
 from gnark_tpu_torch.ops import msm as M
-from gnark_tpu_torch.ops.ec import CurveOps, points_to_host
-from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs
-from gnark_tpu_torch.ops.towers import fp2_ops
+from gnark_tpu_torch.ops.ec import points_to_host
+from gnark_tpu_torch.ops.limbs import ints_to_limbs
+from torch_kinds import KINDS, group, r_mod
 
 R_MOD = BN254.fr.modulus
 N = 4096
@@ -67,11 +72,7 @@ def dev():
 
 
 def _group(kind):
-    if kind == "g1":
-        return (CurveOps(field_ops(BN254.fp), b=BN254.b), BN254.host_g1,
-                BN254.g1_gen)
-    return (CurveOps(fp2_ops(BN254.fp, BN254.fp2_beta), b=BN254.b2),
-            BN254.host_g2, BN254.g2_gen)
+    return group(kind)[:3]
 
 
 def _oracle_inputs(kind, dev, seed, n=N):
@@ -87,12 +88,13 @@ def _oracle_inputs(kind, dev, seed, n=N):
     inf = torch.zeros(n, dtype=torch.bool, device=dev)
     inf[::17] = True
     rng = np.random.default_rng(seed)
-    scalars = [int.from_bytes(rng.bytes(32), "little") % R_MOD
+    r = r_mod(kind)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % r
                for _ in range(n)]
     sc = torch.from_numpy(
         ints_to_limbs(scalars, BN254.fr.L).astype(np.int64)).to(dev)
     total = sum(s << (i % 64) for i, s in enumerate(scalars)
-                if i % 17) % R_MOD
+                if i % 17) % r
     return G, (xs, ys, inf, sc), H.scalar_mul(gen, total)
 
 
@@ -124,7 +126,7 @@ def _windowed_kernels_match_plain(dev, kind, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_kernels_match_plain_on_cuda(dev, kind):
     _windowed_kernels_match_plain(dev, kind, N, 5)
 
@@ -196,7 +198,7 @@ def _buckets(kind, dev, nw, nb, live):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["nw=24 nb=1024", "nw=24 nb=2",
                                   "nw=20 nb=1024, 9 windows in 10 identity"])
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_weighted_sum_matches_plain_on_cuda(dev, kind, case):
     """The weighted sum at the 2^16 plan's shape (24 windows of 1,024
     buckets), at nb = 2 (no tree, no doubling), and with nine windows in
@@ -229,7 +231,7 @@ def _plan_totals(kind, dev):
         inf = torch.zeros(n, dtype=torch.bool, device=dev)
         inf[::17] = True
         rng = np.random.default_rng(14)
-        scalars = [int.from_bytes(rng.bytes(32), "little") % R_MOD
+        scalars = [int.from_bytes(rng.bytes(32), "little") % r_mod(kind)
                    for _ in range(n)]
         sc = torch.from_numpy(
             ints_to_limbs(scalars, BN254.fr.L).astype(np.int64)).to(dev)
@@ -243,7 +245,7 @@ def _plan_totals(kind, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", [512, 1, 2, 8])
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_lane_offsets_match_plain_on_cuda(dev, kind, R):
     """The lane offsets on the 2^16 plan's lane totals (24 windows of 512
     lanes) and on their first R lanes: one launch each, bit for bit (R =
@@ -284,7 +286,7 @@ def _ladder_on_cuda(G, args):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_ladder_matches_plain_on_cuda(dev, kind):
     G, args, _ = _oracle_inputs(kind, dev, 7)
     _ladder_on_cuda(G, args)
@@ -293,7 +295,7 @@ def test_ladder_matches_plain_on_cuda(dev, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["37 points", "64-bit scalars",
                                   "20-bit scalars"])
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_ladder_small_shapes_match_plain_on_cuda(dev, kind, case):
     """A partial block; chunks of 4 bits (one window); scalars whose top
     chunks are all zero, so the fold starts at chunk 1."""
@@ -311,7 +313,7 @@ def test_ladder_small_shapes_match_plain_on_cuda(dev, kind, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_msm_on_cuda_matches_host_oracle(dev, kind):
     G, args, want = _oracle_inputs(kind, dev, 6)
     assert N < M.LADDER_MAX
@@ -319,7 +321,7 @@ def test_msm_on_cuda_matches_host_oracle(dev, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_windowed_msm_on_cuda_matches_host_oracle(dev, kind):
     G, args, want = _oracle_inputs(kind, dev, 8)
     assert points_to_host(G, M.MSM(G, N, BN254.fr.L)(*args)) == [want]
@@ -392,3 +394,28 @@ def test_plonk_on_cuda_equals_host_mode(dev):
     assert got == want
     assert tp.verify(got, gvk, [35])
     assert not tp.verify(got, gvk, [36])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", [BLS24_315, BLS12_381],
+                         ids=lambda c: c.name)
+def test_other_curves_prove_on_cuda_equal_host_mode(dev, curve):
+    """BLS24-315 (its MSMs on its kernels: the ladder at this size) and
+    BLS12-381 (its quotient on the card, its MSMs on the native core):
+    setup and prove on the card give the host mode's proof for the same
+    rng, and it verifies."""
+    cs = compile_circuit(Cubic(), curve)
+    pk, vk = tg.setup(cs, curve, rng=random.Random(3), device=dev)
+    hpk, _ = tg.setup(cs, curve, rng=random.Random(3), host=True)
+    before = dict(_cuda.launches)
+    proof = tg.prove(cs, pk, [35, 3], rng=random.Random(4))
+    want = tg.prove(cs, hpk, [35, 3], rng=random.Random(4))
+    assert (proof.ar, proof.bs, proof.krs) == (want.ar, want.bs, want.krs)
+    assert tg.verify(proof, vk, [35]) and not tg.verify(proof, vk, [34])
+    ran = {k for k, v in _cuda.launches.items() if v != before[k]}
+    if curve is BLS24_315:
+        assert ran == {f"{k}_{g}_bls24315" for k in ("ladder", "reduce",
+                                                      "horner_fold")
+                       for g in ("g1", "g2")}, ran
+    else:
+        assert not ran, ran

@@ -23,6 +23,9 @@ reduction of its output and the fold of the chunk sums, and their kernels.
     rest to the windowed plan, and the wrapper raises on a device that
     has no kernel and no plain version.
 
+The kinds: BN254's G1 (``g1``) and G2 over fp2 (``g2``), BLS24-315's G1
+(``g1_bls24315``) and G2 over fp4 (``g2_bls24315``).
+
 Tolerance: none.  Limbs compare exactly; points compare as Python ints.
 """
 
@@ -36,24 +39,20 @@ import pytest
 import torch
 
 from gnark_tpu.curves import BN254
+from gnark_tpu_torch.curves import BLS24_315
 from gnark_tpu_torch.ops import _cuda
 from gnark_tpu_torch.ops import msm as M
-from gnark_tpu_torch.ops.ec import CurveOps, points_to_host
-from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs
-from gnark_tpu_torch.ops.towers import fp2_ops
+from gnark_tpu_torch.ops.ec import points_to_host
+from gnark_tpu_torch.ops.limbs import ints_to_limbs
+from torch_kinds import KINDS, group, r_mod
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "gnark_tpu_torch", "csrc")
-R_MOD = BN254.fr.modulus
 
 
 def _group(kind):
-    if kind == "g1":
-        return (CurveOps(field_ops(BN254.fp), b=BN254.b), BN254.host_g1,
-                BN254.g1_gen)
-    return (CurveOps(fp2_ops(BN254.fp, BN254.fp2_beta), b=BN254.b2),
-            BN254.host_g2, BN254.g2_gen)
+    return group(kind)[:3]
 
 
 def _inputs(G, H, gen, scalars, inf_at=(), limbs=None):
@@ -97,15 +96,16 @@ class _Ladder:
     def __init__(self, kind):
         self.G, self.H, gen = _group(kind)
         self.GC = M.complete_ops(self.G)
-        rng = np.random.default_rng(53 if kind == "g1" else 59)
-        self.scalars = [R_MOD + 2, R_MOD, 0, 5, (1 << 256) - 1, 0,
-                        int.from_bytes(rng.bytes(32), "little") % R_MOD, 1]
+        self.r = r = r_mod(kind)
+        rng = np.random.default_rng(53 + 6 * KINDS.index(kind))
+        self.scalars = [r + 2, r, 0, 5, (1 << 256) - 1, 0,
+                        int.from_bytes(rng.bytes(32), "little") % r, 1]
         self.pts, self.inf, self.args = _inputs(
             self.G, self.H, gen, self.scalars, inf_at=(6,))
         self.out = M.ladder_plain(*self.args, self.GC)
 
     def want(self):
-        return [None if i else self.H.scalar_mul(p, s % R_MOD)
+        return [None if i else self.H.scalar_mul(p, s % self.r)
                 for p, s, i in zip(self.pts, self.scalars, self.inf)]
 
     def want_columns(self):
@@ -114,10 +114,10 @@ class _Ladder:
 
 @pytest.fixture(scope="module")
 def ladders():
-    return {kind: _Ladder(kind) for kind in ("g1", "g2")}
+    return {kind: _Ladder(kind) for kind in KINDS}
 
 
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_ladder_plain_matches_host_curve(ladders, kind):
     lad = ladders[kind]
     assert lad.out.shape == (3 * lad.G.F.L, M.LADDER_CHUNKS, 8)
@@ -131,7 +131,7 @@ def test_ladder_plain_matches_host_curve(ladders, kind):
     assert torch.equal(lad.out[:, 0, 6], ident)   # the infinity point
 
 
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_ladder_reduce_matches_host_sum(ladders, kind):
     lad = ladders[kind]
     cols = lad.want_columns()
@@ -167,7 +167,7 @@ def wide(ladders):
             for k, lad in ladders.items()}
 
 
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_reduce_over_lanes_matches_host_sum(ladders, wide, kind):
     lad = ladders[kind]
     cols = lad.want_columns()
@@ -182,7 +182,7 @@ def test_reduce_over_lanes_matches_host_sum(ladders, wide, kind):
     assert got == want
 
 
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_ladder_short_scalars_match_host_curve_and_kernel_source(
         host_ladder, kind):
     """64-bit scalars (4 limbs: 16 chunks of 4 bits, one window each):
@@ -191,7 +191,7 @@ def test_ladder_short_scalars_match_host_curve_and_kernel_source(
     against the plain ladder, and the ladder MSM against the host sum."""
     G, H, gen = _group(kind)
     GC = M.complete_ops(G)
-    rng = np.random.default_rng(61 if kind == "g1" else 71)
+    rng = np.random.default_rng(61 + 10 * KINDS.index(kind))
     scalars = [0, 1, (1 << 64) - 1, 3 << 60] + [
         int(v) for v in rng.integers(0, 1 << 63, 3)] + [0]
     pts, inf, args = _inputs(G, H, gen, scalars, inf_at=(5,), limbs=4)
@@ -225,7 +225,7 @@ static Dim blockIdx, threadIdx, blockDim;
 template <class Cv> static void grid_ladder(const int64_t* xs, const int64_t* ys,
     const uint8_t* inf, const int64_t* sc, int64_t* out, int n, int Ls) {
   blockDim.x = 1; threadIdx.x = 0;
-  for (int b = 0; b < (n + LADDER_POINTS - 1) / LADDER_POINTS; ++b) {
+  for (int b = 0; b < (n + Cv::LADDER_POINTS - 1) / Cv::LADDER_POINTS; ++b) {
     blockIdx.x = (unsigned)b;
     ladder_kernel<Cv>(xs, ys, inf, sc, out, n, Ls);
   }
@@ -247,6 +247,8 @@ template <class Cv> static void grid_reduce(const int64_t* p, int64_t* o, int n,
       int K) { grid_reduce<CV>(p, o, n, K); }
 HOST_GRIDS(g1, G1)
 HOST_GRIDS(g2, G2)
+HOST_GRIDS(g1_bls24315, G1Bls24)
+HOST_GRIDS(g2_bls24315, G2Bls24)
 
 // field.cuh's portable Montgomery product, limbs as 8 x 32 bits
 extern "C" void host_montmul(const uint32_t* a, const uint32_t* b,
@@ -259,6 +261,31 @@ extern "C" void host_montmul(const uint32_t* a, const uint32_t* b,
     }
     const Fp<BN254Fp> r = mul(x, y);
     for (int k = 0; k < 8; ++k) out[8 * i + k] = r.v[k];
+  }
+}
+
+// the same over BLS24-315's fp (10 x 32 bits) and its fp4 product (an
+// element is 4 x 10 words, coefficient 0 first)
+extern "C" void host_montmul_bls24315(const uint32_t* a, const uint32_t* b,
+                                      uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    Fp<BLS24315Fp> x, y;
+    for (int k = 0; k < 10; ++k) {
+      x.v[k] = a[10 * i + k];
+      y.v[k] = b[10 * i + k];
+    }
+    const Fp<BLS24315Fp> r = mul(x, y);
+    for (int k = 0; k < 10; ++k) out[10 * i + k] = r.v[k];
+  }
+}
+extern "C" void host_fp4mul_bls24315(const uint32_t* a, const uint32_t* b,
+                                     uint32_t* out, int n) {
+  using F4 = G2Bls24::F;
+  for (int i = 0; i < n; ++i) {
+    F4 x, y;
+    words_to(x, a + 40 * i);
+    words_to(y, b + 40 * i);
+    words_from(out + 40 * i, mul(x, y));
   }
 }
 """
@@ -291,7 +318,7 @@ def _host_ladder(lib, kind, args):
     return out
 
 
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_ladder_kernel_source_matches_plain_on_host(ladders, host_ladder,
                                                      kind):
     lad = ladders[kind]
@@ -300,7 +327,7 @@ def test_ladder_kernel_source_matches_plain_on_host(ladders, host_ladder,
 
 
 @pytest.mark.parametrize("case", ["8", "600"])
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_reduce_kernel_source_matches_plain_on_host(ladders, wide,
                                                      host_ladder, kind, case):
     lad = ladders[kind]
@@ -312,6 +339,91 @@ def test_reduce_kernel_source_matches_plain_on_host(ladders, wide,
     getattr(host_ladder, f"host_reduce_{kind}")(_ptr(pts), _ptr(out),
                                                 pts.shape[2], pts.shape[1])
     assert torch.equal(out, want)
+
+
+# BLS24-315 G2's ladder and reduction as one program, for the sanitizers:
+# argv = a directory holding xs, ys, inf, sc (raw arrays), n, Ls; writes
+# out (the ladder) and red (its reduction) there
+SANITIZED_MAIN = r"""
+#include <cstdio>
+#include <cstdlib>
+template <class T> static std::vector<T> load_file(const char* dir,
+                                                   const char* name, long n) {
+  char path[4096];
+  std::snprintf(path, sizeof path, "%s/%s", dir, name);
+  std::vector<T> v(n);
+  FILE* f = std::fopen(path, "rb");
+  if (!f || std::fread(v.data(), sizeof(T), n, f) != (size_t)n) std::abort();
+  std::fclose(f);
+  return v;
+}
+template <class T> static void save_file(const char* dir, const char* name,
+                                         const std::vector<T>& v) {
+  char path[4096];
+  std::snprintf(path, sizeof path, "%s/%s", dir, name);
+  FILE* f = std::fopen(path, "wb");
+  if (!f || std::fwrite(v.data(), sizeof(T), v.size(), f) != v.size())
+    std::abort();
+  std::fclose(f);
+}
+int main(int argc, char** argv) {
+  if (argc != 4) return 2;
+  const int n = std::atoi(argv[2]), Ls = std::atoi(argv[3]);
+  const long L16 = G2Bls24::F::L16, K = LADDER_CHUNKS;
+  auto xs = load_file<int64_t>(argv[1], "xs", L16 * n);
+  auto ys = load_file<int64_t>(argv[1], "ys", L16 * n);
+  auto inf = load_file<uint8_t>(argv[1], "inf", n);
+  auto sc = load_file<int64_t>(argv[1], "sc", (long)Ls * n);
+  std::vector<int64_t> out(3 * L16 * K * n), red(3 * L16 * K);
+  host_ladder_g2_bls24315(xs.data(), ys.data(), inf.data(), sc.data(),
+                          out.data(), n, Ls);
+  host_reduce_g2_bls24315(out.data(), red.data(), n, (int)K);
+  save_file(argv[1], "out", out);
+  save_file(argv[1], "red", red);
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("build", ["inlined", "called"])
+def test_fp4_ladder_source_clean_under_sanitizers(ladders, tmp_path, build):
+    """BLS24-315 G2's ladder and reduction sources, with the fp4 product
+    inlined (as shipped) or a called function (GT_FPK_MUL, the build whose
+    card ladder disagreed: PERF.md, ops/inline_check.py), as one g++
+    program under AddressSanitizer and UndefinedBehaviorSanitizer, every
+    automatic variable filled with a pattern before its first store:
+    no report, and the limbs of the plain versions.  An out-of-bounds
+    access or undefined behaviour stops the program; a read of an
+    uninitialised variable would change the limbs."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    lad = ladders["g2_bls24315"]
+    src = tmp_path / "ladder.cpp"
+    head = HARNESS[:HARNESS.index("HOST_GRIDS(g1, G1)")]
+    src.write_text(head + "HOST_GRIDS(g2_bls24315, G2Bls24)\n"
+                   + SANITIZED_MAIN)
+    prog = tmp_path / "ladder"
+    flags = ["-DGT_FPK_MUL=__attribute__((noinline))"] \
+        if build == "called" else []
+    subprocess.run(["g++", "-std=c++17", "-O1", "-g", "-fsanitize=address",
+                    "-fsanitize=undefined", "-fno-sanitize-recover=all",
+                    "-ftrivial-auto-var-init=pattern", *flags,
+                    f"-I{CSRC}", "-o", str(prog), str(src)], check=True)
+    xs, ys, inf, sc = lad.args
+    for name, t in (("xs", xs), ("ys", ys), ("inf", inf), ("sc", sc)):
+        t.numpy().tofile(tmp_path / name)
+    n = xs.shape[1]
+    res = subprocess.run(
+        [str(prog), str(tmp_path), str(n), str(sc.shape[0])],
+        capture_output=True, text=True,
+        env={**os.environ, "ASAN_OPTIONS": "detect_leaks=0"})
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "runtime error" not in res.stderr, res.stderr[-3000:]
+    out = torch.from_numpy(np.fromfile(tmp_path / "out", np.int64))
+    assert torch.equal(out.reshape(lad.out.shape), lad.out)
+    red = torch.from_numpy(np.fromfile(tmp_path / "red", np.int64))
+    want = M.reduce_plain(lad.out, lad.GC)
+    assert torch.equal(red.reshape(want.shape), want)
 
 
 def test_field_product_matches_python_ints(host_ladder):
@@ -337,6 +449,54 @@ def test_field_product_matches_python_ints(host_ladder):
                              out.ctypes.data_as(ctypes.c_void_p), n)
     got = [sum(int(w) << (32 * k) for k, w in enumerate(row)) for row in out]
     assert got == [x * y * rinv % p for x, y in pairs]
+
+
+def _words(vals, n):
+    return np.array([[(v >> (32 * k)) & 0xFFFFFFFF for k in range(n)]
+                     for v in vals], dtype=np.uint32)
+
+
+def _from_words(row):
+    return sum(int(w) << (32 * k) for k, w in enumerate(row))
+
+
+def test_bls24315_field_products_match_python_ints(host_ladder):
+    """field.cuh's portable product over BLS24-315's fp (N = 10, no carry
+    chain on the card either) and its fp4 product (FpK<.., 4, 13>), in
+    Montgomery form (R = 2^320), against Python ints and the host fp4, at
+    p - 1, 0, 1 and random values below p."""
+    from gnark_tpu_torch.curves.host import HostFpK
+    p = BLS24_315.fp.modulus
+    R = 1 << 320
+    rinv = pow(R, -1, p)
+    rng = np.random.default_rng(73)
+    edge = [p - 1, 0, 1, p - 2, (1 << 314) % p]
+    rand = [int.from_bytes(rng.bytes(40), "little") % p for _ in range(64)]
+    pairs = [(a, b) for a in edge for b in edge] + list(zip(rand, rand[::-1]))
+    a, b = _words([x for x, _ in pairs], 10), _words([y for _, y in pairs], 10)
+    out = np.zeros_like(a)
+    host_ladder.host_montmul_bls24315(
+        a.ctypes.data_as(ctypes.c_void_p), b.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p), len(pairs))
+    assert [_from_words(r) for r in out] == [x * y * rinv % p
+                                             for x, y in pairs]
+    H = HostFpK(p, 4, 13)
+    xs = [tuple(rand[4 * i:4 * i + 4]) for i in range(16)] + [
+        (p - 1, 0, 0, p - 1), (0, 0, 0, 0), (1, 0, 0, 0)]
+    ys = [tuple(rand[60 - 4 * i:64 - 4 * i]) for i in range(16)] + [
+        (p - 1, p - 1, p - 1, p - 1), (5, 6, 7, 8), (0, 1, 0, 0)]
+
+    def mont(v):
+        return _words([c * R % p for t in v for c in t], 10).reshape(-1, 40)
+
+    a, b = mont(xs), mont(ys)
+    out = np.zeros_like(a)
+    host_ladder.host_fp4mul_bls24315(
+        a.ctypes.data_as(ctypes.c_void_p), b.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p), len(xs))
+    got = [tuple(_from_words(r[10 * k:10 * k + 10]) * rinv % p
+                 for k in range(4)) for r in out]
+    assert got == [H.mul(x, y) for x, y in zip(xs, ys)]
 
 
 # ---- routing ---------------------------------------------------------------------

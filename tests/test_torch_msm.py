@@ -11,6 +11,9 @@
     their lanes on host threads (tests/test_torch_cuda.py runs the kernels
     themselves on a card).
 
+The kinds: BN254's G1 (``g1``) and G2 over fp2 (``g2``), BLS24-315's G1
+(``g1_bls24315``) and G2 over fp4 (``g2_bls24315``).
+
 Tolerance: none.  Limbs compare exactly; result points compare as Python
 ints after conversion to affine.
 """
@@ -29,11 +32,12 @@ import jax.numpy as jnp
 from gnark_tpu.backend.native_field import native_msm
 from gnark_tpu.curves import BN254
 from gnark_tpu.ops import msm as jax_msm
+from gnark_tpu_torch.curves import BLS24_315
 from gnark_tpu_torch.ops import _cuda
 from gnark_tpu_torch.ops import msm as M
 from gnark_tpu_torch.ops.ec import CurveOps, points_to_host
 from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs
-from gnark_tpu_torch.ops.towers import fp2_ops
+from torch_kinds import KINDS, group, r_mod
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,20 +119,14 @@ def test_plan_shape_at_2e16():
 
 # ---- the plain pipeline against the oracles --------------------------------
 
-def _group(kind):
-    if kind == "g1":
-        F = field_ops(BN254.fp)
-        return CurveOps(F, b=BN254.b), BN254.host_g1, BN254.g1_gen, 0
-    F = fp2_ops(BN254.fp, BN254.fp2_beta)
-    return CurveOps(F, b=BN254.b2), BN254.host_g2, BN254.g2_gen, (0, 0)
-
 
 class _Run:
     """One plain-path MSM, step by step, with its intermediates."""
 
     def __init__(self, kind, n=48, c=6, lanes=8):
-        G, H, gen, zero = _group(kind)
+        G, H, gen, zero = group(kind)
         self.G, self.H = G, H
+        q = r_mod(kind)
         rng = np.random.default_rng(31 if kind == "g1" else 37)
         pts, P = [], gen
         for _ in range(n):
@@ -136,7 +134,7 @@ class _Run:
             P = H.add(P, gen)
         pts[3] = pts[2]                                   # repeated point
         scalars = _edge_scalars(41, n)
-        scalars = [s % R_MOD for s in scalars]
+        scalars = [s % q for s in scalars]
         scalars[6] = scalars[7] = 0                       # zero scalars
         inf = np.zeros(n, bool)
         inf[9] = inf[10] = True                           # infinity points
@@ -168,10 +166,10 @@ class _Run:
 
 @pytest.fixture(scope="module")
 def runs():
-    return {kind: _Run(kind) for kind in ("g1", "g2")}
+    return {kind: _Run(kind) for kind in KINDS}
 
 
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_msm_plain_matches_host_curve(runs, kind):
     run = runs[kind]
     assert run.result == [run.want()]
@@ -191,7 +189,7 @@ def test_msm_default_plan_g1_at_1024():
     """The default windowed plan (cost-model c, lanes from n) at
     n = 1024.  (``msm`` itself sends so few points to the ladder:
     tests/test_torch_ladder.py.)"""
-    G, H, gen, _ = _group("g1")
+    G, H, gen, _ = group("g1")
     n = 1024
     base, P = [], gen
     for _ in range(64):
@@ -257,6 +255,8 @@ template <class Cv> static void grid_wsum(const int64_t* b, int64_t* o, int nw, 
       int nw, int c) { grid_fold<CV>(a, o, nw, c); }
 HOST_GRIDS(g1, G1)
 HOST_GRIDS(g2, G2)
+HOST_GRIDS(g1_bls24315, G1Bls24)
+HOST_GRIDS(g2_bls24315, G2Bls24)
 """
 
 
@@ -383,24 +383,22 @@ template <class Cv> static int grid_lanes_threads(const int64_t* tot, int64_t* o
                       CV::LANES_CLUSTER};                                     \
     return v[i];                                                              \
   }
-LANES_SHAPE(g1, G1)
-LANES_SHAPE(g2, G2)
-extern "C" int host_leaf_threads_g1(const int64_t* a, const int64_t* b,
-    int64_t* o, int nw, int C, int R) { return grid_leaf_threads<G1>(a, b, o, nw, C, R); }
-extern "C" int host_leaf_threads_g2(const int64_t* a, const int64_t* b,
-    int64_t* o, int nw, int C, int R) { return grid_leaf_threads<G2>(a, b, o, nw, C, R); }
-extern "C" int host_leaf_group_g1() { return G1::LEAF_GROUP; }
-extern "C" int host_leaf_group_g2() { return G2::LEAF_GROUP; }
-extern "C" int host_wsum_threads_g1(const int64_t* a, int64_t* o, int nw,
-    int nb) { return grid_wsum_threads<G1>(a, o, nw, nb); }
-extern "C" int host_wsum_threads_g2(const int64_t* a, int64_t* o, int nw,
-    int nb) { return grid_wsum_threads<G2>(a, o, nw, nb); }
-extern "C" int host_wsum_group_g1() { return G1::WSUM_GROUP; }
-extern "C" int host_wsum_group_g2() { return G2::WSUM_GROUP; }
-extern "C" int host_wsum_block_g1() { return G1::WSUM_THREADS; }
-extern "C" int host_wsum_block_g2() { return G2::WSUM_THREADS; }
-extern "C" int host_wsum_cluster_g1() { return G1::WSUM_CLUSTER; }
-extern "C" int host_wsum_cluster_g2() { return G2::WSUM_CLUSTER; }
+#define SHAPES(NAME, CV)                                                      \
+  LANES_SHAPE(NAME, CV)                                                       \
+  GNARK_MSM_SHAPE(NAME, CV)                                                   \
+  extern "C" int host_leaf_threads_##NAME(const int64_t* a, const int64_t* b, \
+      int64_t* o, int nw, int C, int R) {                                     \
+    return grid_leaf_threads<CV>(a, b, o, nw, C, R); }                        \
+  extern "C" int host_leaf_group_##NAME() { return CV::LEAF_GROUP; }          \
+  extern "C" int host_wsum_threads_##NAME(const int64_t* a, int64_t* o,       \
+      int nw, int nb) { return grid_wsum_threads<CV>(a, o, nw, nb); }         \
+  extern "C" int host_wsum_group_##NAME() { return CV::WSUM_GROUP; }          \
+  extern "C" int host_wsum_block_##NAME() { return CV::WSUM_THREADS; }        \
+  extern "C" int host_wsum_cluster_##NAME() { return CV::WSUM_CLUSTER; }
+SHAPES(g1, G1)
+SHAPES(g2, G2)
+SHAPES(g1_bls24315, G1Bls24)
+SHAPES(g2_bls24315, G2Bls24)
 """
 
 
@@ -422,6 +420,13 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _shape(lib, kind):
+    """The kind's shape as ``_cuda.read_shape`` reads the source's
+    GNARK_MSM_SHAPE: its names must fall on the constants the threaded
+    runs used."""
+    return _cuda.read_shape(getattr(lib, f"gnark_msm_shape_{kind}"))
+
+
 def _leaf_case(run, case):
     """The leaf's inputs: the run's own (C = 6, infinity points and
     negative digits), or its first five steps with every point of lane 3
@@ -435,7 +440,7 @@ def _leaf_case(run, case):
 
 
 @pytest.mark.parametrize("case", ["run", "C=5, lane 3 all infinite"])
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_leaf_prefix_groups_match_plain_on_host_threads(
         runs, threaded_leaf, kind, case):
     """The leaf source at the card's group width, its lanes on host
@@ -449,7 +454,7 @@ def test_leaf_prefix_groups_match_plain_on_host_threads(
     assert fn(_ptr(sx), _ptr(sy), _ptr(out), nw, C, R) == 0   # group masks
     assert torch.equal(out, want)
     assert getattr(threaded_leaf, f"host_leaf_group_{kind}")() == \
-        _cuda.LEAF_GROUP[kind]
+        _shape(threaded_leaf, kind)["leaf_group"]
 
 
 def _wsum_case(run, case):
@@ -483,7 +488,7 @@ def _wsum_case(run, case):
 
 @pytest.mark.parametrize("case", ["run", "nb=2", "nb=4",
                                   "nb=1024, nw=2, identities, P+P, P+(-P)"])
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_weighted_sum_wavefront_matches_plain_on_host_threads(
         runs, threaded_leaf, kind, case):
     """The weighted sum's source at the card's group width and block size,
@@ -496,12 +501,13 @@ def test_weighted_sum_wavefront_matches_plain_on_host_threads(
     fn = getattr(threaded_leaf, f"host_wsum_threads_{kind}")
     assert fn(_ptr(bk), _ptr(out), nw, nb) == 0   # group masks
     assert torch.equal(out, want)
+    shape = _shape(threaded_leaf, kind)
     assert getattr(threaded_leaf, f"host_wsum_group_{kind}")() == \
-        _cuda.WSUM_GROUP[kind]
+        shape["wsum_group"]
     assert getattr(threaded_leaf, f"host_wsum_block_{kind}")() == \
-        _cuda.WSUM_THREADS[kind]
+        shape["wsum_threads"]
     assert getattr(threaded_leaf, f"host_wsum_cluster_{kind}")() == \
-        _cuda.WSUM_CLUSTER[kind]
+        shape["wsum_cluster"]
 
 
 def _lanes_case(run, case):
@@ -537,7 +543,7 @@ LANES_CASES = ["run", "R=1", "R=2",
 
 
 @pytest.mark.parametrize("case", LANES_CASES)
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_lane_offsets_scan_matches_plain_on_host_threads(
         runs, threaded_leaf, kind, case):
     """The lane offsets' source at the card's group width, block size and
@@ -554,14 +560,14 @@ def test_lane_offsets_scan_matches_plain_on_host_threads(
     fn = getattr(threaded_leaf, f"host_lanes_threads_{kind}")
     assert fn(_ptr(tot), _ptr(out), nw, R) == 0   # group masks
     assert torch.equal(out, want)
-    shape = getattr(threaded_leaf, f"host_lanes_shape_{kind}")
-    assert [shape(i) for i in range(3)] == [
-        _cuda.LANES_GROUP[kind], _cuda.LANES_THREADS[kind],
-        _cuda.LANES_CLUSTER[kind]]
+    lanes = getattr(threaded_leaf, f"host_lanes_shape_{kind}")
+    shape = _shape(threaded_leaf, kind)
+    assert [lanes(i) for i in range(3)] == [
+        shape["lanes_group"], shape["lanes_threads"], shape["lanes_cluster"]]
 
 
 @pytest.mark.parametrize("case", LANES_CASES[1:])
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_lane_offsets_source_matches_plain_on_host(runs, host_kernels, kind,
                                                    case):
     """The lane offsets' source on one thread (a group of one, one block a
@@ -579,7 +585,7 @@ def test_lane_offsets_source_matches_plain_on_host(runs, host_kernels, kind,
 def test_lane_offsets_need_a_power_of_two():
     """A lane count that is not a power of two raises, in the plan and in
     the plain version."""
-    run_G = _group("g1")[0]
+    run_G = group("g1")[0]
     with pytest.raises(ValueError):
         M.MSM(run_G, 48, BN254.fr.L, c=6, lanes=6)
     GC = M.complete_ops(run_G)
@@ -588,7 +594,7 @@ def test_lane_offsets_need_a_power_of_two():
         M.lane_offsets(tot, GC)
 
 
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_leaf_prefix_source_all_infinite_lane_on_host(runs, host_kernels,
                                                       kind):
     """C = 5 (not a power of two), lane 3's points all infinite, beside
@@ -611,7 +617,7 @@ def test_leaf_prefix_source_all_infinite_lane_on_host(runs, host_kernels,
 
 @pytest.mark.parametrize("kernel", ["leaf_prefix", "lane_offsets",
                                     "weighted_sum", "horner_fold"])
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_kernel_source_matches_plain_on_host(runs, host_kernels, kind, kernel):
     run = runs[kind]
     fn = getattr(host_kernels, f"host_{kernel}_{kind}")
@@ -636,7 +642,7 @@ def test_kernel_source_matches_plain_on_host(runs, host_kernels, kind, kernel):
 
 
 @pytest.mark.parametrize("live", [0, 1, 3])
-@pytest.mark.parametrize("kind", ["g1", "g2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_horner_fold_starts_at_highest_live_window(runs, host_kernels, kind,
                                                    live):
     """Five window sums, the top 5 - ``live`` of them the identity: the
@@ -688,6 +694,32 @@ def test_kernel_constants_match_field_spec():
     assert val(_source_limbs(kern, "c0")) == b3[0] * (1 << 256) % p
     assert val(_source_limbs(kern, "c1")) == b3[1] * (1 << 256) % p
     assert BN254.b == 3                       # G1's b3 = 9 as 8a + a
+
+
+def test_bls24315_kernel_constants_match_field_spec():
+    """BLS24-315's constants in the CUDA sources, recomputed from the
+    field and the curve: p, R mod p and -p^-1 mod 2^32 (R = 2^320), G1's
+    b = 1 (b3 = 3 as 2a + a), and G2's b3 = 3 b2 with b2 = 1/u = (0, 0, 0,
+    1/13) in Montgomery form."""
+    field = open(os.path.join(CSRC, "field.cuh")).read()
+    kern = open(os.path.join(CSRC, "msm_kernels.cu")).read()
+    p = BLS24_315.fp.modulus
+    R = 1 << 320
+    body = field[field.index("struct BLS24315Fp"):]
+
+    def val(name, text):
+        m = re.search(name + r"\[10\] = \{([^}]*)\}", text)
+        return sum(int(v.strip().rstrip("u"), 16) << (32 * i)
+                   for i, v in enumerate(m.group(1).split(",")))
+
+    assert val("v", body[body.index("p(int i)"):]) == p
+    assert val("v", body[body.index("one(int i)"):]) == R % p
+    inv = int(re.search(r"INV = (0x[0-9a-f]+)u", body).group(1), 16)
+    assert (inv * p) % (1 << 32) == (1 << 32) - 1
+    assert BLS24_315.b == 1
+    b3 = [3 * c % p for c in BLS24_315.b2]
+    assert b3[:3] == [0, 0, 0] and b3[3] == 3 * pow(13, -1, p) % p
+    assert val("c3", kern) == b3[3] * R % p
 
 
 # ---- device routing ----------------------------------------------------------
