@@ -76,13 +76,29 @@ main paths once, at the sizes the repo has always measured:
  10. PLONK over BLS12-381 (commitments on the native core) and BLS24-315
      (on its G1 kernels), a squaring chain in a domain of 2^14: setup on
      the card, a cold and a warm prove (every BLS24-315 commitment on the
-     plan that phase 8 checks), verify, reject a wrong public input.
+     plan that phase 8 checks), verify, reject a wrong public input;
+ 11. serialization: the keys that phases 5, 6 and 9 served (the 2^16 MiMC
+     Groth16 key and the 2^16 PLONK key over BN254, the 2^16 BLS24-315 and
+     BLS12-381 Groth16 keys) written to files and read back onto the card
+     (safe=False, then safe=True), each proving the in-memory key's proof
+     bytes with its rng, cold and warm; proof and verifying key through
+     bytes, verify, reject a wrong public input; each constraint system
+     through cs_io, solved; examples/serialization_main.py on the card;
+ 12. one-layer recursion: cubic proofs made on the card over BLS12-377
+     (native route) and BLS24-315 (its ladder, reduction and fold, G1 and
+     fp4 G2), carried as bytes, satisfy the in-circuit Groth16 verifiers
+     over BW6-761 (92,555 constraints) and BW6-633 (177,631), which refuse
+     a wrong inner public input; BW6-761's outer key (native route, domain
+     2^17) proves once, verifies and rejects a wrong input.  The inner
+     keys' setup and the verifiers' compiles run while nvcc builds the
+     kernels, the outer key's setup beside phases 2-11: none needs a
+     kernel.
 
-The launch counts are set to zero just before each of the six paths (2,
-5, 6, 7, 9 and 10) and read just after: every kernel of a path must have
-launched in it (each request of 9 and 10 exactly the kernels its route
-names, none on the native route), and no plain version may run on the
-card there.
+The launch counts are set to zero just before each of the eight paths (2,
+5, 6, 7, 9, 10, 11 and 12) and read just after: every kernel of a path
+must have launched in it (each request of 9-12 exactly the kernels its
+route names, none on the native route), and no plain version may run on
+the card there.
 
 ``--profile`` adds a cProfile of one more warm 2^16 Groth16 prove (host
 time by function).  ``--trace`` takes one more warm 2^16 Groth16 prove and
@@ -96,6 +112,9 @@ kernels, then the card's name and power limit, and last a JSON status line.
 Exits nonzero, printing no result, when CUDA is not available.
 """
 
+import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import random
@@ -1031,7 +1050,8 @@ def phase_groth16(device, profile=False, trace=False):
         for line in out.getvalue().splitlines():
             if line.strip():
                 log(f"[profile] {line.rstrip()}")
-    return launches
+    return launches, {name: served[name] + (proofs[name],)
+                      for name in served}
 
 
 def square_chain(n_sq, curve=None):
@@ -1111,7 +1131,7 @@ def phase_plonk(device, trace=False):
     if trace:
         device_busy("plonk sq16", lambda: plonk.prove(
             cs, pk, [y, x0], rng=random.Random(7)))
-    return launches
+    return launches, (cs, pk, vk, x0, y, proof)
 
 
 def phase_rollup_kernels(device, rates):
@@ -1292,9 +1312,9 @@ CURVE_PLONK = ("bls12_381", "bls24_315")
 
 def expected_launches(curve, n_msm, scheme="groth16"):
     """The kernels a prove over ``curve`` launches, as gnark_tpu routes it:
-    none on the native route (fp.L >= 24); BLS24-315's windowed kernels
-    from 8192 points, its ladder, reduction and fold below (G1 alone under
-    PLONK)."""
+    none on the native route (fp.L >= 24); BN254's or BLS24-315's windowed
+    kernels from 8192 points, their ladder, reduction and fold below (G1
+    alone under PLONK)."""
     from gnark_tpu_torch.backend.groth16 import native_route
     from gnark_tpu_torch.ops import _cuda
     from gnark_tpu_torch.ops import msm as M
@@ -1302,7 +1322,8 @@ def expected_launches(curve, n_msm, scheme="groth16"):
         return set()
     names = (_cuda.WINDOW_KERNELS if n_msm >= M.LADDER_MAX
              else ("ladder", "reduce", "horner_fold"))
-    kinds = BLS24_KINDS if scheme == "groth16" else BLS24_KINDS[:1]
+    kinds = BN254_KINDS if curve.name == "bn254" else BLS24_KINDS
+    kinds = kinds if scheme == "groth16" else kinds[:1]
     return {f"{k}_{kind}" for k in names for kind in kinds}
 
 
@@ -1384,7 +1405,8 @@ def phase_curves_groth16(device):
             f"{name}: proof verifies a wrong public input"
         log(f"[groth16 {name}] verify ok, wrong public input rejected "
             f"({time.perf_counter() - t0:.2f} s)")
-    return launches
+    return launches, {name: served[name] + (proofs[name],)
+                      for name in served}
 
 
 def phase_curves_plonk(device):
@@ -1456,6 +1478,339 @@ def phase_curves_plonk(device):
             f"{cname}: proof verifies a wrong public input"
         log(f"[plonk {cname}] verify ok, wrong public input rejected "
             f"({time.perf_counter() - t0:.2f} s)")
+    return launches
+
+
+# the keys phase 11 takes through files: (label, scheme, curve, the phase
+# that served it, its request)
+SERIALIZED = (
+    ("groth16 mimc178", "groth16", "bn254", "groth16", "mimc178"),
+    ("plonk sq16", "plonk", "bn254", "plonk", None),
+    ("groth16 bls24_315 mimc", "groth16", "bls24_315", "curves",
+     "bls24_315 mimc"),
+    ("groth16 bls12_381 mimc", "groth16", "bls12_381", "curves",
+     "bls12_381 mimc"),
+)
+
+
+def served_keys(groth16_served, plonk_served, curves_served):
+    """The keys of SERIALIZED as (scheme, curve, cs, pk, vk, witness,
+    public inputs, the in-memory key's proof with rng 7, MSM points)."""
+    from gnark_tpu_torch.curves import ALL_CURVES
+    out = {}
+    for label, scheme, cname, source, request in SERIALIZED:
+        curve = ALL_CURVES[cname]
+        if source == "groth16":
+            cs, pk, vk, pre, digest, proof = groth16_served[request]
+            values, public, n = [digest, pre], [digest], pk.n_pad
+        elif source == "plonk":
+            cs, pk, vk, x0, y, proof = plonk_served
+            values, public, n = [y, x0], [y], len(pk.srs.g1)
+        else:
+            _, cs, pk, vk, pre, digest, n, proof = curves_served[request]
+            values, public = [digest, pre], [digest]
+        out[label] = (scheme, curve, cs, pk, vk, values, public, proof, n)
+    return out
+
+
+def phase_serialization(device, keys):
+    """The keys that phases 5, 6 and 9 served, through files: each written
+    to a temporary directory and read back onto the card with safe=False
+    and with safe=True; then the main path, a prove from each loaded key
+    (cold, then warm from the other) with the in-memory key's rng, with the
+    launch counts taken over them: the same proof bytes as the in-memory
+    key's, the kernels its route names (none on the native route); the
+    proof and the verifying key through bytes, verify, reject a wrong
+    public input; the constraint system through cs_io, solved; last,
+    examples/serialization_main.py on the card."""
+    import tempfile
+
+    from gnark_tpu_torch import backend
+    from gnark_tpu_torch.backend import cs_io, key_io, serialize
+    from gnark_tpu_torch.examples import serialization_main
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import msm as M
+
+    loaded = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (scheme, curve, cs, pk, vk, values, public, proof,
+                    n) in keys.items():
+            path = os.path.join(tmp, label.replace(" ", "_") + ".npz")
+            write = (key_io.groth16_pk_write if scheme == "groth16"
+                     else key_io.plonk_pk_write)
+            t0 = time.perf_counter()
+            write(pk, path)
+            t_write = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t_read = {}
+            for safe in (False, True):
+                t0 = time.perf_counter()
+                if scheme == "groth16":
+                    got = key_io.groth16_pk_read(path, safe=safe,
+                                                 device=device)
+                else:
+                    got = key_io.plonk_pk_read(path, device=device)
+                sync()
+                t_read[safe] = time.perf_counter() - t0
+                loaded[label, safe] = got
+            assert loaded[label, False].device == device
+            second = "safe=True" if scheme == "groth16" else "read again"
+            log(f"[serialization {label}] key file {size / 2**20:.1f} MiB: "
+                f"write {t_write:.2f} s, read onto the card {t_read[False]:.2f}"
+                f" s ({second} {t_read[True]:.2f} s)")
+
+    _cuda.reset_launches()
+    for k in M.plain_on_cuda:
+        M.plain_on_cuda[k] = 0
+    proofs = {}
+    for label, (scheme, curve, cs, pk, vk, values, public, proof,
+                n) in keys.items():
+        to_bytes = (serialize.proof_to_bytes if scheme == "groth16"
+                    else serialize.plonk_proof_to_bytes)
+        want = to_bytes(proof, curve)
+        for run, safe in (("cold", False), ("warm", True)):
+            before = dict(_cuda.launches)
+            timings = {}
+            t0 = time.perf_counter()
+            proofs[label] = backend.prove(cs, loaded[label, safe], values,
+                                          rng=random.Random(7),
+                                          timings=timings)
+            total = time.perf_counter() - t0
+            assert to_bytes(proofs[label], curve) == want, \
+                f"{label}: the loaded key proves another proof"
+            ran = {k: v - before[k] for k, v in _cuda.launches.items()
+                   if v > before[k]}
+            assert set(ran) == expected_launches(curve, n, scheme), ran
+            which = ("first" if not safe else
+                     "safe=True" if scheme == "groth16" else "second")
+            log(f"[serialization {label}] prove from the loaded key "
+                f"({which}) {run} {total:.2f} s, the in-memory key's "
+                f"proof bytes: " + ", ".join(f"{k} {v:.3f}"
+                                             for k, v in timings.items()))
+            log(f"[serialization {label}] launches in this prove: {ran}")
+    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    launches = {k: v for k, v in _cuda.launches.items() if v}
+    log(f"[serialization] launches during the {2 * len(keys)} proves: "
+        f"{launches}")
+
+    for label, (scheme, curve, cs, pk, vk, values, public, proof,
+                n) in keys.items():
+        t0 = time.perf_counter()
+        if scheme == "groth16":
+            pblob = serialize.proof_to_bytes(proofs[label], curve)
+            vblob = serialize.vk_to_bytes(vk)
+            proof2 = serialize.proof_from_bytes(pblob, curve)
+            vk2 = serialize.vk_from_bytes(vblob, curve)
+        else:
+            pblob = serialize.plonk_proof_to_bytes(proofs[label], curve)
+            vblob = key_io.plonk_vk_to_bytes(vk)
+            proof2 = serialize.plonk_proof_from_bytes(pblob, curve)
+            vk2 = key_io.plonk_vk_from_bytes(vblob, curve)
+        t_bytes = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        assert backend.verify(proof2, vk2, public), f"{label}: no verify"
+        t_verify = time.perf_counter() - t0
+        wrong = [(public[0] + 1) % curve.fr.modulus] + public[1:]
+        assert not backend.verify(proof2, vk2, wrong), \
+            f"{label}: proof verifies a wrong public input"
+        t0 = time.perf_counter()
+        blob = cs_io.cs_to_bytes(cs)
+        cs2 = cs_io.cs_from_bytes(blob)
+        t_cs = time.perf_counter() - t0
+        assert cs_io.cs_to_bytes(cs2) == blob
+        t0 = time.perf_counter()
+        backend.solve(cs2, values)
+        t_solve = time.perf_counter() - t0
+        log(f"[serialization {label}] proof {len(pblob)} B and vk "
+            f"{len(vblob)} B through bytes {t_bytes:.2f} s, verify after "
+            f"the reload {t_verify:.2f} s, wrong public input rejected; "
+            f"constraint system {len(blob) / 2**20:.1f} MiB through cs_io "
+            f"{t_cs:.2f} s, solved {t_solve:.2f} s")
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serialization_main.main(device=device)
+    for line in out.getvalue().splitlines():
+        log(f"[serialization example] {line}")
+    log(f"[serialization] examples/serialization_main.py on the card "
+        f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+# one-layer recursion: inner curve -> (outer curve, constraints of the
+# in-circuit verifier, whether its outer proof is made here)
+RECURSION = {"bls12_377": ("bw6_761", 92555, True),
+             "bls24_315": ("bw6_633", 177631, False)}
+
+
+def recursion_circuit(vk):
+    """The in-circuit Groth16 verifier of proofs of ``vk`` (BLS12-377 or
+    BLS24-315) as a circuit over the outer curve (tests/test_recursion.py's
+    RecursionCircuit and its BLS24-315 sibling): the inner public input
+    public, the proof's coordinates secret."""
+    from gnark_tpu_torch.frontend.schema import Circuit, Public, Secret
+    from gnark_tpu_torch.std import groth16_bls12377, groth16_bls24315
+    k = len(vk.beta_g2[0])
+    verifier = groth16_bls12377 if k == 2 else groth16_bls24315
+
+    class RecursionCircuit(Circuit):
+        inner_y = Public()
+        ar = Secret(shape=(2,))
+        krs = Secret(shape=(2,))
+        bs_x = Secret(shape=(k,))
+        bs_y = Secret(shape=(k,))
+
+        def define(self, api):
+            verifier.verify_proof(api, vk, tuple(self.ar),
+                                  (tuple(self.bs_x), tuple(self.bs_y)),
+                                  tuple(self.krs), [self.inner_y])
+    return RecursionCircuit
+
+
+def recursion_witness(proof, y):
+    """[public | secret] values of RecursionCircuit for ``proof``."""
+    return [y, *proof.ar, *proof.krs, *proof.bs[0], *proof.bs[1]]
+
+
+def prepare_recursion(device):
+    """The host side of phase 12, which needs no kernel (it runs while
+    nvcc builds them): for each inner curve the cubic circuit's key, set
+    up on the card (BLS12-377 on the native route, BLS24-315 on the card's
+    fixed-base tables); its verifying key through bytes; the in-circuit
+    verifier of that key compiled over the outer curve."""
+    from gnark_tpu_torch.backend import groth16, serialize
+    from gnark_tpu_torch.curves import ALL_CURVES
+    from gnark_tpu_torch.examples.cubic import CubicCircuit
+    from gnark_tpu_torch.frontend.compile import compile_circuit
+
+    prepared = {}
+    for inner, (outer, n_constraints, _) in RECURSION.items():
+        curve, ocurve = ALL_CURVES[inner], ALL_CURVES[outer]
+        tag = f"[recursion {inner} in {outer}]"
+        cs_in = compile_circuit(CubicCircuit(), curve)
+        t0 = time.perf_counter()
+        pk_in, vk_in = groth16.setup(cs_in, curve, rng=random.Random(9),
+                                     device=device)
+        sync()
+        route = ("native core" if groth16.native_route(curve)
+                 else "the card's fixed-base")
+        log(f"{tag} inner setup {time.perf_counter() - t0:.2f} s, key "
+            f"points on {route} (domain {pk_in.domain_n}, n_pad "
+            f"{pk_in.n_pad})")
+        vblob = serialize.vk_to_bytes(vk_in)
+        vk_c = serialize.vk_from_bytes(vblob, curve)
+        t0 = time.perf_counter()
+        cs = compile_circuit(recursion_circuit(vk_c)(), ocurve)
+        log(f"{tag} verifier of the {len(vblob)}-byte inner vk compiled "
+            f"{time.perf_counter() - t0:.2f} s: {cs.nb_constraints} "
+            f"constraints, {cs.nb_wires} wires")
+        assert cs.nb_constraints == n_constraints, cs.nb_constraints
+        prepared[inner] = (cs_in, pk_in, vk_c, cs)
+    return prepared
+
+
+def recursion_outer_setup(device, prepared):
+    """The outer Groth16 key of each verifier that RECURSION proves,
+    through the card's entry point (the native route: the QAP and the key
+    points on the native core, single-threaded, out of the GIL; no
+    kernel), with its seconds.  It runs in a thread beside phases 2-11."""
+    from gnark_tpu_torch.backend import groth16
+    from gnark_tpu_torch.curves import ALL_CURVES
+    keys = {}
+    for inner, (outer, _, outer_proof) in RECURSION.items():
+        if outer_proof:
+            ocurve = ALL_CURVES[outer]
+            assert groth16.native_route(ocurve)
+            t0 = time.perf_counter()
+            pk, vk = groth16.setup(prepared[inner][3], ocurve,
+                                   rng=random.Random(11), device=device)
+            keys[inner] = (pk, vk, time.perf_counter() - t0)
+    return keys
+
+
+def phase_recursion(device, prepared, outer_keys):
+    """One-layer recursion on the card, the main path: each inner cubic
+    proof made on the card (BLS12-377: the quotient's NTTs on the card,
+    MSMs on the native core; BLS24-315: its ladder, reduction and Horner
+    fold for G1 and fp4 G2), carried as bytes; the in-circuit verifier of
+    phase 12's prepared system solved with it by the native solver, a
+    wrong inner public input refused; for BLS12-377 the outer BW6-761
+    Groth16 key (``recursion_outer_setup``: native route, domain 2^17)
+    proved once, verified, a wrong public input rejected.  The launch
+    counts are taken over all of it."""
+    from gnark_tpu_torch.backend import groth16, serialize, solver
+    from gnark_tpu_torch.curves import ALL_CURVES
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import msm as M
+
+    seen = []
+    orig = watch_compute_h(groth16, seen)
+    _cuda.reset_launches()
+    for k in M.plain_on_cuda:
+        M.plain_on_cuda[k] = 0
+    try:
+        for inner, (outer, _, outer_proof) in RECURSION.items():
+            cs_in, pk_in, vk_c, cs = prepared[inner]
+            curve = ALL_CURVES[inner]
+            tag = f"[recursion {inner} in {outer}]"
+            before = dict(_cuda.launches)
+            timings = {}
+            t0 = time.perf_counter()
+            proof = groth16.prove(cs_in, pk_in, [35, 3],
+                                  rng=random.Random(10), timings=timings)
+            total = time.perf_counter() - t0
+            ran = {k: v - before[k] for k, v in _cuda.launches.items()
+                   if v > before[k]}
+            log(f"{tag} inner prove on the card {total:.2f} s: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+            log(f"{tag} launches in the inner prove: {ran}")
+            assert set(ran) == expected_launches(curve, pk_in.n_pad), ran
+            pblob = serialize.proof_to_bytes(proof, curve)
+            proof_c = serialize.proof_from_bytes(pblob, curve)
+            assert groth16.verify(proof_c, vk_c, [35])
+            assert not groth16.verify(proof_c, vk_c, [36])
+
+            w = recursion_witness(proof_c, 35)
+            t0 = time.perf_counter()
+            solver.solve(cs, w)
+            t_solve = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            assert not solver.is_solved(cs, [36] + w[1:]), \
+                f"{tag}: a wrong inner public input is accepted"
+            log(f"{tag} the {len(pblob)}-byte inner proof satisfies the "
+                f"verifier: solve {t_solve:.2f} s (native solver); inner "
+                f"public input 36 refused {time.perf_counter() - t0:.2f} s")
+            if not outer_proof:
+                continue
+            pk, vk, t_setup = outer_keys[inner]
+            log(f"{tag} outer setup {t_setup:.2f} s (beside phases 2-11), "
+                f"key points on the native core (domain {pk.domain_n}, "
+                f"n_pad {pk.n_pad})")
+            assert pk.device == device
+            assert pk.domain_n == 1 << 17, pk.domain_n
+            before = dict(_cuda.launches)
+            timings = {}
+            t0 = time.perf_counter()
+            oproof = groth16.prove(cs, pk, w, rng=random.Random(12),
+                                   timings=timings)
+            log(f"{tag} outer prove {time.perf_counter() - t0:.2f} s: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+            assert dict(_cuda.launches) == before, "native route launched"
+            t0 = time.perf_counter()
+            assert groth16.verify(oproof, vk, [35]), f"{tag}: no verify"
+            t_verify = time.perf_counter() - t0
+            assert not groth16.verify(oproof, vk, [36]), \
+                f"{tag}: the outer proof verifies a wrong public input"
+            log(f"{tag} outer verify ok {t_verify:.2f} s, wrong public input "
+                f"rejected")
+    finally:
+        groth16.compute_h = orig
+    assert len(seen) == 3 and all(seen), seen
+    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    launches = {k: v for k, v in _cuda.launches.items() if v}
+    log(f"[recursion] launches: {launches}; compute_h on CUDA tensors in "
+        f"each of the {len(seen)} proves")
     return launches
 
 
@@ -1553,8 +1908,17 @@ def main():
         f"python {sys.version.split()[0]}")
     log(f"[env] native solver library: {solver_lib()._name}")
     t0 = time.perf_counter()
-    _cuda.build_all()
+    # phase 12's host side needs no kernel: it runs while nvcc builds them,
+    # and its outer key's setup beside phases 2-11
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    build = pool.submit(_cuda.build_all)
+    prepared = prepare_recursion(device)
+    log(f"[phase] recursion, host side, during the nvcc builds "
+        f"{time.perf_counter() - t0:.1f} s")
+    build.result()
     log(f"[env] nvcc builds, side by side, {time.perf_counter() - t0:.1f} s")
+    outer_keys = pool.submit(recursion_outer_setup, device, prepared)
+    pool.shutdown(wait=False)
     for name, info in _cuda.build_info.items():
         log(f"[env] nvcc {name} {info['seconds']:.1f} s: {info['command']}")
     for lib in ("msm", "msm_g1_bls24315", "msm_g2_bls24315"):
@@ -1575,11 +1939,11 @@ def main():
     phase_msm(device)
     log(f"[phase] msm oracle {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    l_groth16 = phase_groth16(device, profile="--profile" in args,
-                              trace="--trace" in args)
+    l_groth16, groth16_served = phase_groth16(
+        device, profile="--profile" in args, trace="--trace" in args)
     log(f"[phase] groth16 {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    l_plonk = phase_plonk(device, trace="--trace" in args)
+    l_plonk, plonk_served = phase_plonk(device, trace="--trace" in args)
     log(f"[phase] plonk {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kern_rollup = phase_rollup_kernels(device, msm_rates)
@@ -1589,11 +1953,18 @@ def main():
     kern_bls24, kern_bls24_plonk = phase_bls24_kernels(device, msm_rates)
     log(f"[phase] BLS24-315 kernels vs plain {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    l_curves = phase_curves_groth16(device)
+    l_curves, curves_served = phase_curves_groth16(device)
     log(f"[phase] groth16 other curves {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     l_curves_plonk = phase_curves_plonk(device)
     log(f"[phase] plonk other curves {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    l_serial = phase_serialization(device, served_keys(
+        groth16_served, plonk_served, curves_served))
+    log(f"[phase] serialization {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    l_recursion = phase_recursion(device, prepared, outer_keys.result())
+    log(f"[phase] recursion {time.perf_counter() - t0:.1f} s")
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s")
 
     from gnark_tpu_torch.ops import msm as M
@@ -1609,10 +1980,12 @@ def main():
             "name": key, "route": "cuda",
             "source": "gnark_tpu_torch/csrc/msm_kernels.cu",
             "replaces": REPLACES[name],
-            "launches": l_groth16[key] + l_plonk[key] + l_rollup[key],
+            "launches": (l_groth16[key] + l_plonk[key] + l_rollup[key]
+                         + l_serial.get(key, 0)),
             "launches_groth16": l_groth16[key],
             "launches_plonk": l_plonk[key],
-            "launches_rollup": l_rollup[key], **r})
+            "launches_rollup": l_rollup[key],
+            "launches_serialization": l_serial.get(key, 0), **r})
         if key in kern_rollup:
             entries[-1]["at_rollup_plan"] = {
                 k: kern_rollup[key][k] for k in (
@@ -1623,9 +1996,12 @@ def main():
             "name": key, "route": "cuda",
             "source": f"gnark_tpu_torch/csrc/msm_{kind}.cu",
             "replaces": REPLACES[name],
-            "launches": l_curves.get(key, 0) + l_curves_plonk.get(key, 0),
+            "launches": (l_curves.get(key, 0) + l_curves_plonk.get(key, 0)
+                         + l_serial.get(key, 0) + l_recursion.get(key, 0)),
             "launches_groth16": l_curves.get(key, 0),
-            "launches_plonk": l_curves_plonk.get(key, 0), **r})
+            "launches_plonk": l_curves_plonk.get(key, 0),
+            "launches_serialization": l_serial.get(key, 0),
+            "launches_recursion": l_recursion.get(key, 0), **r})
         if key in kern_bls24_plonk:
             entries[-1]["at_plonk_plan"] = {
                 k: kern_bls24_plonk[key][k] for k in (

@@ -48,9 +48,11 @@ from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs, limbs_to_ints
 from gnark_tpu_torch.ops.msm import _next_pow2, msm
 from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm
 from gnark_tpu_torch.ops.towers import fp2_ops, fpk_ops
+from gnark_tpu_torch.utils import profiling
 
 __all__ = ["ProvingKey", "VerifyingKey", "Proof", "setup", "prove",
            "verify", "compute_h", "proving_key_from_jax", "pk_to_device",
+           "key_planes",
            "ints_to_limbs", "limbs_to_ints"]
 
 
@@ -331,21 +333,28 @@ def proving_key_from_jax(pk, device=None) -> ProvingKey:
         beta_g2=pk.beta_g2, delta_g2=pk.delta_g2, host=bool(pk.host),
         device=None if pk.host else torch.device(device),
         **{name: (list(getattr(pk, name)) if pk.host
-                  else _planes_from_numpy(getattr(pk, name), device,
-                                          native))
+                  else key_planes(getattr(pk, name), device, native))
            for name in _KEY_POINTS})
     return key if device is None else pk_to_device(key, device)
 
 
-def _planes_from_numpy(v, device, native):
-    """(x, y, inf) as numpy arrays -> the key's planes: numpy on the
-    native route, tensors on ``device`` otherwise."""
-    x, y, inf = (np.asarray(a) for a in v)
-    if native:
-        return x, y, inf.astype(bool)
-    return (torch.from_numpy(x.astype(np.int64)).to(device),
-            torch.from_numpy(y.astype(np.int64)).to(device),
-            torch.from_numpy(inf.astype(bool)).to(device))
+def key_planes(arrays, device, native=False) -> tuple:
+    """A key's arrays as numpy (16-bit Montgomery limb planes of any integer
+    type, bool masks: gnark_tpu's key or a key file's) -> this package's:
+    int64 tensors and bool masks on ``device``, one copy an array; on the
+    native route numpy as given (its MSMs read them on the host).  The one
+    array-to-key step of ``proving_key_from_jax``,
+    ``plonk.plonk_key_from_jax`` and ``key_io``'s readers."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        if native:
+            out.append(a)
+        elif a.dtype == bool:
+            out.append(torch.from_numpy(a).to(device))
+        else:
+            out.append(torch.from_numpy(a.astype(np.int64)).to(device))
+    return tuple(out)
 
 
 # ---- prove ----------------------------------------------------------------------
@@ -412,20 +421,25 @@ def _domain(spec, n, device):
 
 class _Phases:
     """Seconds per prover phase, synchronised with the device, into
-    ``timings`` when the caller passes a dict (a phase marked more than
-    once adds up)."""
+    ``timings`` when the caller passes a dict and into
+    ``profiling.last_profile`` as ``<scheme>.<phase>`` (gnark_tpu's
+    ``profiling.phase`` names), which then holds the last prove's phases
+    alone; a phase marked more than once in a prove adds up."""
 
-    def __init__(self, timings, device):
-        self.timings, self.device = timings, device
+    def __init__(self, timings, device, scheme="groth16"):
+        self.device, self.scheme = device, scheme
+        self.seconds = {} if timings is None else timings
+        for key in [k for k in profiling.last_profile
+                    if k.startswith(f"{scheme}.")]:
+            del profiling.last_profile[key]
         self.t = time.perf_counter()
 
     def mark(self, name):
-        if self.timings is None:
-            return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + now - self.t
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.t
+        profiling.last_profile[f"{self.scheme}.{name}"] = self.seconds[name]
         self.t = now
 
 

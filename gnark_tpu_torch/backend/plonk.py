@@ -33,7 +33,8 @@ import torch
 
 from gnark_tpu_torch.backend import kzg
 from gnark_tpu_torch.backend import scs_solver
-from gnark_tpu_torch.backend.groth16 import _Phases, _host_ntt, _sampler
+from gnark_tpu_torch.backend.groth16 import (
+    _Phases, _host_ntt, _sampler, key_planes)
 from gnark_tpu_torch.backend.native_field import nat_for
 from gnark_tpu_torch.backend.transcript import Transcript
 from gnark_tpu_torch.curves import ALL_CURVES
@@ -380,7 +381,7 @@ def plonk_key_from_jax(pk, device) -> PlonkPK:
         planes = P.layout
     else:
         def planes(v):
-            return torch.from_numpy(np.asarray(v).astype(np.int64)).to(device)
+            return key_planes([v], device)[0]
     v = pk.vk
     vk = PlonkVK(
         curve=curve, n=v.n, ell=v.ell, k1=v.k1, k2=v.k2,
@@ -445,7 +446,8 @@ def prove(cs, pk: PlonkPK, witness_values, rng=None, check: bool = True,
     host = pk.host_mode
     P = _HostPoly(curve.fr, n) if host else _Poly(curve.fr, n, pk.device)
     rnd = _sampler(rng)
-    ph = _Phases(timings, torch.device("cpu") if host else pk.device)
+    ph = _Phases(timings, torch.device("cpu") if host else pk.device,
+                 "plonk")
 
     nb_fp, nb_fr = _fp_bytes(curve), _fr_bytes(curve)
     sol = scs_solver.solve(cs, witness_values, check=check)

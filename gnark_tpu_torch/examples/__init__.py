@@ -1,3 +1,3 @@
 """Example circuits (reference examples/: cubic, exponentiate, mimc,
-plonk, rollup).  Each ``main`` proves on the card unless the caller names
+plonk, rollup, serialization).  Each ``main`` proves on the card unless the caller names
 another device."""

@@ -289,3 +289,91 @@ def test_mimc_hash_agrees():
             jax_mimc.mimc_hash(JBN254, *msgs)
     assert torch_mimc.round_constants("bn254", R_MOD) == \
         jax_mimc.round_constants("bn254", R_MOD)
+
+
+# ---- serialization and recursion host code --------------------------------
+
+
+@pytest.mark.parametrize("name", ["bn254", "bls12_381", "bls12_377",
+                                  "bls24_315", "bw6_761", "bw6_633"])
+def test_serialize_square_roots_and_orders_agree(name):
+    """serialize.py's square roots (fp by p mod 4 or Tonelli-Shanks, fp2
+    by the norm, fp4 by Tonelli-Shanks over HostFpK) and lexicographic
+    orders on seeded squares and non-squares of each curve's fields."""
+    import gnark_tpu.backend.serialize as jax_ser
+    import gnark_tpu.curves as jax_curves
+    import gnark_tpu_torch.backend.serialize as torch_ser
+    from gnark_tpu_torch.curves import ALL_CURVES
+
+    curve, jcurve = ALL_CURVES[name], jax_curves.ALL_CURVES[name]
+    p = curve.fp.modulus
+    rng = np.random.default_rng(SEED)
+
+    def rand():
+        return int.from_bytes(rng.bytes(curve.fp.modulus.bit_length() // 8
+                                        + 8), "little") % p
+
+    for _ in range(4):
+        a, b = rand(), rand()
+        for v in (a * a % p, a):
+            assert torch_ser._sqrt_fp(v, p) == jax_ser._sqrt_fp(v, p)
+        beta = curve.fp2_beta
+        if beta:
+            F2 = curve.host_g2.F
+            x = F2.mul((a, b), (a, b)) if curve.g2_tower_k == 2 else (a, b)
+            for v in (x, (a, b)):
+                assert torch_ser._sqrt_fp2(v, p, beta % p) == \
+                    jax_ser._sqrt_fp2(v, p, beta % p)
+            assert torch_ser._fp2_lex_larger((a, b), p) == \
+                jax_ser._fp2_lex_larger((a, b), p)
+    if curve.g2_tower_k == 4:
+        F4, J4 = curve.host_g2.F, jcurve.host_g2.F
+        x = tuple(rand() for _ in range(4))
+        for v in (F4.sqr(x), x):
+            assert torch_ser._sqrt_fpk(F4, v) == jax_ser._sqrt_fpk(J4, v)
+        for order in ((3, 1, 2, 0), (0, 1, 2, 3)):
+            assert torch_ser._fpk_lex_larger(x, p, order) == \
+                jax_ser._fpk_lex_larger(x, p, order)
+
+
+def test_recursion_tower_helpers_and_constants_agree():
+    """The flat-basis maps and Frobenius constants of fields_bls24315, the
+    Frobenius gammas of sw_bls12377, and both curves' GLV and NAF
+    constants."""
+    import gnark_tpu.std.algebra.fields_bls24315 as jax_f24
+    import gnark_tpu.std.algebra.sw_bls12377 as jax_sw12
+    import gnark_tpu.std.algebra.sw_bls24315 as jax_sw24
+    import gnark_tpu_torch.std.algebra.fields_bls24315 as torch_f24
+    import gnark_tpu_torch.std.algebra.sw_bls12377 as torch_sw12
+    import gnark_tpu_torch.std.algebra.sw_bls24315 as torch_sw24
+
+    flat = [int(v) for v in np.random.default_rng(SEED).integers(
+        1, 1 << 62, 24)]
+    assert torch_f24.flat_to_tower(flat) == jax_f24.flat_to_tower(flat)
+    assert torch_f24.tower_to_flat(torch_f24.flat_to_tower(flat)) == flat
+    assert torch_f24._TOWER_EXP == jax_f24._TOWER_EXP
+    for e in (1, 2, 4, 12):
+        assert torch_f24.frobenius_consts(e) == jax_f24.frobenius_consts(e)
+    for e in (1, 2):
+        assert torch_sw12.frobenius_gammas(e) == jax_sw12.frobenius_gammas(e)
+    for ours, theirs in ((torch_sw12, jax_sw12), (torch_sw24, jax_sw24)):
+        for f in ("X_PARAM", "FP", "FR", "GLV_LAMBDA", "GLV_BETA"):
+            assert getattr(ours, f) == getattr(theirs, f), f
+    assert torch_sw24.NAF == jax_sw24.NAF
+
+
+def test_cs_io_int_framing_agrees():
+    """cs_io's length-prefixed big-int tables, written and read by both."""
+    import io
+
+    import gnark_tpu.backend.cs_io as jax_cs_io
+    import gnark_tpu_torch.backend.cs_io as torch_cs_io
+
+    rng = np.random.default_rng(SEED)
+    vals = [0, 1, R_MOD - 1] + [int.from_bytes(rng.bytes(32), "little")
+                                for _ in range(5)]
+    out, jout = io.BytesIO(), io.BytesIO()
+    torch_cs_io._w_ints(out, vals)
+    jax_cs_io._w_ints(jout, vals)
+    assert out.getvalue() == jout.getvalue()
+    assert torch_cs_io._r_ints(io.BytesIO(jout.getvalue())) == vals

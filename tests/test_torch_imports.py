@@ -8,7 +8,9 @@ never falls back from a kernel.
     module of the port imports, and a circuit compiles, proves and
     verifies under Groth16 and under PLONK on the CPU; the gadget library,
     the engine and harness, the scheme dispatch and the examples import
-    by name, and the rollup compiles and solves;
+    by name, and the rollup compiles and solves; so do the serialization
+    and recursion modules, a key through a file and the serialization
+    example;
   * ``chip_smoke.py`` alone in a directory exits nonzero;
   * no source line of the port imports jax or gnark_tpu;
   * the kernel path given a non-CUDA tensor, or with no CUDA present,
@@ -161,6 +163,58 @@ def test_gadgets_harness_and_examples_run_with_jax_and_gnark_tpu_refused():
     res = _run(GADGETS_AND_EXAMPLES, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["ok", "38790"]
+
+
+SERIALIZATION_AND_RECURSION = REFUSE_BOTH + """
+import importlib, io, random
+mods = ["gnark_tpu_torch.utils.profiling",
+        "gnark_tpu_torch.backend.serialize", "gnark_tpu_torch.backend.key_io",
+        "gnark_tpu_torch.backend.cs_io", "gnark_tpu_torch.backend.solidity",
+        "gnark_tpu_torch.examples.serialization_main",
+        "gnark_tpu_torch.std.algebra",
+        "gnark_tpu_torch.std.algebra.fields_bls12377",
+        "gnark_tpu_torch.std.algebra.sw_bls12377",
+        "gnark_tpu_torch.std.algebra.fields_bls24315",
+        "gnark_tpu_torch.std.algebra.sw_bls24315",
+        "gnark_tpu_torch.std.groth16_bls12377",
+        "gnark_tpu_torch.std.groth16_bls24315"]
+for name in mods:
+    importlib.import_module(name)
+
+from gnark_tpu_torch import std
+from gnark_tpu_torch.backend import cs_io, groth16, key_io, solver
+from gnark_tpu_torch.curves import BLS12_381
+from gnark_tpu_torch.examples import serialization_main
+from gnark_tpu_torch.examples.cubic import CubicCircuit
+from gnark_tpu_torch.frontend import compile_circuit
+
+assert len(std.register_hints()) >= 9
+cs = cs_io.cs_from_bytes(cs_io.cs_to_bytes(
+    compile_circuit(CubicCircuit(), BLS12_381)))
+pk, vk = groth16.setup(cs, BLS12_381, rng=random.Random(1), device="cpu")
+buf = io.BytesIO()
+key_io.groth16_pk_write(pk, buf)
+buf.seek(0)
+pk2 = key_io.groth16_pk_read(buf, safe=True, device="cpu")
+proof = groth16.prove(cs, pk2, [35, 3], rng=random.Random(2))
+assert groth16.verify(proof, vk, [35]) and not groth16.verify(proof, vk, [36])
+serialization_main.main(device="cpu")
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "gnark_tpu")]
+assert not bad, bad
+print("ok", len(mods))
+"""
+
+
+def test_serialization_and_recursion_modules_run_with_jax_and_gnark_tpu_refused():
+    """The thirteen modules of the serialization and recursion slice import
+    by name with ``jax`` and ``gnark_tpu`` refused; a native-route key goes
+    through a file and proves, a system through cs_io, and the
+    serialization example runs on the CPU."""
+    res = _run(SERIALIZATION_AND_RECURSION, timeout=300,
+               OMP_NUM_THREADS="1")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-2:] == ["ok", "13"]
 
 
 def test_refusing_finder_refuses():

@@ -14,9 +14,9 @@ frontend and its gadget modules) and compiled by both:
     Edwards parameters of every curve, the Bandersnatch GLV constants and
     decompositions, the ternary and NAF hints are equal;
   * the gadget hints carry gnark_tpu's uuids, and the port's
-    ``register_hints`` lacks exactly the two hints of ``std/algebra``
-    (BLS12-377 and BLS24-315 scalar decompositions: those gadgets are not
-    ported yet).
+    ``register_hints`` registers the same library hints as gnark_tpu's,
+    the two of ``std/algebra`` (BLS12-377 and BLS24-315 scalar
+    decompositions) among them.
 
 Inputs come from a numpy seed.  Tolerance: none; field elements and
 points compare exactly as Python ints.
@@ -407,15 +407,16 @@ def test_gadget_hint_uuids_agree(hint):
 
 def test_register_hints_lacks_only_the_algebra_hints():
     """gnark_tpu registers two scalar decompositions of ``std/algebra``
-    (the BLS12-377 and BLS24-315 recursion gadgets), which the port does
-    not have yet; every other library hint is in both registries."""
+    (the BLS12-377 and BLS24-315 recursion gadgets); the port has them
+    too now, so it lacks none: every library hint is in both registries,
+    those two among them."""
     def library(P, registered):
         return {P.hints.name_of(u) for u in registered
                 if P.hints.name_of(u).startswith(("gnark_tpu.std.",
                                                   "gnark_tpu.backend."))}
     want = library(JAX, jax_std.register_hints())
     got = library(PORT, torch_std.register_hints())
-    assert got <= want
-    assert want - got == {
-        "gnark_tpu.std.algebra.sw_bls12377.decompose_scalar_bls12377",
-        "gnark_tpu.std.algebra.sw_bls24315.decompose_scalar_bls24315"}
+    assert got == want
+    assert {"gnark_tpu.std.algebra.sw_bls12377.decompose_scalar_bls12377",
+            "gnark_tpu.std.algebra.sw_bls24315.decompose_scalar_bls24315"
+            } <= got
