@@ -92,13 +92,27 @@ main paths once, at the sizes the repo has always measured:
      2^17) proves once, verifies and rejects a wrong input.  The inner
      keys' setup and the verifiers' compiles run while nvcc builds the
      kernels, the outer key's setup beside phases 2-11: none needs a
-     kernel.
+     kernel;
+ 13. the mesh prover (parallel/): phase 5's 2^16 MiMC key and system go
+     through key_io and cs_io to two ranks spawned on the one card
+     (gloo: two NCCL ranks on one device are refused, so the collectives
+     stage through host memory, and no scaling figure can come of it).
+     Each rank loads the built libraries, checks the sharded MSM (G1, G2;
+     2^16 points, the windowed plan on 2^15 a rank, and 4,096, the
+     ladder, reduction and fold on 2,048) against the oracle of phase 4
+     and the unsharded msm, the four-step transforms and quotient at 2^16
+     against the unsharded Domain and compute_h, times one all-to-all,
+     then proves the chain on the mesh, cold and warm, with rng 7: each
+     rank's proof is phase 5's bytes, verified and a wrong public input
+     rejected.  A rank that fails, or has not joined within
+     SHARDED_JOIN_S, fails the run.
 
-The launch counts are set to zero just before each of the eight paths (2,
-5, 6, 7, 9, 10, 11 and 12) and read just after: every kernel of a path
-must have launched in it (each request of 9-12 exactly the kernels its
-route names, none on the native route), and no plain version may run on
-the card there.
+The launch counts are set to zero just before each of the nine paths (2,
+5, 6, 7, 9, 10, 11, 12 and 13; in 13 in each rank, the unsharded
+comparisons left out) and read just after: every kernel of a path must
+have launched in it (each request of 9-12 exactly the kernels its route
+names, none on the native route), and no plain version may run on the
+card there.
 
 ``--profile`` adds a cProfile of one more warm 2^16 Groth16 prove (host
 time by function).  ``--trace`` takes one more warm 2^16 Groth16 prove and
@@ -1814,6 +1828,249 @@ def phase_recursion(device, prepared, outer_keys):
     return launches
 
 
+# phase 13: the mesh prover on two gloo ranks that share the card
+SHARDED_RANKS = 2
+SHARDED_SIZES = (N_MSM, N_LADDER)   # 2^15 a rank (windowed), 2,048 (ladder)
+SHARDED_GROUP_S = 240               # a collective waits at most this long
+SHARDED_JOIN_S = 420                # and the ranks together at most this
+
+
+def sharded_rank(rank, world, port, tmp, values, cfg):
+    """One rank of phase 13 (spawned; every rank on the one card, or on
+    the CPU in a rehearsal).  ``cfg``: the device, the MSM sizes and the
+    transforms' size.  Writes its result, or its traceback, to
+    ``tmp``/rank<r>.json."""
+    import traceback
+    result = {}
+    try:
+        result = sharded_rank_run(rank, world, port, tmp, values, cfg)
+        result["ok"] = True
+    except BaseException:
+        result = {"ok": False, "error": traceback.format_exc()}
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    if not result["ok"]:
+        os._exit(1)
+
+
+def sharded_rank_run(rank, world, port, tmp, values, cfg):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from gnark_tpu_torch.backend import cs_io, groth16, key_io, serialize
+    from gnark_tpu_torch.curves import BN254
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import msm as M
+    from gnark_tpu_torch.ops.ec import points_to_host
+    from gnark_tpu_torch.ops.limbs import field_ops
+    from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm
+    from gnark_tpu_torch.parallel import multihost
+    from gnark_tpu_torch.parallel.sharded_msm import ShardedMSM
+    from gnark_tpu_torch.parallel.sharded_ntt import ShardedDomain
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    device = torch.device(cfg["device"])
+    multihost.init_distributed(
+        backend="gloo", timeout=datetime.timedelta(seconds=SHARDED_GROUP_S))
+    mesh = multihost.init_mesh(ntt_axis="shard", backend="gloo")
+    assert mesh.get_group("shard").size() == world
+    if device.type == "cuda":
+        for kind in BN254_KINDS:
+            _cuda.load(kind)
+        assert _cuda.build_info["msm"]["command"] == "(cached)", \
+            "a rank rebuilt the kernels"
+    out = {"rank": rank, "msm": {}, "ntt": {}, "prove": {}}
+    _cuda.reset_launches()
+    for k in M.plain_on_cuda:
+        M.plain_on_cuda[k] = 0
+    unsharded = dict.fromkeys(_cuda.launches, 0)
+
+    def single(fn):
+        """A single-process comparison: its launches are not the path's."""
+        before = dict(_cuda.launches)
+        res = fn()
+        sync()
+        for k, v in _cuda.launches.items():
+            unsharded[k] += v - before[k]
+        return res
+
+    # 1. the sharded MSM against the host oracle and the unsharded msm
+    rng = np.random.default_rng(SEED + 13)
+    for kind, (G, host, gen) in groups().items():
+        for n in cfg["sizes"]:
+            xs, ys, inf, sc, want = oracle_inputs(G, host, gen, device, rng,
+                                                  n)
+            plan = ShardedMSM(G, mesh, "shard", n, sc.shape[0])
+            plan(xs, ys, inf, sc)                   # warm-up
+            got, ms = wall_ms(lambda: plan(xs, ys, inf, sc))
+            ref = single(lambda: M.msm(G, xs, ys, inf, sc))
+            assert points_to_host(G, got)[0] == points_to_host(G, ref)[0] \
+                == want, f"sharded MSM {kind} n={n} != oracle"
+            out["msm"][f"{kind} {n}"] = ms
+
+    # 2. the four-step transforms against the unsharded Domain
+    spec, n = BN254.fr, cfg["ntt_n"]
+    F = field_ops(spec)
+    t0 = time.perf_counter()
+    sd = ShardedDomain(spec, n, mesh, "shard", device)
+    out["ntt"]["tables_s"] = time.perf_counter() - t0
+    dom = Domain(spec, n, device)
+    vals = np.random.default_rng(SEED + 14).integers(1, 1 << 62, (4, n))
+    x, a, b, c = (F.pack([int(v) for v in row], device) for row in vals)
+    brev = torch.from_numpy(bit_reverse_perm(n).astype(np.int64)).to(device)
+    evals = dom.fft(x, "DIF")[:, brev]
+    checks = {
+        "fft": (lambda: sd.deinterleave(sd.gather(sd.fft(sd.block(x)))
+                                        .cpu().numpy()), evals),
+        "ifft": (lambda: sd.deinterleave(sd.gather(sd.ifft(sd.block(
+            evals))).cpu().numpy()), x),
+        "fft_from_strided": (lambda: sd.gather(sd.fft_from_strided(
+            sd.ifft(sd.block(evals)))), evals),
+        "compute_h": (lambda: sd.gather(sd.compute_h(
+            sd.block(a), sd.block(b), sd.block(c)))[:, torch.from_numpy(
+                sd.strided_to_brev_perm().astype(np.int64)).to(device)],
+            groth16.compute_h(dom, a, b, c)),
+    }
+    for name, (fn, want) in checks.items():
+        got, ms = wall_ms(fn)
+        got = torch.as_tensor(got).to(device)
+        assert torch.equal(got, want), f"sharded {name} != Domain"
+        out["ntt"][name] = ms
+    # the gloo staging alone: one all-to-all of this rank's block
+    blk = sd.block(x).reshape(spec.L, world, -1)
+    out["ntt"]["all_to_all"] = min(wall_ms(lambda: sd._transpose(blk))[1]
+                                   for _ in range(5))
+
+    # 3. the mesh prove of the 2^16 MiMC chain from phase 5's key
+    t0 = time.perf_counter()
+    pk = key_io.groth16_pk_read(os.path.join(tmp, "pk.npz"), device=device)
+    with open(os.path.join(tmp, "cs.bin"), "rb") as f:
+        cs = cs_io.cs_from_bytes(f.read())
+    out["load_s"] = time.perf_counter() - t0
+    for label in ("cold", "warm"):
+        timings = {}
+        before = dict(_cuda.launches)
+        t0 = time.perf_counter()
+        proof = groth16.prove(cs, pk, values, rng=random.Random(7),
+                              timings=timings, mesh=mesh, mesh_axis="shard")
+        out["prove"][label] = dict(total=time.perf_counter() - t0, **timings)
+        out["prove"][label]["launches"] = {
+            k: v - before[k] for k, v in _cuda.launches.items()
+            if v > before[k]}
+    out["proof"] = serialize.proof_to_bytes(proof, BN254).hex()
+    dist.barrier()
+    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "gnark_tpu")]
+    assert not bad, f"loaded: {bad}"
+    out["launches"] = {k: v - unsharded[k] for k, v in _cuda.launches.items()
+                       if v > unsharded[k]}
+    dist.destroy_process_group()
+    return out
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(device, served):
+    """The mesh prover, the main path of phase 13: the 2^16 MiMC key and
+    system that phase 5 served go through key_io and cs_io into a
+    temporary directory; two ranks spawned on this card (gloo, the
+    collectives staged through host memory: two NCCL ranks on one device
+    are refused) each check the sharded MSM (G1, G2 at 2^16 and 4,096
+    points) against the oracle and the unsharded msm, the four-step
+    transforms and quotient at 2^16 against the unsharded Domain and
+    compute_h, then prove the chain on the mesh, cold and warm, with rng
+    7: phase 5's proof bytes, verified here and a wrong public input
+    rejected.  Returns the launches summed over the ranks, the unsharded
+    comparisons left out."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from gnark_tpu_torch.backend import cs_io, groth16, key_io, serialize
+    from gnark_tpu_torch.curves import BN254
+    from gnark_tpu_torch.ops import _cuda
+
+    cs, pk, vk, pre, digest, proof = served["mimc178"]
+    want = serialize.proof_to_bytes(proof, BN254)
+    with tempfile.TemporaryDirectory() as tmp:
+        key_io.groth16_pk_write(pk, os.path.join(tmp, "pk.npz"))
+        with open(os.path.join(tmp, "cs.bin"), "wb") as f:
+            f.write(cs_io.cs_to_bytes(cs))
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        t0 = time.perf_counter()
+        cfg = dict(device=str(device), sizes=SHARDED_SIZES, ntt_n=N_MSM)
+        procs = [ctx.Process(target=sharded_rank, args=(
+            r, SHARDED_RANKS, port, tmp, [digest, pre], cfg))
+            for r in range(SHARDED_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(0.0, t0 + SHARDED_JOIN_S - time.perf_counter()))
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        t_ranks = time.perf_counter() - t0
+        results = []
+        for r, p in enumerate(procs):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if not os.path.exists(path):
+                results.append({"ok": False, "error": f"exit {p.exitcode}"})
+                continue
+            with open(path) as f:
+                results.append(json.load(f))
+    assert not late, f"ranks {late} did not join within {SHARDED_JOIN_S} s"
+    errors = [f"rank {r}: {res['error']}" for r, res in enumerate(results)
+              if not res["ok"]]
+    assert not errors, "\n".join(errors)
+    log(f"[sharded] {SHARDED_RANKS} gloo ranks on one card: spawned, ran "
+        f"and joined in {t_ranks:.2f} s")
+    for res in results:
+        tag = f"[sharded rank {res['rank']}]"
+        log(f"{tag} sharded MSM (ms) = oracle = unsharded msm: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in res["msm"].items()))
+        log(f"{tag} four-step NTT at n = {N_MSM} = unsharded Domain (ms): " +
+            ", ".join(f"{k} {v:.1f}" for k, v in res["ntt"].items()
+                      if k not in ("tables_s", "all_to_all")) +
+            f"; tables {res['ntt']['tables_s']:.2f} s; one all-to-all of "
+            f"the rank's block through gloo {res['ntt']['all_to_all']:.2f}"
+            f" ms")
+        log(f"{tag} key and system read in {res['load_s']:.2f} s")
+        for label, t in res["prove"].items():
+            ran = t.pop("launches")
+            total = t.pop("total")
+            log(f"{tag} mesh prove {label} {total:.2f} s: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in t.items()))
+            log(f"{tag} launches in the {label} mesh prove: {ran}")
+        assert bytes.fromhex(res["proof"]) == want, \
+            f"{tag}: the mesh proof is not phase 5's proof"
+    mesh_proof = serialize.proof_from_bytes(want, BN254)
+    assert groth16.verify(mesh_proof, vk, [digest])
+    assert not groth16.verify(mesh_proof, vk, [digest + 1])
+    launches = {}
+    for res in results:
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    need = {f"{k}_{kind}" for k in _cuda.KERNELS for kind in BN254_KINDS}
+    assert need <= set(launches), (need, launches)
+    log(f"[sharded] each rank's proof is phase 5's {len(want)} bytes; it "
+        f"verifies, a wrong public input is rejected; launches in the "
+        f"ranks: {launches}")
+    return launches
+
+
 ADD_TYPE = re.compile(r"^(IADD3|IADD|IMAD\.X|IMAD\.IADD|IADD32I|LEA)")
 MUL_TYPE = re.compile(r"^IMAD(\.WIDE|\.HI|\.U32|$)")
 
@@ -1965,6 +2222,9 @@ def main():
     t0 = time.perf_counter()
     l_recursion = phase_recursion(device, prepared, outer_keys.result())
     log(f"[phase] recursion {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    l_sharded = phase_sharded(device, groth16_served)
+    log(f"[phase] sharded {time.perf_counter() - t0:.1f} s")
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s")
 
     from gnark_tpu_torch.ops import msm as M
@@ -1981,11 +2241,12 @@ def main():
             "source": "gnark_tpu_torch/csrc/msm_kernels.cu",
             "replaces": REPLACES[name],
             "launches": (l_groth16[key] + l_plonk[key] + l_rollup[key]
-                         + l_serial.get(key, 0)),
+                         + l_serial.get(key, 0) + l_sharded.get(key, 0)),
             "launches_groth16": l_groth16[key],
             "launches_plonk": l_plonk[key],
             "launches_rollup": l_rollup[key],
-            "launches_serialization": l_serial.get(key, 0), **r})
+            "launches_serialization": l_serial.get(key, 0),
+            "launches_sharded": l_sharded.get(key, 0), **r})
         if key in kern_rollup:
             entries[-1]["at_rollup_plan"] = {
                 k: kern_rollup[key][k] for k in (

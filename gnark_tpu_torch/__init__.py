@@ -8,9 +8,12 @@ reference: every module here mirrors its counterpart's layout
 feed both the same inputs.
 
 The package stands alone: the host modules (frontend, solvers, curves and
-pairings, fields, ``std``, the native C core) are its own copies under the
-same relative paths.  It imports ``torch`` and never ``jax`` or
-``gnark_tpu``.
+pairings, fields, ``std``, the native C core, the witness fuzzer ``fuzz``
+and the constraint-count snippets ``stats``) are its own copies under the
+same relative paths.  ``parallel/`` is the mesh prover on
+torch.distributed: ``multihost`` (the process group and the DeviceMesh),
+``sharded_msm`` and ``sharded_ntt``, which ``backend.groth16.prove(mesh=)``
+runs.  It imports ``torch`` and never ``jax`` or ``gnark_tpu``.
 """
 
 __version__ = "0.2.0"

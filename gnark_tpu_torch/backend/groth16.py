@@ -12,7 +12,9 @@ gnark_tpu/backend/groth16.py), over the six curves of ``curves``.
     kernels run on a CUDA device); for ``fp.L >= 24`` all five on the
     native core's Pippenger; then the host assembly with the blinding
     terms r and s, drawn in the same order as gnark_tpu's.  A host key
-    proves on host ints and the native core (``_prove_host``);
+    proves on host ints and the native core (``_prove_host``).  With
+    ``mesh=``, the quotient and the MSMs are split over a mesh axis
+    (parallel/);
   * verify: the host pairing check.
 
 G2 lives over fp2 (BN254, BLS12-381, BLS12-377), over fp4 (BLS24-315)
@@ -419,6 +421,17 @@ def _domain(spec, n, device):
     return _domains[key]
 
 
+_sharded_domains = {}
+
+
+def _sharded_domain_cache(spec, n, mesh, axis, device):
+    from gnark_tpu_torch.parallel.sharded_ntt import ShardedDomain
+    key = (spec.name, n, id(mesh), axis, str(device))
+    if key not in _sharded_domains:
+        _sharded_domains[key] = ShardedDomain(spec, n, mesh, axis, device)
+    return _sharded_domains[key]
+
+
 class _Phases:
     """Seconds per prover phase, synchronised with the device, into
     ``timings`` when the caller passes a dict and into
@@ -444,10 +457,18 @@ class _Phases:
 
 
 def prove(cs, pk: ProvingKey, witness_values, rng=None, check: bool = True,
-          timings: dict | None = None) -> Proof:
+          timings: dict | None = None, mesh=None,
+          mesh_axis: str = "shard") -> Proof:
     """witness_values: [public (no one-wire) | secret] ints.  Runs on the
     key's device (a host key on host ints and the native core);
-    ``timings`` (a dict) receives per-phase seconds."""
+    ``timings`` (a dict) receives per-phase seconds.
+
+    mesh: a DeviceMesh (parallel/multihost.py's ``init_mesh``), every rank
+    calling with the same arguments: the quotient runs the four-step NTT
+    over ``mesh_axis`` when n % A == 0 and (n / A) % A == 0 (A its ranks),
+    and the five MSMs split their points over it (parallel/sharded_msm;
+    the NbTasks analog), except on the native route, whose MSMs stay on
+    the native core.  Every rank returns the same proof."""
     curve = pk.curve
     q = curve.fr.modulus
     rnd = _sampler(rng)
@@ -473,7 +494,19 @@ def prove(cs, pk: ProvingKey, witness_values, rng=None, check: bool = True,
     am = K.fr.to_mont(limb_planes("a", 0, n))
     bm = K.fr.to_mont(limb_planes("b", 0, n))
     cm = K.fr.to_mont(limb_planes("c", 0, n))
-    h = K.fr.from_mont(compute_h(_domain(curve.fr, n, device), am, bm, cm))
+    n_dev = 0 if mesh is None else mesh.get_group(mesh_axis).size()
+    if mesh is not None and n % n_dev == 0 and (n // n_dev) % n_dev == 0:
+        # the four-step NTT chain: both all_to_all stages of every
+        # transform cross the mesh axis; the strided output is gathered
+        # and permuted to the bit-reversed order the Z key points use
+        sd = _sharded_domain_cache(curve.fr, n, mesh, mesh_axis, device)
+        h_strided = sd.gather(sd.compute_h(sd.block(am), sd.block(bm),
+                                           sd.block(cm)))
+        perm = torch.from_numpy(sd.strided_to_brev_perm().astype(np.int64))
+        h = K.fr.from_mont(h_strided[:, perm.to(device)])
+    else:
+        h = K.fr.from_mont(compute_h(_domain(curve.fr, n, device), am, bm,
+                                     cm))
     h = torch.cat([h, h.new_zeros(Ls, n_pad - n)], 1)
     ph.mark("compute_h")
 
@@ -482,10 +515,17 @@ def prove(cs, pk: ProvingKey, witness_values, rng=None, check: bool = True,
     r, s = rnd(q), rnd(q)
     native = native_route(curve)
 
+    if mesh is not None and not native:
+        from gnark_tpu_torch.parallel.sharded_msm import ShardedMSM
+        plans = {G: ShardedMSM(G, mesh, mesh_axis, n_pad, Ls)
+                 for G in (K.g1, K.g2)}
+
     def run(name, G, scalars):
         """One MSM: a Jacobian point on the device, or the native core's
         host affine point (None = infinity) over the key's numpy planes."""
         if not native:
+            if mesh is not None:
+                return plans[G](*getattr(pk, name), scalars)
             return msm(G, *getattr(pk, name), scalars)
         x, y, inf = getattr(pk, name)
         sc = scalars.cpu().numpy()

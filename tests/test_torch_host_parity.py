@@ -9,7 +9,8 @@ as a function of the frontend and compiled by both:
   * equal witnesses from both solvers (scalar walk, numpy sweep, native
     core), and both reject the invalid assignment;
   * ``pairing_for`` agrees on seeded points, ``native_msm`` on seeded
-    scalars, ``mimc_hash`` on seeded inputs.
+    scalars, ``mimc_hash`` on seeded inputs;
+  * ``fuzz.corpus_values`` and the ``stats`` snippet names agree.
 
 Inputs come from a numpy seed.  Tolerance: none; everything compares
 exactly.
@@ -377,3 +378,16 @@ def test_cs_io_int_framing_agrees():
     jax_cs_io._w_ints(jout, vals)
     assert out.getvalue() == jout.getvalue()
     assert torch_cs_io._r_ints(io.BytesIO(jout.getvalue())) == vals
+
+
+def test_fuzz_corpus_values_agree():
+    from gnark_tpu import fuzz as jax_fuzz
+    from gnark_tpu_torch import fuzz
+    for q in (R_MOD, BN254.fp.modulus):
+        assert fuzz.corpus_values(q) == jax_fuzz.corpus_values(q)
+
+
+def test_stats_snippet_names_agree():
+    from gnark_tpu import stats as jax_stats
+    from gnark_tpu_torch import stats
+    assert sorted(stats._snippets) == sorted(jax_stats._snippets)

@@ -10,13 +10,14 @@ never falls back from a kernel.
     the engine and harness, the scheme dispatch and the examples import
     by name, and the rollup compiles and solves; so do the serialization
     and recursion modules, a key through a file and the serialization
-    example;
+    example; so do the mesh, fuzz and stats modules;
   * ``chip_smoke.py`` alone in a directory exits nonzero;
   * no source line of the port imports jax or gnark_tpu;
   * the kernel path given a non-CUDA tensor, or with no CUDA present,
     raises instead of running the plain version.
 """
 
+import json
 import os
 import re
 import shutil
@@ -215,6 +216,40 @@ def test_serialization_and_recursion_modules_run_with_jax_and_gnark_tpu_refused(
                OMP_NUM_THREADS="1")
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-2:] == ["ok", "13"]
+
+
+MESH_FUZZ_STATS = REFUSE_BOTH + """
+import importlib, json
+mods = ["gnark_tpu_torch.fuzz", "gnark_tpu_torch.stats",
+        "gnark_tpu_torch.parallel", "gnark_tpu_torch.parallel.multihost",
+        "gnark_tpu_torch.parallel.sharded_msm",
+        "gnark_tpu_torch.parallel.sharded_ntt"]
+for name in mods:
+    importlib.import_module(name)
+
+from gnark_tpu_torch import fuzz, stats
+from gnark_tpu_torch.curves import BN254
+from gnark_tpu_torch.examples.cubic import CubicCircuit
+
+assert sum(fuzz.fuzz(CubicCircuit, BN254, iterations=4, seed=1)) == 4
+counts = stats.snippet_stats(BN254, "groth16")
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "gnark_tpu")]
+assert not bad, bad
+print("ok", len(mods), json.dumps(counts))
+"""
+
+
+def test_mesh_fuzz_and_stats_modules_run_with_jax_and_gnark_tpu_refused():
+    """The six modules of the mesh, fuzz and stats slice import by name
+    with ``jax`` and ``gnark_tpu`` refused; the fuzzer and the snippet
+    counts run."""
+    res = _run(MESH_FUZZ_STATS, timeout=300, OMP_NUM_THREADS="1")
+    assert res.returncode == 0, res.stderr
+    ok, n, counts = res.stdout.strip().splitlines()[-1].split(" ", 2)
+    assert (ok, n) == ("ok", "6")
+    with open(os.path.join(REPO, "tests", "stats_golden.json")) as f:
+        assert json.loads(counts) == json.load(f)["bn254/groth16"]
 
 
 def test_refusing_finder_refuses():

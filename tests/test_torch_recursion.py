@@ -17,22 +17,24 @@ The verifier systems are built once for the module.  Tolerance: none;
 field elements, points and bytes compare exactly.
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
-import gnark_tpu.std as jax_std
 import gnark_tpu.std.algebra.fields_bls12377 as jax_f
 import gnark_tpu.std.algebra.sw_bls12377 as jax_sw
-import gnark_tpu_torch.std as torch_std
 import gnark_tpu_torch.std.algebra.fields_bls12377 as torch_f
 import gnark_tpu_torch.std.algebra.sw_bls12377 as torch_sw
-from gnark_tpu.backend import hints as jax_hints
-from gnark_tpu_torch.backend import hints as torch_hints
 from gnark_tpu_torch.curves import BLS12_377
 from gnark_tpu_torch.std.groth16_bls12377 import _gt_to_tower
 from torch_recursion_cases import (
     JAX, PORT, assignment, verifier_systems, witness)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FP, FR = BLS12_377.fp.modulus, BLS12_377.fr.modulus
 SEED = 31
 
@@ -121,10 +123,36 @@ def test_port_engine_accepts_35_and_refuses_36(systems):
                               PORT.curves.BW6_761)
 
 
+# Both registries are whole-process state (``hints.all_registered()``): a
+# test file that compiled a hint earlier on the same worker leaves it in
+# one package's registry alone.  So both sets are taken in one fresh
+# interpreter, where only the two libraries have registered theirs.
+REGISTRIES = """
+import json
+import gnark_tpu.std as jax_std
+import gnark_tpu.std.algebra.sw_bls12377 as jax_sw
+import gnark_tpu_torch.std as torch_std
+import gnark_tpu_torch.std.algebra.sw_bls12377 as torch_sw
+from gnark_tpu.backend import hints as jax_hints
+from gnark_tpu_torch.backend import hints as torch_hints
+
+got, want = torch_std.register_hints(), jax_std.register_hints()
+print(json.dumps({
+    "got": sorted(got), "want": sorted(want),
+    "names": [[torch_hints.name_of(u), jax_hints.name_of(u)] for u in want],
+    "glv": [torch_hints.uuid_of(torch_sw.decompose_scalar_bls12377),
+            jax_hints.uuid_of(jax_sw.decompose_scalar_bls12377)]}))
+"""
+
+
 def test_register_hints_uuid_sets_equal():
-    got, want = torch_std.register_hints(), jax_std.register_hints()
-    assert set(got) == set(want)
-    for uid in want:
-        assert torch_hints.name_of(uid) == jax_hints.name_of(uid)
-    assert torch_hints.uuid_of(torch_sw.decompose_scalar_bls12377) == \
-        jax_hints.uuid_of(jax_sw.decompose_scalar_bls12377)
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", REGISTRIES], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(out["got"]) == set(out["want"])
+    for torch_name, jax_name in out["names"]:
+        assert torch_name == jax_name
+    assert out["glv"][0] == out["glv"][1]
