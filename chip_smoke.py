@@ -108,11 +108,15 @@ main paths once, at the sizes the repo has always measured:
      SHARDED_JOIN_S, fails the run.
 
 The launch counts are set to zero just before each of the nine paths (2,
-5, 6, 7, 9, 10, 11, 12 and 13; in 13 in each rank, the unsharded
-comparisons left out) and read just after: every kernel of a path must
-have launched in it (each request of 9-12 exactly the kernels its route
-names, none on the native route), and no plain version may run on the
-card there.
+5, 6, 7, 9, 10, 11, 12 and 13; in 13 in each rank, before each mesh
+prove and again before each ShardedMSM check, the unsharded comparisons
+left out) and read just after: every kernel of a path must have launched
+in it (each request of 9-12 and each mesh prove of 13 exactly the kernels
+its route names, none on the native route), and no plain version may run
+on the card there.  The kernels line's ``launches`` counts the paths'
+requests and proves; ``launches_sharded`` is phase 13's, split into its
+mesh proves' (``launches_sharded_prove``) and its ShardedMSM checks'
+(``launches_sharded_msm``, the only ladder shards of the phase).
 
 ``--profile`` adds a cProfile of one more warm 2^16 Groth16 prove (host
 time by function).  ``--trace`` takes one more warm 2^16 Groth16 prove and
@@ -1833,27 +1837,20 @@ SHARDED_RANKS = 2
 SHARDED_SIZES = (N_MSM, N_LADDER)   # 2^15 a rank (windowed), 2,048 (ladder)
 SHARDED_GROUP_S = 240               # a collective waits at most this long
 SHARDED_JOIN_S = 420                # and the ranks together at most this
+# a rank's launches in one mesh prove of the chain: each of the five MSMs
+# (four G1, one G2) runs the windowed plan on the rank's 2^15 points, and
+# reduce folds the ranks' partials
+SHARDED_PROVE_ROUTE = {
+    f"{k}_{kind}": 4 if kind == "g1" else 1
+    for k in ("leaf_prefix", "lane_offsets", "weighted_sum", "horner_fold",
+              "reduce")
+    for kind in BN254_KINDS}
 
 
-def sharded_rank(rank, world, port, tmp, values, cfg):
-    """One rank of phase 13 (spawned; every rank on the one card, or on
-    the CPU in a rehearsal).  ``cfg``: the device, the MSM sizes and the
-    transforms' size.  Writes its result, or its traceback, to
-    ``tmp``/rank<r>.json."""
-    import traceback
-    result = {}
-    try:
-        result = sharded_rank_run(rank, world, port, tmp, values, cfg)
-        result["ok"] = True
-    except BaseException:
-        result = {"ok": False, "error": traceback.format_exc()}
-    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
-        json.dump(result, f)
-    if not result["ok"]:
-        os._exit(1)
-
-
-def sharded_rank_run(rank, world, port, tmp, values, cfg):
+def sharded_rank(tmp, values, cfg):
+    """One rank of phase 13 (spawned by parallel.ranks; every rank on the
+    one card, or on the CPU in a rehearsal).  ``cfg``: the device, the MSM
+    sizes and the transforms' size."""
     import datetime
 
     import torch
@@ -1870,10 +1867,8 @@ def sharded_rank_run(rank, world, port, tmp, values, cfg):
     from gnark_tpu_torch.parallel.sharded_msm import ShardedMSM
     from gnark_tpu_torch.parallel.sharded_ntt import ShardedDomain
 
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                      RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank))
     device = torch.device(cfg["device"])
+    world = int(os.environ["WORLD_SIZE"])
     multihost.init_distributed(
         backend="gloo", timeout=datetime.timedelta(seconds=SHARDED_GROUP_S))
     mesh = multihost.init_mesh(ntt_axis="shard", backend="gloo")
@@ -1883,34 +1878,31 @@ def sharded_rank_run(rank, world, port, tmp, values, cfg):
             _cuda.load(kind)
         assert _cuda.build_info["msm"]["command"] == "(cached)", \
             "a rank rebuilt the kernels"
-    out = {"rank": rank, "msm": {}, "ntt": {}, "prove": {}}
-    _cuda.reset_launches()
+    out = {"rank": dist.get_rank(), "msm": {}, "ntt": {}, "prove": {}}
     for k in M.plain_on_cuda:
         M.plain_on_cuda[k] = 0
-    unsharded = dict.fromkeys(_cuda.launches, 0)
 
-    def single(fn):
-        """A single-process comparison: its launches are not the path's."""
-        before = dict(_cuda.launches)
-        res = fn()
-        sync()
-        for k, v in _cuda.launches.items():
-            unsharded[k] += v - before[k]
-        return res
-
-    # 1. the sharded MSM against the host oracle and the unsharded msm
+    # 1. the sharded MSM against the host oracle and the unsharded msm;
+    # the counts are set to 0 after the unsharded comparison, so they hold
+    # the ShardedMSM calls' launches alone
+    msm_launches = dict.fromkeys(_cuda.launches, 0)
     rng = np.random.default_rng(SEED + 13)
     for kind, (G, host, gen) in groups().items():
         for n in cfg["sizes"]:
             xs, ys, inf, sc, want = oracle_inputs(G, host, gen, device, rng,
                                                   n)
+            ref = M.msm(G, xs, ys, inf, sc)
+            sync()
             plan = ShardedMSM(G, mesh, "shard", n, sc.shape[0])
+            _cuda.reset_launches()
             plan(xs, ys, inf, sc)                   # warm-up
             got, ms = wall_ms(lambda: plan(xs, ys, inf, sc))
-            ref = single(lambda: M.msm(G, xs, ys, inf, sc))
+            for k, v in _cuda.launches.items():
+                msm_launches[k] += v
             assert points_to_host(G, got)[0] == points_to_host(G, ref)[0] \
                 == want, f"sharded MSM {kind} n={n} != oracle"
             out["msm"][f"{kind} {n}"] = ms
+    out["launches_msm"] = {k: v for k, v in msm_launches.items() if v}
 
     # 2. the four-step transforms against the unsharded Domain
     spec, n = BN254.fr, cfg["ntt_n"]
@@ -1945,39 +1937,36 @@ def sharded_rank_run(rank, world, port, tmp, values, cfg):
     out["ntt"]["all_to_all"] = min(wall_ms(lambda: sd._transpose(blk))[1]
                                    for _ in range(5))
 
-    # 3. the mesh prove of the 2^16 MiMC chain from phase 5's key
+    # 3. the mesh prove of the 2^16 MiMC chain from phase 5's key; the
+    # counts are set to 0 just before each prove and must show its route
     t0 = time.perf_counter()
     pk = key_io.groth16_pk_read(os.path.join(tmp, "pk.npz"), device=device)
     with open(os.path.join(tmp, "cs.bin"), "rb") as f:
         cs = cs_io.cs_from_bytes(f.read())
     out["load_s"] = time.perf_counter() - t0
+    prove_launches = dict.fromkeys(_cuda.launches, 0)
     for label in ("cold", "warm"):
         timings = {}
-        before = dict(_cuda.launches)
+        _cuda.reset_launches()
         t0 = time.perf_counter()
         proof = groth16.prove(cs, pk, values, rng=random.Random(7),
                               timings=timings, mesh=mesh, mesh_axis="shard")
-        out["prove"][label] = dict(total=time.perf_counter() - t0, **timings)
-        out["prove"][label]["launches"] = {
-            k: v - before[k] for k, v in _cuda.launches.items()
-            if v > before[k]}
+        total = time.perf_counter() - t0
+        ran = {k: v for k, v in _cuda.launches.items() if v}
+        if device.type == "cuda":
+            assert ran == SHARDED_PROVE_ROUTE, \
+                f"the {label} mesh prove launched {ran}, not its route"
+        for k, v in ran.items():
+            prove_launches[k] += v
+        out["prove"][label] = dict(total=total, launches=ran, **timings)
+    out["launches_prove"] = {k: v for k, v in prove_launches.items() if v}
     out["proof"] = serialize.proof_to_bytes(proof, BN254).hex()
     dist.barrier()
     assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gnark_tpu")]
     assert not bad, f"loaded: {bad}"
-    out["launches"] = {k: v - unsharded[k] for k, v in _cuda.launches.items()
-                       if v > unsharded[k]}
-    dist.destroy_process_group()
     return out
-
-
-def free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def phase_sharded(device, served):
@@ -1990,15 +1979,16 @@ def phase_sharded(device, served):
     transforms and quotient at 2^16 against the unsharded Domain and
     compute_h, then prove the chain on the mesh, cold and warm, with rng
     7: phase 5's proof bytes, verified here and a wrong public input
-    rejected.  Returns the launches summed over the ranks, the unsharded
-    comparisons left out."""
+    rejected.  Each prove launches exactly SHARDED_PROVE_ROUTE in each
+    rank.  Returns the launches summed over the ranks: the mesh proves'
+    and the ShardedMSM checks', apart (the unsharded comparisons left
+    out)."""
     import tempfile
-
-    import torch.multiprocessing as mp
 
     from gnark_tpu_torch.backend import cs_io, groth16, key_io, serialize
     from gnark_tpu_torch.curves import BN254
     from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.parallel.ranks import start_ranks
 
     cs, pk, vk, pre, digest, proof = served["mimc178"]
     want = serialize.proof_to_bytes(proof, BN254)
@@ -2006,41 +1996,19 @@ def phase_sharded(device, served):
         key_io.groth16_pk_write(pk, os.path.join(tmp, "pk.npz"))
         with open(os.path.join(tmp, "cs.bin"), "wb") as f:
             f.write(cs_io.cs_to_bytes(cs))
-        ctx = mp.get_context("spawn")
-        port = free_port()
         t0 = time.perf_counter()
         cfg = dict(device=str(device), sizes=SHARDED_SIZES, ntt_n=N_MSM)
-        procs = [ctx.Process(target=sharded_rank, args=(
-            r, SHARDED_RANKS, port, tmp, [digest, pre], cfg))
-            for r in range(SHARDED_RANKS)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(max(0.0, t0 + SHARDED_JOIN_S - time.perf_counter()))
-        late = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+        results = start_ranks(sharded_rank, SHARDED_RANKS,
+                              (tmp, [digest, pre], cfg),
+                              timeout=SHARDED_JOIN_S).join()
         t_ranks = time.perf_counter() - t0
-        results = []
-        for r, p in enumerate(procs):
-            path = os.path.join(tmp, f"rank{r}.json")
-            if not os.path.exists(path):
-                results.append({"ok": False, "error": f"exit {p.exitcode}"})
-                continue
-            with open(path) as f:
-                results.append(json.load(f))
-    assert not late, f"ranks {late} did not join within {SHARDED_JOIN_S} s"
-    errors = [f"rank {r}: {res['error']}" for r, res in enumerate(results)
-              if not res["ok"]]
-    assert not errors, "\n".join(errors)
     log(f"[sharded] {SHARDED_RANKS} gloo ranks on one card: spawned, ran "
         f"and joined in {t_ranks:.2f} s")
     for res in results:
         tag = f"[sharded rank {res['rank']}]"
         log(f"{tag} sharded MSM (ms) = oracle = unsharded msm: " + ", ".join(
             f"{k} {v:.1f}" for k, v in res["msm"].items()))
+        log(f"{tag} launches in the ShardedMSM checks: {res['launches_msm']}")
         log(f"{tag} four-step NTT at n = {N_MSM} = unsharded Domain (ms): " +
             ", ".join(f"{k} {v:.1f}" for k, v in res["ntt"].items()
                       if k not in ("tables_s", "all_to_all")) +
@@ -2053,22 +2021,26 @@ def phase_sharded(device, served):
             total = t.pop("total")
             log(f"{tag} mesh prove {label} {total:.2f} s: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in t.items()))
-            log(f"{tag} launches in the {label} mesh prove: {ran}")
+            log(f"{tag} launches in the {label} mesh prove (its route): "
+                f"{ran}")
         assert bytes.fromhex(res["proof"]) == want, \
             f"{tag}: the mesh proof is not phase 5's proof"
     mesh_proof = serialize.proof_from_bytes(want, BN254)
     assert groth16.verify(mesh_proof, vk, [digest])
     assert not groth16.verify(mesh_proof, vk, [digest + 1])
-    launches = {}
+    l_prove, l_msm = {}, {}
     for res in results:
-        for k, v in res["launches"].items():
-            launches[k] = launches.get(k, 0) + v
+        for total, part in ((l_prove, res["launches_prove"]),
+                            (l_msm, res["launches_msm"])):
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
     need = {f"{k}_{kind}" for k in _cuda.KERNELS for kind in BN254_KINDS}
-    assert need <= set(launches), (need, launches)
+    assert need <= set(l_msm), (need, l_msm)
     log(f"[sharded] each rank's proof is phase 5's {len(want)} bytes; it "
         f"verifies, a wrong public input is rejected; launches in the "
-        f"ranks: {launches}")
-    return launches
+        f"ranks' mesh proves: {l_prove}; in their ShardedMSM checks: "
+        f"{l_msm}")
+    return l_prove, l_msm
 
 
 ADD_TYPE = re.compile(r"^(IADD3|IADD|IMAD\.X|IMAD\.IADD|IADD32I|LEA)")
@@ -2223,7 +2195,7 @@ def main():
     l_recursion = phase_recursion(device, prepared, outer_keys.result())
     log(f"[phase] recursion {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    l_sharded = phase_sharded(device, groth16_served)
+    l_sharded, l_sharded_msm = phase_sharded(device, groth16_served)
     log(f"[phase] sharded {time.perf_counter() - t0:.1f} s")
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s")
 
@@ -2246,7 +2218,10 @@ def main():
             "launches_plonk": l_plonk[key],
             "launches_rollup": l_rollup[key],
             "launches_serialization": l_serial.get(key, 0),
-            "launches_sharded": l_sharded.get(key, 0), **r})
+            "launches_sharded": (l_sharded.get(key, 0)
+                                 + l_sharded_msm.get(key, 0)),
+            "launches_sharded_prove": l_sharded.get(key, 0),
+            "launches_sharded_msm": l_sharded_msm.get(key, 0), **r})
         if key in kern_rollup:
             entries[-1]["at_rollup_plan"] = {
                 k: kern_rollup[key][k] for k in (

@@ -24,8 +24,7 @@ import torch
 import torch.distributed as dist
 
 from gnark_tpu_torch.ops.ec import CurveOps
-from gnark_tpu_torch.ops.msm import (
-    LADDER_MAX, MSM, complete_ops, ladder_msm, reduce, split_points)
+from gnark_tpu_torch.ops.msm import complete_ops, msm, reduce, split_points
 
 
 def to_projective(GC, P):
@@ -39,36 +38,33 @@ def to_projective(GC, P):
 
 
 class ShardedMSM:
-    """An MSM plan sharded over one mesh axis.  ``c`` and ``lanes`` shape
-    the local windowed plan, as ``ops.msm.MSM``'s do."""
+    """An MSM plan sharded over one mesh axis.  Each rank's slice goes
+    through ``ops.msm.msm`` (its rule and its cached windowed plans); the
+    reference's ``c``, ``lanes``, ``signed`` and ``method`` knobs are not
+    taken, as ``msm`` takes none of them."""
 
     def __init__(self, G: CurveOps, mesh, axis: str, n: int,
-                 scalar_limbs: int, c: int | None = None,
-                 lanes: int | None = None):
+                 scalar_limbs: int):
         self.G = G
         self.GC = complete_ops(G)
-        self.mesh = mesh
-        self.axis = axis
         self.group = mesh.get_group(axis)
         ndev = self.group.size()
         assert n % ndev == 0, f"n={n} not divisible by mesh axis {ndev}"
         self.n = n
         self.ndev = ndev
+        self.scalar_limbs = scalar_limbs
         k = n // ndev
         d = mesh.get_local_rank(axis)
         self.shard = slice(d * k, (d + 1) * k)
-        if k < LADDER_MAX:
-            self.local_plan = lambda *a: ladder_msm(G, *a)
-        else:
-            self.local_plan = MSM(G, k, scalar_limbs, c, lanes)
 
     def __call__(self, xs, ys, inf_mask, scalars):
         """Same contract as ops.msm.msm: affine Montgomery coordinates
         [L, n], inf [n], regular-form scalars [Ls, n] -> one Jacobian
         point (coordinates [L, 1])."""
+        assert xs.shape[-1] == self.n, (xs.shape, self.n)
+        assert scalars.shape[0] == self.scalar_limbs, scalars.shape
         s = self.shard
-        partial = self.local_plan(xs[:, s], ys[:, s], inf_mask[s],
-                                  scalars[:, s])
+        partial = msm(self.G, xs[:, s], ys[:, s], inf_mask[s], scalars[:, s])
         mine = torch.cat(to_projective(self.GC, partial)).contiguous()
         parts = [torch.empty_like(mine) for _ in range(self.ndev)]
         dist.all_gather(parts, mine, group=self.group)
@@ -77,8 +73,6 @@ class ShardedMSM:
         return self.GC.to_jacobian(split_points(total, self.G.F.L))
 
 
-def sharded_msm(G: CurveOps, mesh, axis: str, xs, ys, inf_mask, scalars,
-                c: int | None = None, lanes: int | None = None):
-    plan = ShardedMSM(G, mesh, axis, xs.shape[-1], scalars.shape[0], c,
-                      lanes)
+def sharded_msm(G: CurveOps, mesh, axis: str, xs, ys, inf_mask, scalars):
+    plan = ShardedMSM(G, mesh, axis, xs.shape[-1], scalars.shape[0])
     return plan(xs, ys, inf_mask, scalars)

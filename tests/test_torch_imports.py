@@ -222,6 +222,7 @@ MESH_FUZZ_STATS = REFUSE_BOTH + """
 import importlib, json
 mods = ["gnark_tpu_torch.fuzz", "gnark_tpu_torch.stats",
         "gnark_tpu_torch.parallel", "gnark_tpu_torch.parallel.multihost",
+        "gnark_tpu_torch.parallel.ranks",
         "gnark_tpu_torch.parallel.sharded_msm",
         "gnark_tpu_torch.parallel.sharded_ntt"]
 for name in mods:
@@ -241,13 +242,13 @@ print("ok", len(mods), json.dumps(counts))
 
 
 def test_mesh_fuzz_and_stats_modules_run_with_jax_and_gnark_tpu_refused():
-    """The six modules of the mesh, fuzz and stats slice import by name
+    """The seven modules of the mesh, fuzz and stats slice import by name
     with ``jax`` and ``gnark_tpu`` refused; the fuzzer and the snippet
     counts run."""
     res = _run(MESH_FUZZ_STATS, timeout=300, OMP_NUM_THREADS="1")
     assert res.returncode == 0, res.stderr
     ok, n, counts = res.stdout.strip().splitlines()[-1].split(" ", 2)
-    assert (ok, n) == ("ok", "6")
+    assert (ok, n) == ("ok", "7")
     with open(os.path.join(REPO, "tests", "stats_golden.json")) as f:
         assert json.loads(counts) == json.load(f)["bn254/groth16"]
 
