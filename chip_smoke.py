@@ -63,7 +63,8 @@ main paths once, at the sizes the repo has always measured:
      version, bit for bit, with its bound, the windowed four at the 2^16
      plan, the ladder, its reduction and the fold of the chunk sums at
      4096 points; G1's windowed four also at the plan of phase 10's
-     commitments (2^14 + 3 points: c = 10, 512 buckets, C = 33);
+     commitments (2^14 + 3 points: c = 10, 512 buckets, C = 33); the fp4
+     leaf (leaf_sliced_kernel) also twice on each of two seeds' inputs;
   9. Groth16 over the other five curves, routed as gnark_tpu routes them:
      MiMC chains that fill a domain of 2^16 over BLS12-381, BLS12-377
      (BASELINE config 4's curves) and BLS24-315, a 12-hash chain over
@@ -213,12 +214,18 @@ def fold_products(kind, op):
     they run them (fold_dbl, fold_add; the leaf's mixed addition): an F
     product is Prod<F>::S base products (1, 3, 16), and where b3 is a
     product (G2) it is a level of its own.  A group of G lanes runs a
-    level of m in ceil(m / G) rounds."""
+    level of m in ceil(m / G) rounds.  The fp4 leaf (leaf_sliced_kernel)
+    runs an fp4 product as its K columns of K base products each, 16,
+    and a b3 product as K columns of one (b3 has one nonzero
+    coefficient)."""
     from gnark_tpu_torch.ops import _cuda
     shape = _cuda.shape(kind)
     s = shape["prod_s"]
     first, b3s, last = {"pdbl": (4, 1, 4), "padd": (6, 2, 6),
                         "leaf": (5, 2, 6)}[op]
+    if op == "leaf" and shape["leaf_sliced"]:
+        k = shape["degree"]
+        return first * k * k, b3s * k, last * k * k
     return ((first * s, b3s * s, last * s) if shape["b3_product"]
             else (first * s, last * s))
 
@@ -606,7 +613,9 @@ def warps_per_sm(name, kind, args):
            if torch.cuda.is_available() else 132)    # 132: a CPU rehearsal
     t = [a for a in args if hasattr(a, "shape")]
     if name == "leaf_prefix":
-        threads = t[0].shape[0] * t[0].shape[3] * _cuda.shape(kind)["leaf_group"]
+        block = _cuda.shape(kind)["leaf_threads"]
+        threads = -(-t[0].shape[0] * t[0].shape[3]
+                    * _cuda.shape(kind)["leaf_group"] // block) * block
     elif name == "lane_offsets":
         threads = (t[0].shape[1] * _cuda.shape(kind)["lanes_threads"]
                    * _cuda.shape(kind)["lanes_cluster"])
@@ -627,13 +636,20 @@ def warps_per_sm(name, kind, args):
 
 def leaf_critical_path(kind, sy, latency_ms):
     """(mixed additions on the leaf's longest chain, its levels of
-    products, the rounds of products lane 0 runs an addition at the
+    products, the rounds of products a lane runs an addition at the
     group width, that chain in ms at the measured latency of one
-    dependent product by levels and by rounds)."""
+    dependent product by levels and by rounds).  A group of G lanes runs
+    a level of m products in ceil(m / G) rounds; in the fp4 leaf a b3
+    level's K columns run on min(G, K) lanes (at G = 2K a lane pair
+    repeats them)."""
     from gnark_tpu_torch.ops import _cuda
+    shape = _cuda.shape(kind)
     levels = fold_products(kind, "leaf")
-    g = _cuda.shape(kind)["leaf_group"]
-    rounds = sum(-(-m // g) for m in levels)
+    g = shape["leaf_group"]
+    widths = [g] * len(levels)
+    if shape["leaf_sliced"]:
+        widths[1] = min(g, shape["degree"])
+    rounds = sum(-(-m // w) for m, w in zip(levels, widths))
     adds = int((((sy[:, :, 0, :] >> 16) & 1) == 0).sum(1).max())
     return (adds, len(levels), rounds, adds * len(levels) * latency_ms,
             adds * rounds * latency_ms)
@@ -859,9 +875,11 @@ def compare(kind, name, args, kern, plain, rates, work=None):
         extra = (f"; critical path {adds} mixed additions x {lv} levels x "
                  f"{rates[2] * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached), "
-                 f"{rounds} rounds of products an addition on lane 0 at "
+                 f"{rounds} rounds of products an addition "
+                 f"{'a lane' if shape['leaf_sliced'] else 'on lane 0'} at "
                  f"G = {shape['leaf_group']}: {by_rounds:.4g} ms "
-                 f"({share(by_rounds / ms)})")
+                 f"({share(by_rounds / ms)}); blocks of "
+                 f"{shape['leaf_threads']} threads")
     elif work == "lane_offsets":
         adds, lv, b["critical_path_ms"], rounds, by_rounds = \
             lanes_critical_path(kind, args[0], rates[2])
@@ -1277,7 +1295,9 @@ def phase_bls24_kernels(device, rates):
     2^16 plan, the ladder, its reduction and the fold of the chunk sums
     at 4096 points, infinity points among them; G1's four windowed
     kernels also at the plan of the PLONK commitments of phase 10
-    (N_CURVE_PLONK + 3 points: c = 10, 512 buckets, C = 33).  Returns
+    (N_CURVE_PLONK + 3 points: c = 10, 512 buckets, C = 33).  The fp4
+    leaf (leaf_sliced_kernel) is also launched twice on the 2^16 plan's
+    inputs of two seeds, each launch against the plain version.  Returns
     (the results, those at the PLONK plan)."""
     from gnark_tpu_torch.ops import msm as M
     results, at_plonk = {}, {}
@@ -1287,6 +1307,11 @@ def phase_bls24_kernels(device, rates):
         G, host, gen = groups(BLS24_KINDS)[kind]
         plan, cases = windowed_cases(kind, N_MSM, device, rng)
         GC = plan.GC
+        if kind == "g2_bls24315":
+            leaf_twice(kind, cases["leaf_prefix"][0], "seed 10")
+            leaf_twice(kind, windowed_cases(
+                kind, N_MSM, device, np.random.default_rng(SEED + 5))[1][
+                    "leaf_prefix"][0], "seed 12")
         lx, ly, linf, lsc, _ = oracle_inputs(G, host, gen, device, rng,
                                              N_LADDER, scalar_modulus(kind))
         linf[::64] = True
@@ -1309,6 +1334,21 @@ def phase_bls24_kernels(device, rates):
             kind, f"{name} c={plan.c} C={plan.C}", args, kern, plain, rates,
             work=name)
     return results, at_plonk
+
+
+def leaf_twice(kind, args, label):
+    """Two launches of the leaf on the same inputs give the same limbs,
+    the plain version's (a kernel that read a slot before its writer
+    wrote it would differ between launches)."""
+    import torch
+    from gnark_tpu_torch.ops import msm as M
+    first, again = M.leaf_prefix(*args), M.leaf_prefix(*args)
+    sync()
+    assert torch.equal(first, again), f"leaf {kind} {label}: launches differ"
+    assert torch.equal(first, M.leaf_prefix_plain(*args)), \
+        f"leaf {kind} {label}: kernel != plain"
+    log(f"[kernels {kind}] leaf_prefix {label}: two launches bit-exact "
+        f"(tolerance 0) against each other and the plain version")
 
 
 # Groth16 over the other curves: request -> (curve, MiMC hashes, MSM

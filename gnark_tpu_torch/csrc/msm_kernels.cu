@@ -28,7 +28,9 @@
 //     a group of G threads inside one warp (G = Curve::LEAF_GROUP, fixed
 //     at compile time: 4 for G1 and G2, the fastest of 2, 4, 8 and of 4,
 //     8, 16 on an H100, ops/leaf_groups.py), so the 2^16 plan's 24 x 512
-//     = 12,288 chains give 4 x 12,288 threads, 11.6 warps an SM.  Each
+//     = 12,288 chains give 4 x 12,288 threads, 11.6 warps an SM.  Over
+//     fp4 (BLS24-315 G2) the group splits the chain by coefficient
+//     instead (leaf_sliced_kernel, below).  Otherwise each
 //     mixed addition runs as levels of independent products over the
 //     group, as the fold's point operations do (G1: 5, then 6; G2: 15,
 //     the 6 of its two b3 products, then 18), synced with __syncwarp on
@@ -94,14 +96,16 @@
 // This file instantiates BN254's kernels (kinds g1, g2).  BLS24-315's
 // G1 and G2 (g1_bls24315, g2_bls24315) are libraries of their own,
 // msm_g1_bls24315.cu and msm_g2_bls24315.cu, which include this file with
-// GNARK_MSM_BLS24315 defined: three nvcc runs side by side.  BLS24-315's
-// kernels are the same templates, not redesigned for its widths: an fp4
-// element is 40 words and a point 120, so lane 0's
-// registers spill, and its FoldShared slot (16 base products a product)
-// is 11.5 KB: its leaf runs blocks of one warp (four slots of static
-// shared memory), its weighted sum and lane offsets blocks of 128
-// threads (16 slots, 184 KB of dynamic shared memory), its ladder 4
-// points a block (a 30 KB table).
+// GNARK_MSM_BLS24315 defined: three nvcc runs side by side.  G1's kernels
+// and five of G2's are the same templates at their widths.  An fp4
+// element is 40 words and a point 120, so where lane 0 holds the point
+// its registers spill, and the FoldShared slot (16 base products a
+// product) is 11.5 KB: the weighted sum and lane offsets run blocks of
+// 128 threads (16 slots, 184 KB of dynamic shared memory), the ladder 4
+// points a block (a 30 KB table).  The leaf, the longest of them, was
+// redesigned for fp4 (leaf_sliced_kernel): a chain's coefficients split
+// over its group's lanes, so no lane holds a whole point, no product goes
+// through a slot and nothing waits on a serial lane 0.
 //
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
 // out), so a host harness that defines blockIdx, threadIdx, blockDim,
@@ -185,11 +189,18 @@ struct G1Bls24 {
 
 // BLS24-315 G2 over fp4 = fp[u]/(u^4 - 13): y^2 = x^3 + 1/u; b3 = 3/u =
 // (0, 0, 0, 3/13) in Montgomery form (tests/test_torch_msm.py
-// derives it from the curve's b2)
+// derives it from the curve's b2).  Its leaf is leaf_sliced_kernel: a
+// chain's fp4 coefficients over LEAF_GROUP = 8 lanes, a lane pair a
+// coefficient, in blocks of LEAF_THREADS, LEAF_BLOCKS resident an SM (at
+// most 170 registers: ptxas takes 166 and spills nothing); the fastest of
+// G = 2, 4, 8 in blocks of 64 and 128 threads, 2 to 6 an SM, on an H100
+// (ops/leaf_groups.py --kind g2_bls24315).
 struct G2Bls24 {
   using F = FpK<BLS24315Fp, 4, 13>;
   static constexpr bool B3_PRODUCT = true;
+  static constexpr int B3_COEF = 3;  // b3's one nonzero coefficient
   static constexpr int LEAF_GROUP = 8;
+  static constexpr int LEAF_THREADS = 128, LEAF_BLOCKS = 3;
   static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 128, WSUM_CLUSTER = 4;
   static constexpr int LANES_GROUP = 8, LANES_THREADS = 128, LANES_CLUSTER = 4;
   static constexpr int LADDER_BLOCKS = 1;
@@ -270,8 +281,10 @@ struct Prod<FpK<P, K, C>> {
 
 // A kind's shape, for ops/_cuda.py (its SHAPE names these, in this
 // order): the base field's 32-bit words, the coordinate field's degree
-// over it, Prod<F>::S, B3_PRODUCT, the curve struct's launch shapes and a
-// point's bytes.  Host code too, so that the tests' g++ harness reads it.
+// over it, Prod<F>::S, B3_PRODUCT, the curve struct's launch shapes, a
+// point's bytes, the leaf's threads a block and whether the leaf is
+// leaf_sliced_kernel.  Host code too, so that the tests' g++ harness
+// reads it.
 #define GNARK_MSM_SHAPE(NAME, CURVE)                                          \
   extern "C" void gnark_msm_shape_##NAME(int* out) {                          \
     using F = CURVE::F;                                                       \
@@ -281,7 +294,8 @@ struct Prod<FpK<P, K, C>> {
                      CURVE::WSUM_GROUP, CURVE::WSUM_THREADS,                  \
                      CURVE::WSUM_CLUSTER, CURVE::LANES_GROUP,                 \
                      CURVE::LANES_THREADS, CURVE::LANES_CLUSTER,              \
-                     CURVE::LADDER_POINTS, (int)sizeof(Point<F>)};            \
+                     CURVE::LADDER_POINTS, (int)sizeof(Point<F>),             \
+                     leaf_threads<CURVE>(), (int)FpKTraits<F>::SLICED};       \
     for (int i = 0; i < (int)(sizeof v / sizeof v[0]); ++i) out[i] = v[i];    \
   }
 
@@ -704,8 +718,9 @@ __global__ void __launch_bounds__(THREADS)
 
 // ---- the leaf prefix, a thread group a chain -------------------------------
 
-// Threads a leaf block: 128, or 64 or 32 where the groups' FoldShared
-// slots would pass the 48 KB of static shared memory a block may hold.
+// Threads a leaf_prefix_kernel block: 128, or 64 or 32 where the groups'
+// FoldShared slots would pass the 48 KB of static shared memory a block
+// may hold.
 template <class F, int G>
 struct LeafBlock {
   static constexpr long SLOT = sizeof(FoldShared<F>), MAX = 48 * 1024;
@@ -713,6 +728,27 @@ struct LeafBlock {
                                  : 64 / G * SLOT <= MAX ? 64
                                                         : 32;
 };
+
+// Whether F is an fp^K, whose leaf is leaf_sliced_kernel, and its shape.
+template <class F>
+struct FpKTraits {
+  static constexpr bool SLICED = false;
+};
+template <class P_, int K, int C>
+struct FpKTraits<FpK<P_, K, C>> {
+  static constexpr bool SLICED = true;
+  using P = P_;
+  static constexpr int DEG = K, NR = C;  // u^DEG = NR
+};
+
+// Threads a leaf block of a curve's shipped leaf.
+template <class Curve>
+constexpr int leaf_threads() {
+  if constexpr (FpKTraits<typename Curve::F>::SLICED)
+    return Curve::LEAF_THREADS;
+  else
+    return LeafBlock<typename Curve::F, Curve::LEAF_GROUP>::THREADS;
+}
 
 // An element as its 32-bit words, limb 0 first (fp2: c0's, then c1's).
 template <class F>
@@ -745,9 +781,12 @@ GT_HD void store_word(int64_t* dst, uint32_t v) {
 //
 // Chain q = w*R + r runs on the G consecutive threads G q .. G q + G - 1,
 // one group inside a warp, which share a FoldShared slot and sync with
-// __syncwarp on their own lanes.  A step: the group loads the point's
-// 2 W words (W = F::N; lane j words j, j + G, ...; neighbouring groups
-// read neighbouring r) into the slot's R area; lane 0 adds it to its
+// __syncwarp on their own lanes.  (Over fp^K the leaf is
+// leaf_sliced_kernel: lane 0 would hold a 120-word point and deal out 16
+// base products a product through an 11.5 KB slot.)  A step: the group
+// loads the point's 2 W words (W = F::N; lane j words j, j + G, ...;
+// neighbouring groups read neighbouring r) into the slot's R area; lane 0
+// adds it to its
 // running sum with fold_add_mixed (its products spread over the group),
 // copies the sum into the A area, and the group writes the row's 3 W
 // words, 16 bytes a word, lane j words j, j + G, ...: a warp's groups write
@@ -805,6 +844,259 @@ __global__ void __launch_bounds__(LeafBlock<typename Curve::F, G>::THREADS)
     sync();
     int64_t* row = rows + ((long)w * C * R + (long)cs * R + r) * 3 * F::L16;
     for (int i = lane; i < 3 * W; i += G) store_word(row + 2 * i, sum[i]);
+  }
+}
+
+// ---- the leaf prefix over fp^K, a chain's coefficients over a group ---------
+
+// One base element in a thread's exchange slot, padded to whole 16-byte
+// words: a lane writes and reads it as 16-byte vectors, and the slots of
+// the 8 threads of a quarter warp (48 bytes apart at N = 10) fall on
+// distinct banks.
+template <class P>
+struct alignas(16) XSlot {
+  uint32_t v[(P::N + 3) / 4 * 4];
+};
+
+template <class P>
+GT_HD void slot_put(XSlot<P>& s, const Fp<P>& a) {
+#ifdef __CUDA_ARCH__
+  uint4* d = reinterpret_cast<uint4*>(s.v);
+#pragma unroll
+  for (int q = 0; q < P::N / 4; ++q)
+    d[q] = make_uint4(a.v[4 * q], a.v[4 * q + 1], a.v[4 * q + 2],
+                      a.v[4 * q + 3]);
+#pragma unroll
+  for (int i = P::N / 4 * 4; i < P::N; ++i) s.v[i] = a.v[i];
+#else
+  for (int i = 0; i < P::N; ++i) s.v[i] = a.v[i];
+#endif
+}
+
+template <class P>
+GT_HD Fp<P> slot_get(const XSlot<P>& s) {
+  Fp<P> a;
+#ifdef __CUDA_ARCH__
+  const uint4* d = reinterpret_cast<const uint4*>(s.v);
+#pragma unroll
+  for (int q = 0; q < P::N / 4; ++q) {
+    const uint4 x = d[q];
+    a.v[4 * q] = x.x;
+    a.v[4 * q + 1] = x.y;
+    a.v[4 * q + 2] = x.z;
+    a.v[4 * q + 3] = x.w;
+  }
+#pragma unroll
+  for (int i = P::N / 4 * 4; i < P::N; ++i) a.v[i] = s.v[i];
+#else
+  for (int i = 0; i < P::N; ++i) a.v[i] = s.v[i];
+#endif
+  return a;
+}
+
+// A chain's group of G lanes over F = fp^K (u^K = NR).  The first SPAN =
+// min(G, K) lanes own distinct coefficients: lane l owns l, l + SPAN, ...
+// (KPL = K / SPAN of them, its slots t = 0 .. KPL - 1).  With G = 2K each
+// coefficient has two lanes, l and l + K, which hold the same values and
+// split its columns' rounds (LPC = 2).  A thread's exchange slots, in
+// block shared memory [slot][thread]: A, NR A and B, the operands of the
+// product in flight, KPL each; PART, a column's half sum (LPC = 2); KB3,
+// the constant of each owned column of a b3 product.
+template <class Curve, int G, int THREADS>
+struct Sliced {
+  using T = FpKTraits<typename Curve::F>;
+  using P = typename T::P;
+  using B = Fp<P>;
+  static constexpr int K = T::DEG, NR = T::NR;
+  static constexpr int SPAN = G < K ? G : K, KPL = K / SPAN, LPC = G / SPAN;
+  static constexpr int ROUNDS = K / LPC;  // of a column, a lane
+  static_assert(K % SPAN == 0 && (LPC == 1 || LPC == 2) && G % SPAN == 0,
+                "G divides K, or is 2K");
+  static constexpr int A = 0, AN = KPL, BB = 2 * KPL, KB3 = 3 * KPL,
+                       PART = 4 * KPL, SLOTS = (LPC > 1 ? 5 : 4) * KPL;
+  using Slots = XSlot<P>[SLOTS][THREADS];
+
+  Slots& ex;
+  // this thread, its half's first thread, its first coefficient, its half
+  int tid, home, lane0, half;
+  GroupSync sync;
+
+  GT_HD int coef(int t) const { return lane0 + SPAN * t; }
+  // coefficient j of the operand in slot array `slot`, from its owner in
+  // this thread's half of the group
+  GT_HD B read(int slot, int j) const {
+    return slot_get(ex[slot + j / SPAN][home + j % SPAN]);
+  }
+
+  // r = a b: column m of the product is sum_s a_(m-s mod K) b_s, times NR
+  // where s > m (u^K = NR), K base products.  A lane sums its ROUNDS of
+  // each of its columns two at a time (two independent products in
+  // flight: at G = 8 both, 9 % faster than one at a time; all four at G =
+  // 4 spilled and were 37 % slower; ops/leaf_groups.py on an H100); the
+  // NR factor comes with the operand: its owner writes NR a beside a, and
+  // a lane reads the one its round needs.
+  GT_INLINE void mul(B* r, const B* a, const B* b) const {
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      slot_put(ex[A + t][tid], a[t]);
+      slot_put(ex[AN + t][tid], mul_const<NR>(a[t]));
+      slot_put(ex[BB + t][tid], b[t]);
+    }
+    sync();
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      const int m = coef(t);
+      B acc = fp_zero<P>();
+#pragma unroll 2
+      for (int i = 0; i < ROUNDS; ++i) {
+        const int s = half * ROUNDS + i;
+        const B x = read(s > m ? AN : A, (m - s + K) % K);
+        acc = add(acc, ::mul(x, read(BB, s)));
+      }
+      r[t] = acc;
+    }
+    if constexpr (LPC > 1) {
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) slot_put(ex[PART + t][tid], r[t]);
+      sync();
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) r[t] = add(r[t], slot_get(ex[PART + t][tid ^ SPAN]));
+    } else {
+      sync();
+    }
+  }
+
+  // r1 = b3 a1, r2 = b3 a2 for b3 = c u^E (E = Curve::B3_COEF): column m is
+  // a_(m-E mod K) c, times NR where E > m; one base product a column
+  GT_INLINE void mul_b3(B* r1, const B* a1, B* r2, const B* a2) const {
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      slot_put(ex[A + t][tid], a1[t]);
+      slot_put(ex[BB + t][tid], a2[t]);
+    }
+    sync();
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      const int j = (coef(t) - Curve::B3_COEF + K) % K;
+      const B c = slot_get(ex[KB3 + t][tid]);
+      r1[t] = ::mul(read(A, j), c);
+      r2[t] = ::mul(read(BB, j), c);
+    }
+    sync();
+  }
+};
+
+// sx, sy: [nw, C, L16, R]; sorted position r*C + cs at (w, cs, :, r).
+// y limb 0 carries flags: bit 16 = infinity (skip), bit 17 = negative
+// digit (add -P).  rows: [nw, C*R, 3*L16]; row cs*R + r = X|Y|Z of the
+// running sum after step cs of lane r.  The same function as
+// leaf_prefix_kernel, for F = fp^K.
+//
+// Chain q = w*R + r runs on the G consecutive threads G q .. G q + G - 1,
+// one group inside a warp, split by coefficient (Sliced): each lane holds
+// its coefficients of the running sum (3 KPL base elements) and of the
+// point, so an fp^K addition, subtraction or negation is KPL base ones
+// a lane, all lanes at once, and a product is a lane's columns of it
+// (mul).  A step: each lane loads its coefficients' limbs of x and y;
+// every lane reads the flags in y limb 0 of coefficient 0 itself, so the
+// skip and the negation are the group's; ec_complete.py's add_mixed (alg
+// 8) in its order (the projective representative depends on it; every
+// field operation ends canonical, so the columns' other formula for a
+// product gives FpKOps.mul's limbs); each lane stores its coefficients'
+// words of X, Y and Z, 16 bytes a word.  Nothing is serial on one lane,
+// no running sum passes through shared memory, and a thread's exchange
+// slots (Sliced, 4 KPL x 48 bytes) leave the block size free: blocks of
+// THREADS, BLOCKS resident an SM, so that registers and not shared
+// memory set the occupancy.
+template <class Curve, int G, int THREADS, int BLOCKS>
+__global__ void __launch_bounds__(THREADS, BLOCKS)
+    leaf_sliced_kernel(const int64_t* sx, const int64_t* sy, int64_t* rows,
+                       int nw, int C, int R) {
+  using F = typename Curve::F;
+  using SL = Sliced<Curve, G, THREADS>;
+  using P = typename SL::P;
+  using B = typename SL::B;
+  constexpr int KPL = SL::KPL, L = Fp<P>::L16;
+  static_assert(G < 32 && 32 % G == 0 && THREADS % 32 == 0,
+                "a group lies inside one warp");
+  __shared__ typename SL::Slots ex;
+  const int tid = threadIdx.x, lane = tid % G;
+  const long q = ((long)blockIdx.x * blockDim.x + tid) / G;
+  if (q >= (long)nw * R) return;  // the whole group
+  const int w = (int)(q / R), r = (int)(q % R);
+  const int half = lane / SL::SPAN;
+  const SL sl{ex, tid, tid - lane + half * SL::SPAN, lane % SL::SPAN, half,
+              GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+  B X[KPL], Y[KPL], Z[KPL];  // the running sum's coefficients, from (0 : 1 : 0)
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) {
+    const int m = sl.coef(t);
+    X[t] = Z[t] = fp_zero<P>();
+    Y[t] = m == 0 ? fp_one<P>() : fp_zero<P>();
+    const B c = Curve::b3().c[Curve::B3_COEF];
+    slot_put(ex[SL::KB3 + t][tid], Curve::B3_COEF > m ? mul_const<SL::NR>(c) : c);
+  }
+  for (int cs = 0; cs < C; ++cs) {
+    const long off = ((long)w * C + cs) * F::L16 * R + r;
+    const uint32_t flags = (uint32_t)(sy[off] >> 16);
+    if (!(flags & 1u)) {
+      B x[KPL], y[KPL], s1[KPL], s2[KPL];
+      uint32_t limb0;  // the flags of coefficient 0, masked off
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) {
+        const long c = off + (long)sl.coef(t) * L * R;
+        x[t] = load<P>(sx + c, R, &limb0);
+        y[t] = load<P>(sy + c, R, &limb0);
+        if (flags & 2u) y[t] = neg(y[t]);
+        s1[t] = add(X[t], Y[t]);
+        s2[t] = add(x[t], y[t]);
+      }
+      B t0[KPL], t1[KPL], t3[KPL], t4[KPL], t5[KPL];
+      sl.mul(t0, X, x);
+      sl.mul(t1, Y, y);
+      sl.mul(t3, s1, s2);
+      sl.mul(t4, x, Z);  // X2 Z1
+      sl.mul(t5, y, Z);  // Y2 Z1
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) {
+        t3[t] = sub(t3[t], add(t0[t], t1[t]));
+        t4[t] = add(t4[t], X[t]);
+        t5[t] = add(t5[t], Y[t]);
+        t0[t] = add(dbl(t0[t]), t0[t]);  // 3 X1X2
+      }
+      B tz[KPL], Z3[KPL], Y3[KPL];
+      sl.mul_b3(tz, Z, Y3, t4);  // b3 Z1, b3 t4
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) {
+        Z3[t] = add(t1[t], tz[t]);
+        t1[t] = sub(t1[t], tz[t]);
+      }
+      B m0[KPL], m1[KPL];
+      sl.mul(m0, t3, t1);
+      sl.mul(m1, t5, Y3);
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) X[t] = sub(m0[t], m1[t]);
+      sl.mul(m0, t1, Z3);
+      sl.mul(m1, Y3, t0);
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) Y[t] = add(m0[t], m1[t]);
+      sl.mul(m0, Z3, t5);
+      sl.mul(m1, t0, t3);
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) Z[t] = add(m0[t], m1[t]);
+    }
+    if (SL::LPC > 1 && half) continue;  // a coefficient's first lane stores it
+    int64_t* row = rows + ((long)w * C * R + (long)cs * R + r) * 3 * F::L16;
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      int64_t* d = row + sl.coef(t) * L;
+#pragma unroll
+      for (int i = 0; i < Fp<P>::N; ++i) {
+        store_word(d + 2 * i, X[t].v[i]);
+        store_word(d + F::L16 + 2 * i, Y[t].v[i]);
+        store_word(d + 2 * F::L16 + 2 * i, Z[t].v[i]);
+      }
+    }
   }
 }
 
@@ -927,15 +1219,34 @@ __global__ void __launch_bounds__(REDUCE_LANES)
 
 #ifdef __CUDACC__
 
+template <class Curve, int G, int THREADS, int BLOCKS>
+int launch_leaf_sliced(const void* sx, const void* sy, void* rows, int nw,
+                       int C, int R, void* stream) {
+  const long threads = (long)nw * R * G;
+  leaf_sliced_kernel<Curve, G, THREADS, BLOCKS>
+      <<<(unsigned)((threads + THREADS - 1) / THREADS), THREADS, 0,
+         (cudaStream_t)stream>>>((const int64_t*)sx, (const int64_t*)sy,
+                                 (int64_t*)rows, nw, C, R);
+  return (int)cudaGetLastError();
+}
+
+// The leaf of a curve at group width G: leaf_sliced_kernel over fp^K (in
+// the curve's LEAF_THREADS and LEAF_BLOCKS), leaf_prefix_kernel otherwise.
 template <class Curve, int G>
 int launch_leaf_prefix(const void* sx, const void* sy, void* rows, int nw,
                        int C, int R, void* stream) {
-  constexpr int block = LeafBlock<typename Curve::F, G>::THREADS;
-  const long threads = (long)nw * R * G;
-  leaf_prefix_kernel<Curve, G><<<(unsigned)((threads + block - 1) / block),
-                                 block, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)sx, (const int64_t*)sy, (int64_t*)rows, nw, C, R);
-  return (int)cudaGetLastError();
+  if constexpr (FpKTraits<typename Curve::F>::SLICED) {
+    return launch_leaf_sliced<Curve, G, Curve::LEAF_THREADS,
+                              Curve::LEAF_BLOCKS>(sx, sy, rows, nw, C, R,
+                                                  stream);
+  } else {
+    constexpr int block = LeafBlock<typename Curve::F, G>::THREADS;
+    const long threads = (long)nw * R * G;
+    leaf_prefix_kernel<Curve, G><<<(unsigned)((threads + block - 1) / block),
+                                   block, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)sx, (const int64_t*)sy, (int64_t*)rows, nw, C, R);
+    return (int)cudaGetLastError();
+  }
 }
 
 // A kernel that runs a window on a cluster of CLUSTER blocks of THREADS

@@ -59,11 +59,13 @@ _L16 = {"g1": 16, "g2": 32,     # 16-bit limb planes of one coordinate
 # struct's LEAF_GROUP (threads a leaf chain), WSUM_GROUP, WSUM_THREADS,
 # WSUM_CLUSTER (threads a weighted-sum operation, threads a block, blocks
 # a window), LANES_GROUP, LANES_THREADS, LANES_CLUSTER (the same for a
-# lane-offsets addition), LADDER_POINTS (points a ladder block), and a
-# Point<F>'s bytes
+# lane-offsets addition), LADDER_POINTS (points a ladder block), a
+# Point<F>'s bytes, the leaf's threads a block, and whether the leaf is
+# leaf_sliced_kernel (fp4: a chain's coefficients over the group)
 SHAPE = ("words", "degree", "prod_s", "b3_product", "leaf_group",
          "wsum_group", "wsum_threads", "wsum_cluster", "lanes_group",
-         "lanes_threads", "lanes_cluster", "ladder_points", "point_bytes")
+         "lanes_threads", "lanes_cluster", "ladder_points", "point_bytes",
+         "leaf_threads", "leaf_sliced")
 LADDER_CHUNKS = 16       # msm_kernels.cu's ladder_kernel: chunks a
 LADDER_WINDOW = 4        # scalar, bits a window
 # microbench.cu's enum Op, in order; then the two kernels of their own

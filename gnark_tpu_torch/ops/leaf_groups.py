@@ -2,7 +2,7 @@
 
     python -m gnark_tpu_torch.ops.leaf_groups
         [--kernel leaf_prefix|weighted_sum|lane_offsets]
-        [--csrc DIR] [--baseline DIR] [--out FILE]
+        [--kind g2_bls24315] [--csrc DIR] [--baseline DIR] [--out FILE]
 
 Builds one library that instantiates the kernel of ``csrc/msm_kernels.cu``
 (or that of ``--csrc``) at each trial shape and, with ``--baseline``, the
@@ -13,7 +13,12 @@ directory), the two compilers side by side:
     at G = 2, 4, 8 and G2 at G = 4, 8, 16, at the 2^16 plan's shapes (c =
     11, 24 windows, R = 512, C = 128; 1 point in 64 infinite, as in
     chip_smoke.py) for G1 and G2, and at a PLONK commitment's 2^16 + 3
-    points (C = 129) for G1;
+    points (C = 129) for G1; with ``--kind g2_bls24315``, BLS24-315's fp4
+    leaf ``leaf_sliced_kernel<G2Bls24, G, THREADS, BLOCKS>`` at each of
+    SLICED_SHAPES (G = 2: two coefficients a lane; 4: one; 8: a
+    coefficient on a lane pair, each lane half of its columns' rounds),
+    at the 2^16 plan (c = 11, C = 128) and at 2^16 + 3 points (C = 129),
+    its baseline the other version's ``msm_g2_bls24315.cu``;
   * ``weighted_sum``: ``weighted_sum_kernel<Curve, G, THREADS, CLUSTER>``
     for G1 at G = 2, 4, 8 and G2 at G = 4, 8, 16, each in blocks of 128,
     256 and 512 threads, the last two also in clusters of 2, 4 and 8
@@ -33,13 +38,15 @@ the baseline runs first and last.  Prints each kernel's ptxas line and
 one line a shape and, with ``--out``, writes the numbers as JSON.  The
 shapes that ship are ``G1/G2::LEAF_GROUP``, ``WSUM_GROUP``,
 ``WSUM_THREADS``, ``WSUM_CLUSTER`` and ``LANES_GROUP``, ``LANES_THREADS``,
-``LANES_CLUSTER``.
+``LANES_CLUSTER``, and ``G2Bls24::LEAF_GROUP``, ``LEAF_THREADS``,
+``LEAF_BLOCKS``.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import re
@@ -50,7 +57,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from gnark_tpu_torch.curves import BN254
+from gnark_tpu_torch.backend.groth16 import _Groups
+from gnark_tpu_torch.curves import BLS24_315, BN254
 from gnark_tpu_torch.ops import _cuda
 from gnark_tpu_torch.ops import msm as M
 from gnark_tpu_torch.ops.ec import CurveOps
@@ -58,6 +66,12 @@ from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs
 from gnark_tpu_torch.ops.towers import fp2_ops
 
 WIDTHS = {"g1": (2, 4, 8), "g2": (4, 8, 16)}
+# the fp4 leaf's trial shapes: (G, threads a block, resident blocks an SM
+# that its launch bounds ask for); the 2^16 plan's 49,152 threads at G = 4
+# are 11.6 warps an SM
+SLICED_SHAPES = [(2, 128, 2), (4, 128, 2), (4, 128, 3), (4, 128, 4),
+                 (4, 64, 6), (8, 128, 2), (8, 128, 3), (8, 128, 4),
+                 (8, 64, 6)]
 BLOCKS = (128, 256, 512)      # the weighted sum's threads a block
 CLUSTERS = (1, 2, 4, 8)       # and its blocks a window, from 256 threads
 WSUM_SHAPES = [(g, t, cl) for g in (2, 4, 8, 16) for t in BLOCKS
@@ -76,6 +90,16 @@ _LEAF_TU = """#include "msm_kernels.cu"
   }
 """ + "".join(f"TRIAL({k}, {k.upper()}, {g})\n"
               for k, ws in WIDTHS.items() for g in ws)
+
+_SLICED_TU = """#define GNARK_MSM_BLS24315
+#include "msm_kernels.cu"
+#define TRIAL(G, T, B)                                                      \\
+  extern "C" int leaf_trial_g2_bls24315_##G##_##T##_##B(const void* sx,     \\
+      const void* sy, void* rows, int nw, int C, int R, void* stream) {     \\
+    return launch_leaf_sliced<G2Bls24, G, T, B>(sx, sy, rows, nw, C, R,     \\
+                                                stream);                    \\
+  }
+""" + "".join(f"TRIAL({g}, {t}, {b})\n" for g, t, b in SLICED_SHAPES)
 
 _WSUM_TU = """#include "msm_kernels.cu"
 #define TRIAL(NAME, CURVE, G, T, CL)                                        \\
@@ -121,18 +145,20 @@ def _build(name, source, include):
 
 def kernel_registers(report, kernel="leaf_prefix"):
     """'G1 G=4' ('G1 G=4 T=256 CL=4' for the weighted sum and the lane
-    offsets, 'G1' for a kernel without a width) -> the stack and register
-    lines of each instantiation of ``{kernel}_kernel``."""
+    offsets, 'G2Bls24 G=4 T=128 B=3' for the fp4 leaf, 'G1' for a kernel
+    without a width) -> the stack and register lines of each
+    instantiation of ``{kernel}_kernel``."""
     out, name, props = {}, None, ""
+    labels = ("G", "T", "B") if kernel == "leaf_sliced" else ("G", "T", "CL")
     for line in report.splitlines():
-        m = re.search(rf"Function properties for _Z\d+{kernel}_kernelI2"
-                      r"(G[12])((?:Li\d+E)*)E", line)
+        m = re.search(rf"Function properties for _Z\d+{kernel}_kernelI\d+"
+                      r"(G[12](?:Bls24)?)((?:Li\d+E)*)E", line)
         if "Function properties for" in line:
             name = None
             if m:
                 ints = re.findall(r"Li(\d+)E", m.group(2))
                 name = " ".join([m.group(1)] + [
-                    f"{k}={v}" for k, v in zip(("G", "T", "CL"), ints)])
+                    f"{k}={v}" for k, v in zip(labels, ints)])
             props = ""
         elif name and "stack frame" in line:
             props = line.strip() + "; "
@@ -155,6 +181,8 @@ def _group(kind):
     if kind == "g1":
         return (CurveOps(field_ops(BN254.fp), b=BN254.b), BN254.host_g1,
                 BN254.g1_gen)
+    if kind == "g2_bls24315":
+        return (_Groups(BLS24_315).g2, BLS24_315.host_g2, BLS24_315.g2_gen)
     return (CurveOps(fp2_ops(BN254.fp, BN254.fp2_beta), b=BN254.b2),
             BN254.host_g2, BN254.g2_gen)
 
@@ -163,6 +191,7 @@ def _inputs(kind, n, rng, device):
     """The 2^16 plan's (or n points') sorted leaf inputs: point i =
     2^(i mod 64) G, random scalars, 1 point in 64 infinite."""
     G, H, gen = _group(kind)
+    r_mod = (BLS24_315 if kind.endswith("_bls24315") else BN254).fr.modulus
     base, P = [], gen
     for _ in range(64):
         base.append(P)
@@ -172,7 +201,7 @@ def _inputs(kind, n, rng, device):
     ys = G.F.pack([p[1] for p in base], device).repeat(1, reps)[:, :n]
     inf = torch.zeros(n, dtype=torch.bool, device=device)
     inf[::64] = True
-    scalars = [int.from_bytes(rng.bytes(32), "little") % BN254.fr.modulus
+    scalars = [int.from_bytes(rng.bytes(32), "little") % r_mod
                for _ in range(n)]
     sc = torch.from_numpy(ints_to_limbs(scalars, BN254.fr.L).astype(
         np.int64)).to(device)
@@ -205,16 +234,23 @@ def _checked(fn, *args):
     return launch
 
 
-def leaf_cases(libs, rng, device):
+def leaf_cases(libs, rng, device, kind=None):
     """(label, case, want (a tensor, or a function of the shape), {shape:
     fn(out) -> launch}, warps an SM of a shape or None) for each leaf
-    case."""
-    for kind, n in (("g1", N), ("g2", N), ("g1", N + 3)):
+    case: BN254's, or with kind="g2_bls24315" the fp4 leaf's."""
+    runs = (((kind, N), (kind, N + 3)) if kind
+            else (("g1", N), ("g2", N), ("g1", N + 3)))
+    for kind, n in runs:
         plan, sx, sy, _ = _inputs(kind, n, rng, device)
         want = M.leaf_prefix_plain(sx, sy, plan.GC)
         nw, C, _, R = sx.shape
-        fns = {f"G={g}": _bind(libs["trial"], f"leaf_trial_{kind}_{g}", 3)
-               for g in WIDTHS[kind]}
+        if kind == "g2_bls24315":
+            fns = {f"G={g} T={t} B={b}": _bind(
+                libs["trial"], f"leaf_trial_{kind}_{g}_{t}_{b}", 3)
+                for g, t, b in SLICED_SHAPES}
+        else:
+            fns = {f"G={g}": _bind(libs["trial"], f"leaf_trial_{kind}_{g}", 3)
+                   for g in WIDTHS[kind]}
         if "baseline" in libs:
             fns = {"baseline": _bind(libs["baseline"],
                                      f"gnark_msm_leaf_prefix_{kind}", 3),
@@ -225,8 +261,8 @@ def leaf_cases(libs, rng, device):
 
         def warps(v, sms):
             # the baseline's threads a chain are its own source's affair
-            return nw * R * int(v[2:]) / 32 / sms if v.startswith("G=") \
-                else None
+            return nw * R * int(v[2:].split()[0]) / 32 / sms \
+                if v.startswith("G=") else None
         yield (f"{kind} n={n} C={plan.C}",
                {"kind": kind, "n": n, "C": plan.C, "R": plan.R, "nw": nw},
                want, variants, warps)
@@ -324,35 +360,46 @@ def main(argv=None):
                     "directory whose kernel runs at each shape")
     ap.add_argument("--baseline", help="a csrc directory whose "
                     "msm_kernels.cu is timed beside the shapes")
+    ap.add_argument("--kind", choices=("g2_bls24315",), help="sweep this "
+                    "kind's leaf (SLICED_SHAPES) instead of BN254's")
     ap.add_argument("--out", help="write the numbers here as JSON")
     args = ap.parse_args(argv)
+    if args.kind and args.kernel != "leaf_prefix":
+        ap.error("--kind takes the leaf only")
     if not torch.cuda.is_available():
         raise SystemExit("leaf_groups needs a CUDA card")
     device = torch.device("cuda", 0)
     tu = os.path.join(_cuda._BUILD, f"{args.kernel}_trial_{os.getpid()}.cu")
     os.makedirs(_cuda._BUILD, exist_ok=True)
     with open(tu, "w") as f:
-        f.write(_TU[args.kernel])
+        f.write(_SLICED_TU if args.kind else _TU[args.kernel])
     jobs = {"trial": (tu, os.path.abspath(args.csrc))}
     if args.baseline:
         base = os.path.abspath(args.baseline)
-        jobs["baseline"] = (os.path.join(base, "msm_kernels.cu"), base)
+        lib = "msm_g2_bls24315.cu" if args.kind else "msm_kernels.cu"
+        jobs["baseline"] = (os.path.join(base, lib), base)
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(
             lambda j: _build(f"{args.kernel}_{j}", *jobs[j]), jobs)))
     libs = {k: ctypes.CDLL(path) for k, (path, _) in built.items()}
+    kernels = ("leaf_sliced", "leaf_prefix") if args.kind else (args.kernel,)
     for k, (_, report) in built.items():
-        for name, line in kernel_registers(report, args.kernel).items():
-            print(f"[leaf_groups] ptxas {k} {name}: {line}", flush=True)
+        for kernel in kernels:
+            for name, line in kernel_registers(report, kernel).items():
+                print(f"[leaf_groups] ptxas {k} {kernel} {name}: {line}",
+                      flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"[leaf_groups] card: {card}", flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(SEED)
-    result = {"card": card, "kernel": args.kernel, "cases": []}
+    result = {"card": card, "kernel": args.kernel, "kind": args.kind,
+              "cases": []}
     cases = {"leaf_prefix": leaf_cases, "weighted_sum": wsum_cases,
              "lane_offsets": lanes_cases}[args.kernel]
+    if args.kind:
+        cases = functools.partial(leaf_cases, kind=args.kind)
     for label, case, want, variants, warps in cases(libs, rng, device):
         times = {v: [] for v in variants}
         order = list(variants)

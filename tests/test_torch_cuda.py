@@ -19,7 +19,8 @@ The file imports no jax, so it runs where the port runs:
     buckets, C = 64), at 37 points (a
     ragged last block), with 64-bit scalars (a window a chunk) and with
     20-bit scalars (the fold of the chunk sums starts at chunk 1); the G1
-    leaf also at a PLONK commitment's 2^16 + 3 points (C = 129);
+    leaf and BLS24-315's fp4 leaf also at a PLONK commitment's 2^16 + 3
+    points (C = 129);
   * the kernel-path MSM, through ``msm`` (the ladder at this size) and
     through the windowed plan, against the host oracle (point
     i = 2^(i mod 64) G);
@@ -146,7 +147,19 @@ def test_leaf_prefix_matches_plain_on_cuda_at_plonk_shape(dev):
     """The G1 leaf at a PLONK commitment's 2^16 + 3 points: 512 lanes of
     C = 129 points (not a power of two), the padding points infinite, one
     launch, bit for bit."""
-    G, H, gen = _group("g1")
+    _leaf_at_plonk_shape(dev, "g1")
+
+
+@pytest.mark.cuda
+def test_fp4_leaf_matches_plain_on_cuda_at_c129(dev):
+    """BLS24-315's fp4 leaf (each chain's coefficients over a lane group)
+    at 2^16 + 3 points: 512 lanes of C = 129 points, a C that is not a
+    power of two, the padding points infinite, one launch, bit for bit."""
+    _leaf_at_plonk_shape(dev, "g2_bls24315")
+
+
+def _leaf_at_plonk_shape(dev, kind):
+    G, H, gen = _group(kind)
     n = (1 << 16) + 3
     base, P = [], gen
     for _ in range(64):
@@ -158,7 +171,7 @@ def test_leaf_prefix_matches_plain_on_cuda_at_plonk_shape(dev):
     inf = torch.zeros(n, dtype=torch.bool, device=dev)
     inf[::17] = True
     rng = np.random.default_rng(12)
-    scalars = [int.from_bytes(rng.bytes(32), "little") % R_MOD
+    scalars = [int.from_bytes(rng.bytes(32), "little") % r_mod(kind)
                for _ in range(n)]
     sc = torch.from_numpy(
         ints_to_limbs(scalars, BN254.fr.L).astype(np.int64)).to(dev)
@@ -166,10 +179,12 @@ def test_leaf_prefix_matches_plain_on_cuda_at_plonk_shape(dev):
     assert (plan.R, plan.C) == (512, 129)
     sx, sy, _ = plan._sort_gather(*plan._prep_window(
         xs.contiguous(), ys.contiguous(), inf, sc))
-    before = _cuda.launches["leaf_prefix_g1"]
+    flagged = (((sy[:, :, 0] >> 16) & 1) != 0).sum((1, 2))
+    assert bool((flagged >= plan.n_pad - n).all())     # the padding points
+    before = _cuda.launches[f"leaf_prefix_{kind}"]
     rows = M.leaf_prefix(sx, sy, plan.GC)
     torch.cuda.synchronize()
-    assert _cuda.launches["leaf_prefix_g1"] == before + 1
+    assert _cuda.launches[f"leaf_prefix_{kind}"] == before + 1
     assert torch.equal(rows, M.leaf_prefix_plain(sx, sy, plan.GC))
 
 

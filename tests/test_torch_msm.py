@@ -19,6 +19,7 @@ ints after conversion to affine.
 """
 
 import ctypes
+import importlib.util
 import os
 import re
 import shutil
@@ -220,14 +221,23 @@ static Dim blockIdx, threadIdx, blockDim;
 #include "msm_kernels.cu"
 
 // Each grid runs one thread at a time (blockDim 1), which keeps every
-// phase between two barriers in order; the leaf runs a group of one
-// thread a chain, a block a chain.
+// phase between two barriers in order; the leaf (a curve's shipped one:
+// leaf_sliced_kernel over fp4) runs a group of one thread a chain, a
+// block a chain.
+template <class Cv, int G> static void leaf_kernel(const int64_t* sx,
+    const int64_t* sy, int64_t* rows, int nw, int C, int R) {
+  if constexpr (FpKTraits<typename Cv::F>::SLICED)
+    leaf_sliced_kernel<Cv, G, Cv::LEAF_THREADS, Cv::LEAF_BLOCKS>(sx, sy, rows,
+                                                                 nw, C, R);
+  else
+    leaf_prefix_kernel<Cv, G>(sx, sy, rows, nw, C, R);
+}
 template <class Cv> static void grid_leaf(const int64_t* sx, const int64_t* sy,
                                           int64_t* rows, int nw, int C, int R) {
   blockDim.x = 1; threadIdx.x = 0;
   for (long b = 0; b < (long)nw * R; ++b) {
     blockIdx.x = (unsigned)b;
-    leaf_prefix_kernel<Cv, 1>(sx, sy, rows, nw, C, R);
+    leaf_kernel<Cv, 1>(sx, sy, rows, nw, C, R);
   }
 }
 template <class Cv> static void grid_lanes(const int64_t* t, int64_t* o, int nw, int R) {
@@ -337,6 +347,15 @@ template <class Body> static void run_cluster(unsigned b, int n, int threads,
   for (auto& l : lanes) l.join();
 }
 
+// a curve's shipped leaf: leaf_sliced_kernel over fp4
+template <class Cv, int G> static void leaf_kernel(const int64_t* sx,
+    const int64_t* sy, int64_t* rows, int nw, int C, int R) {
+  if constexpr (FpKTraits<typename Cv::F>::SLICED)
+    leaf_sliced_kernel<Cv, G, Cv::LEAF_THREADS, Cv::LEAF_BLOCKS>(sx, sy, rows,
+                                                                 nw, C, R);
+  else
+    leaf_prefix_kernel<Cv, G>(sx, sy, rows, nw, C, R);
+}
 template <class Cv> static int grid_leaf_threads(const int64_t* sx,
     const int64_t* sy, int64_t* rows, int nw, int C, int R) {
   constexpr int G = Cv::LEAF_GROUP, per_block = 2;
@@ -344,8 +363,79 @@ template <class Cv> static int grid_leaf_threads(const int64_t* sx,
   const long chains = (long)nw * R;
   for (long b = 0; b < (chains + per_block - 1) / per_block; ++b)
     run_cluster((unsigned)b, 1, per_block * G, G,
-                [=] { leaf_prefix_kernel<Cv, G>(sx, sy, rows, nw, C, R); });
+                [=] { leaf_kernel<Cv, G>(sx, sy, rows, nw, C, R); });
   return bad_masks;
+}
+// the sliced fp4 product and b3 multiply (Sliced::mul, mul_b3) over n
+// element pairs at group width G, a group a block on G host threads: out
+// holds a b, then b3 a, then b3 b ([3 kL, n])
+template <int G> static int sliced_mul_threads(const int64_t* a,
+    const int64_t* b, int64_t* out, int n) {
+  using Cv = G2Bls24;
+  using SL = Sliced<Cv, G, Cv::LEAF_THREADS>;
+  using P = SL::P;
+  constexpr int KPL = SL::KPL, L = Fp<P>::L16, KL = SL::K * L;
+  bad_masks = 0;
+  for (int e = 0; e < n; ++e)
+    run_cluster((unsigned)e, 1, G, G, [=] {
+      static XSlot<P> ex[SL::SLOTS][Cv::LEAF_THREADS];
+      const int tid = threadIdx.x, lane = tid % G, half = lane / SL::SPAN;
+      const SL sl{ex, tid, tid - lane + half * SL::SPAN, lane % SL::SPAN,
+                  half, GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+      typename SL::B x[KPL], y[KPL], r[KPL], r1[KPL], r2[KPL];
+      for (int t = 0; t < KPL; ++t) {
+        const int m = sl.coef(t);
+        x[t] = load<P>(a + (long)m * L * n + e, n);
+        y[t] = load<P>(b + (long)m * L * n + e, n);
+        const typename SL::B c = Cv::b3().c[Cv::B3_COEF];
+        slot_put(ex[SL::KB3 + t][tid],
+                 Cv::B3_COEF > m ? mul_const<SL::NR>(c) : c);
+      }
+      sl.mul(r, x, y);
+      sl.mul_b3(r1, x, r2, y);
+      if (half) return;
+      for (int t = 0; t < KPL; ++t) {
+        const long m = sl.coef(t);
+        store(r[t], out + m * L * n + e, n);
+        store(r1[t], out + (KL + m * L) * n + e, n);
+        store(r2[t], out + (2 * KL + m * L) * n + e, n);
+      }
+    });
+  return bad_masks;
+}
+// the fp4 leaf at any width of the sweep (ops/leaf_groups.py), two groups
+// a block
+template <int G> static int grid_sliced_threads(const int64_t* sx,
+    const int64_t* sy, int64_t* rows, int nw, int C, int R) {
+  using Cv = G2Bls24;
+  bad_masks = 0;
+  const long chains = (long)nw * R;
+  for (long b = 0; b < (chains + 1) / 2; ++b)
+    run_cluster((unsigned)b, 1, 2 * G, G, [=] {
+      leaf_sliced_kernel<Cv, G, Cv::LEAF_THREADS, Cv::LEAF_BLOCKS>(
+          sx, sy, rows, nw, C, R);
+    });
+  return bad_masks;
+}
+extern "C" int host_leaf_sliced_threads(int G, const int64_t* sx,
+    const int64_t* sy, int64_t* rows, int nw, int C, int R) {
+  switch (G) {
+    case 1: return grid_sliced_threads<1>(sx, sy, rows, nw, C, R);
+    case 2: return grid_sliced_threads<2>(sx, sy, rows, nw, C, R);
+    case 4: return grid_sliced_threads<4>(sx, sy, rows, nw, C, R);
+    case 8: return grid_sliced_threads<8>(sx, sy, rows, nw, C, R);
+  }
+  return -1;
+}
+extern "C" int host_sliced_mul(int G, const int64_t* a, const int64_t* b,
+                               int64_t* out, int n) {
+  switch (G) {
+    case 1: return sliced_mul_threads<1>(a, b, out, n);
+    case 2: return sliced_mul_threads<2>(a, b, out, n);
+    case 4: return sliced_mul_threads<4>(a, b, out, n);
+    case 8: return sliced_mul_threads<8>(a, b, out, n);
+  }
+  return -1;
 }
 // the weighted sum at its shipped group width, block size and blocks a
 // window, a window's cluster at a time
@@ -427,6 +517,9 @@ def _shape(lib, kind):
     return _cuda.read_shape(getattr(lib, f"gnark_msm_shape_{kind}"))
 
 
+SLICED_WIDTHS = [1, 2, 4, 8]
+
+
 def _leaf_case(run, case):
     """The leaf's inputs: the run's own (C = 6, infinity points and
     negative digits), or its first five steps with every point of lane 3
@@ -444,7 +537,8 @@ def _leaf_case(run, case):
 def test_leaf_prefix_groups_match_plain_on_host_threads(
         runs, threaded_leaf, kind, case):
     """The leaf source at the card's group width, its lanes on host
-    threads, bit for bit against the plain version."""
+    threads, bit for bit against the plain version (fp4: the
+    coefficient-sliced leaf_sliced_kernel)."""
     run = runs[kind]
     sx, sy = _leaf_case(run, case)
     nw, C, L, R = sx.shape
@@ -453,8 +547,83 @@ def test_leaf_prefix_groups_match_plain_on_host_threads(
     fn = getattr(threaded_leaf, f"host_leaf_threads_{kind}")
     assert fn(_ptr(sx), _ptr(sy), _ptr(out), nw, C, R) == 0   # group masks
     assert torch.equal(out, want)
+    shape = _shape(threaded_leaf, kind)
     assert getattr(threaded_leaf, f"host_leaf_group_{kind}")() == \
-        _shape(threaded_leaf, kind)["leaf_group"]
+        shape["leaf_group"]
+    assert shape["leaf_sliced"] == (kind == "g2_bls24315")   # fp4's leaf
+
+
+@pytest.mark.parametrize("case", ["run", "C=5, lane 3 all infinite"])
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_leaf_sliced_widths_match_plain_on_host_threads(
+        runs, threaded_leaf, width, case):
+    """The fp4 leaf (leaf_sliced_kernel) at the widths besides the shipped
+    G = 8 (a lane pair a coefficient; the test above): four, two and one
+    coefficients a lane at G = 1, 2 and 4, which ops/leaf_groups.py
+    sweeps; bit for bit against the plain version."""
+    run = runs["g2_bls24315"]
+    sx, sy = _leaf_case(run, case)
+    nw, C, L, R = sx.shape
+    want = M.leaf_prefix_plain(sx, sy, run.plan.GC)
+    out = torch.empty_like(want)
+    assert threaded_leaf.host_leaf_sliced_threads(
+        width, _ptr(sx), _ptr(sy), _ptr(out), nw, C, R) == 0   # group masks
+    assert torch.equal(out, want)
+
+
+def _fp4_mul_ints(a, b, p, nr=13):
+    """a b in fp4 = fp[u]/(u^4 - nr) over Python ints."""
+    r = [0] * 4
+    for i in range(4):
+        for j in range(4):
+            k = i + j
+            r[k % 4] += a[i] * b[j] * (nr if k >= 4 else 1)
+    return tuple(x % p for x in r)
+
+
+def _fp4_operands():
+    """Pairs of fp4 elements: 0, 1 and p - 1 in every coefficient, whole
+    zeros and ones, zero coefficients beside full ones, and random ones."""
+    p = BLS24_315.fp.modulus
+    rng = np.random.default_rng(53)
+
+    def rand():
+        return int.from_bytes(rng.bytes(40), "little") % p
+    edge = [0, 1, p - 1]
+    a = [tuple(edge[(i + k) % 3] for k in range(4)) for i in range(3)]
+    b = [tuple(edge[(i + 2 * k) % 3] for k in range(4)) for i in range(3)]
+    a += [(0, 0, 0, 0), (1, 0, 0, 0), (p - 1,) * 4, (rand(), 0, rand(), 0),
+          (0, 0, 0, rand()), (rand(), rand(), rand(), rand())]
+    b += [(rand(), rand(), rand(), rand()), (p - 1, 0, 0, p - 1), (p - 1,) * 4,
+          (0, rand(), 0, rand()), (0, 0, 0, 1), (rand(), rand(), 0, 0)]
+    return a, b
+
+
+@pytest.mark.parametrize("width", SLICED_WIDTHS)
+def test_sliced_fp4_product_and_b3_on_host_threads(threaded_leaf, width):
+    """Sliced::mul and mul_b3 (a lane's columns of an fp4 product, and b3
+    times an element, b3 = (0, 0, 0, 3/13)) at group width G on G host
+    threads, against FpKOps.mul and CompleteOps' b3 product bit for bit
+    and against Python ints."""
+    G = group("g2_bls24315")[0]
+    F, p = G.F, BLS24_315.fp.modulus
+    a_ints, b_ints = _fp4_operands()
+    a, b = F.pack(a_ints, "cpu"), F.pack(b_ints, "cpu")
+    n = a.shape[1]
+    out = torch.empty((3 * F.L, n), dtype=torch.int64)
+    assert threaded_leaf.host_sliced_mul(width, _ptr(a), _ptr(b), _ptr(out),
+                                         n) == 0   # group masks
+    GC = M.complete_ops(G)
+    assert torch.equal(out[:F.L], F.mul(a, b))
+    assert torch.equal(out[F.L:2 * F.L], GC._mul_b3(a))
+    assert torch.equal(out[2 * F.L:], GC._mul_b3(b))
+    b3 = tuple(3 * c % p for c in BLS24_315.b2)
+    assert F.unpack(out[:F.L]) == [_fp4_mul_ints(x, y, p)
+                                   for x, y in zip(a_ints, b_ints)]
+    assert F.unpack(out[F.L:2 * F.L]) == [_fp4_mul_ints(x, b3, p)
+                                          for x in a_ints]
+    assert F.unpack(out[2 * F.L:]) == [_fp4_mul_ints(y, b3, p)
+                                       for y in b_ints]
 
 
 def _wsum_case(run, case):
@@ -665,6 +834,46 @@ def test_horner_fold_starts_at_highest_live_window(runs, host_kernels, kind,
     out = torch.empty_like(P)
     getattr(host_kernels, f"host_horner_fold_{kind}")(_ptr(S), _ptr(out), 5, c)
     assert torch.equal(out, P)
+
+
+# ptxas -v lines of the fp4 leaf and a BN254 leaf, as nvcc prints them
+PTXAS_REPORT = """\
+ptxas info    : Compiling entry function '_Z18leaf_sliced_kernelI7G2Bls24Li4ELi128ELi3EEvPKlS2_Pliii' for 'sm_90a'
+ptxas info    : Function properties for _Z18leaf_sliced_kernelI7G2Bls24Li4ELi128ELi3EEvPKlS2_Pliii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 156 registers, used 0 barriers, 24576 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z18leaf_prefix_kernelI2G1Li4EEvPKlS2_Pliii' for 'sm_90a'
+ptxas info    : Function properties for _Z18leaf_prefix_kernelI2G1Li4EEvPKlS2_Pliii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 6912 bytes smem, 400 bytes cmem[0]
+"""
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("parser", ["chip_smoke", "leaf_groups"])
+def test_ptxas_reports_name_the_fp4_leaf(parser):
+    """The [ptxas] lines of chip_smoke.py and ops/leaf_groups.py name the
+    fp4 leaf with its shape and give its registers and spill bytes."""
+    if parser == "chip_smoke":
+        assert _chip_smoke().ptxas_summary(PTXAS_REPORT) == [
+            "leaf_sliced_kernel<G2Bls24, 4, 128, 3>: 156 registers; 0 bytes "
+            "stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "leaf_prefix_kernel<G1, 4>: 96 registers; 8 bytes stack frame, "
+            "4 bytes spill stores, 4 bytes spill loads"]
+        return
+    from gnark_tpu_torch.ops import leaf_groups
+    sliced = leaf_groups.kernel_registers(PTXAS_REPORT, "leaf_sliced")
+    assert list(sliced) == ["G2Bls24 G=4 T=128 B=3"]
+    assert "0 bytes spill stores" in sliced["G2Bls24 G=4 T=128 B=3"]
+    assert "Used 156 registers" in sliced["G2Bls24 G=4 T=128 B=3"]
+    assert list(leaf_groups.kernel_registers(PTXAS_REPORT)) == ["G1 G=4"]
 
 
 def _source_limbs(text, name):
