@@ -64,7 +64,10 @@ main paths once, at the sizes the repo has always measured:
      plan, the ladder, its reduction and the fold of the chunk sums at
      4096 points; G1's windowed four also at the plan of phase 10's
      commitments (2^14 + 3 points: c = 10, 512 buckets, C = 33); the fp4
-     leaf (leaf_sliced_kernel) also twice on each of two seeds' inputs;
+     leaf, ladder and both folds (leaf_sliced_kernel,
+     ladder_sliced_kernel, horner_fold_sliced_kernel) launched twice each
+     (the leaf on two seeds' inputs), against each other and the plain
+     version;
   9. Groth16 over the other five curves, routed as gnark_tpu routes them:
      MiMC chains that fill a domain of 2^16 over BLS12-381, BLS12-377
      (BASELINE config 4's curves) and BLS24-315, a 12-hash chain over
@@ -623,10 +626,11 @@ def warps_per_sm(name, kind, args):
         threads = (t[0].shape[1] * _cuda.shape(kind)["wsum_threads"]
                    * _cuda.shape(kind)["wsum_cluster"])
     elif name == "horner_fold":
-        threads = 32
+        threads = _cuda.shape(kind)["fold_group"]
     elif name == "ladder":
-        pts = _cuda.shape(kind)["ladder_points"]
-        threads = -(-t[0].shape[1] // pts) * pts * M.LADDER_CHUNKS
+        block = _cuda.shape(kind)["ladder_threads"]
+        threads = -(-t[0].shape[1] * M.LADDER_CHUNKS
+                    * _cuda.shape(kind)["ladder_group"] // block) * block
     elif name == "reduce":
         threads = t[0].shape[1] * _cuda.REDUCE_LANES
     else:
@@ -842,12 +846,14 @@ def phase_kernels(device, rates):
     return results
 
 
-def compare(kind, name, args, kern, plain, rates, work=None):
+def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
     """One kernel against its plain version on the same tensors: asserts
     equal limbs and that the kernel does not beat its bound, and returns
     the error, both times, the bounds and the warps a launch gives each
     SM (and the critical paths of the Horner fold, the leaf, the lane
-    offsets and the weighted sum)."""
+    offsets and the weighted sum).  With ``twice``, a second launch must
+    give the first one's limbs: a kernel that read a slot before its
+    writer wrote it would differ between launches."""
     import torch
     from gnark_tpu_torch.ops import _cuda
     out_k = kern(*args)
@@ -855,6 +861,12 @@ def compare(kind, name, args, kern, plain, rates, work=None):
     out_p, plain_ms = wall_ms(lambda: plain(*args))
     err = int((out_k - out_p).abs().max())
     assert torch.equal(out_k, out_p), f"{name} {kind}: kernel != plain"
+    if twice:
+        again = kern(*args)
+        sync()
+        assert torch.equal(again, out_k), f"{name} {kind}: launches differ"
+        log(f"[kernels {kind}] {name}: two launches bit-exact (tolerance 0) "
+            f"against each other and the plain version")
     ms = cuda_ms(lambda: kern(*args), 3)
     work = work or name
     shape = _cuda.shape(kind)
@@ -868,7 +880,13 @@ def compare(kind, name, args, kern, plain, rates, work=None):
             kind, args[0], args[1], rates[2])
         extra = (f"; critical path {chain} dependent products x "
                  f"{rates[2] * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
-                 f"({share(b['critical_path_ms'] / ms)} of it reached)")
+                 f"({share(b['critical_path_ms'] / ms)} of it reached); "
+                 f"{shape['fold_group']} threads"
+                 + (", coefficient-sliced" if shape["leaf_sliced"] else ""))
+    elif work == "ladder":
+        extra = (f"; {shape['ladder_group']} thread(s) a (point, chunk) "
+                 f"chain in blocks of {shape['ladder_threads']}"
+                 + (", coefficient-sliced" if shape["leaf_sliced"] else ""))
     elif work == "leaf_prefix":
         adds, lv, rounds, b["critical_path_ms"], by_rounds = \
             leaf_critical_path(kind, args[1], rates[2])
@@ -1296,9 +1314,10 @@ def phase_bls24_kernels(device, rates):
     at 4096 points, infinity points among them; G1's four windowed
     kernels also at the plan of the PLONK commitments of phase 10
     (N_CURVE_PLONK + 3 points: c = 10, 512 buckets, C = 33).  The fp4
-    leaf (leaf_sliced_kernel) is also launched twice on the 2^16 plan's
-    inputs of two seeds, each launch against the plain version.  Returns
-    (the results, those at the PLONK plan)."""
+    leaf, ladder and both folds (leaf_sliced_kernel, ladder_sliced_kernel,
+    horner_fold_sliced_kernel) are launched twice on their inputs (the
+    leaf on the 2^16 plan's of two seeds), both launches against the
+    plain version.  Returns (the results, those at the PLONK plan)."""
     from gnark_tpu_torch.ops import msm as M
     results, at_plonk = {}, {}
     rng = np.random.default_rng(SEED + 3)
@@ -1307,11 +1326,13 @@ def phase_bls24_kernels(device, rates):
         G, host, gen = groups(BLS24_KINDS)[kind]
         plan, cases = windowed_cases(kind, N_MSM, device, rng)
         GC = plan.GC
-        if kind == "g2_bls24315":
-            leaf_twice(kind, cases["leaf_prefix"][0], "seed 10")
-            leaf_twice(kind, windowed_cases(
+        sliced = kind == "g2_bls24315"
+        if sliced:
+            args, kern, plain = windowed_cases(
                 kind, N_MSM, device, np.random.default_rng(SEED + 5))[1][
-                    "leaf_prefix"][0], "seed 12")
+                    "leaf_prefix"]
+            compare(kind, "leaf_prefix seed 12", args, kern, plain, rates,
+                    work="leaf_prefix", twice=True)
         lx, ly, linf, lsc, _ = oracle_inputs(G, host, gen, device, rng,
                                              N_LADDER, scalar_modulus(kind))
         linf[::64] = True
@@ -1320,12 +1341,14 @@ def phase_bls24_kernels(device, rates):
         cases["ladder"] = ((lx, ly, linf, lsc, GC), M.ladder, M.ladder_plain)
         cases["reduce"] = ((lout, GC), M.reduce, M.reduce_plain)
         for name, (args, kern, plain) in cases.items():
-            results[f"{name}_{kind}"] = compare(kind, name, args, kern, plain,
-                                                rates)
+            results[f"{name}_{kind}"] = compare(
+                kind, name, args, kern, plain, rates,
+                twice=sliced and name in ("leaf_prefix", "ladder",
+                                          "horner_fold"))
         T = M.reduce(lout, GC)
         compare(kind, f"horner_fold chunks nw={M.LADDER_CHUNKS} c={B}",
                 (T, B, GC), M.horner_fold, M.horner_fold_plain, rates,
-                work="horner_fold")
+                work="horner_fold", twice=sliced)
     kind = BLS24_KINDS[0]
     plan, cases = windowed_cases(kind, N_CURVE_PLONK + 3, device, rng)
     assert (plan.c, plan.nwin, plan.nb, plan.R, plan.C) == CURVE_PLONK_PLAN
@@ -1334,21 +1357,6 @@ def phase_bls24_kernels(device, rates):
             kind, f"{name} c={plan.c} C={plan.C}", args, kern, plain, rates,
             work=name)
     return results, at_plonk
-
-
-def leaf_twice(kind, args, label):
-    """Two launches of the leaf on the same inputs give the same limbs,
-    the plain version's (a kernel that read a slot before its writer
-    wrote it would differ between launches)."""
-    import torch
-    from gnark_tpu_torch.ops import msm as M
-    first, again = M.leaf_prefix(*args), M.leaf_prefix(*args)
-    sync()
-    assert torch.equal(first, again), f"leaf {kind} {label}: launches differ"
-    assert torch.equal(first, M.leaf_prefix_plain(*args)), \
-        f"leaf {kind} {label}: kernel != plain"
-    log(f"[kernels {kind}] leaf_prefix {label}: two launches bit-exact "
-        f"(tolerance 0) against each other and the plain version")
 
 
 # Groth16 over the other curves: request -> (curve, MiMC hashes, MSM

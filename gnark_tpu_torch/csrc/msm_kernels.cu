@@ -75,10 +75,12 @@
 //     G2's b3), spread over the lanes through shared memory with a barrier
 //     after each level; an fp2 product is its three Karatsuba base
 //     products on three lanes.  Lane 0 holds the accumulator and does the
-//     additions between levels.
+//     additions between levels.  Over fp4 a group of FOLD_GROUP lanes runs
+//     the chain by coefficient instead (horner_fold_sliced_kernel).
 //   * ladder: the scalar is cut into K = 16 chunks of B = 16 Ls / K bits,
 //     one thread per (point, chunk), so n K threads fill the card (65,536
-//     threads at the small proof's 4096 points, 15.5 warps an SM).
+//     threads at the small proof's 4096 points, 15.5 warps an SM; over
+//     fp4 a group of LADDER_GROUP threads a chain, ladder_sliced_kernel).
 //     Each thread runs a uniform schedule over its chunk: w-bit windows
 //     (w = 4) from the top, w complete doublings and one complete addition
 //     of a table entry each, with no branch on the scalar; the point's table
@@ -97,15 +99,20 @@
 // G1 and G2 (g1_bls24315, g2_bls24315) are libraries of their own,
 // msm_g1_bls24315.cu and msm_g2_bls24315.cu, which include this file with
 // GNARK_MSM_BLS24315 defined: three nvcc runs side by side.  G1's kernels
-// and five of G2's are the same templates at their widths.  An fp4
-// element is 40 words and a point 120, so where lane 0 holds the point
-// its registers spill, and the FoldShared slot (16 base products a
-// product) is 11.5 KB: the weighted sum and lane offsets run blocks of
-// 128 threads (16 slots, 184 KB of dynamic shared memory), the ladder 4
-// points a block (a 30 KB table).  The leaf, the longest of them, was
-// redesigned for fp4 (leaf_sliced_kernel): a chain's coefficients split
-// over its group's lanes, so no lane holds a whole point, no product goes
-// through a slot and nothing waits on a serial lane 0.
+// and three of G2's (lane offsets, weighted sum, reduction) are the same
+// templates at their widths.  An fp4 element is 40 words and a point 120,
+// so where lane 0 holds the point its registers spill, and the FoldShared
+// slot (16 base products a product) is 11.5 KB: the weighted sum and lane
+// offsets run blocks of 128 threads (16 slots, 184 KB of dynamic shared
+// memory).  The leaf, the ladder and the Horner fold were redesigned for
+// fp4 (leaf_sliced_kernel, ladder_sliced_kernel,
+// horner_fold_sliced_kernel, picked by FpKTraits): a chain's coefficients
+// split over its group's lanes, so no lane holds a whole point and
+// nothing waits on a serial lane 0.  The leaf runs each product through
+// Sliced's exchange; the ladder and the fold run SlicedPoint's complete
+// addition and doubling, each formula's independent products as one
+// level (one write of the operands, one sync, each lane's columns, one
+// sync).
 //
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
 // out), so a host harness that defines blockIdx, threadIdx, blockDim,
@@ -194,7 +201,17 @@ struct G1Bls24 {
 // coefficient, in blocks of LEAF_THREADS, LEAF_BLOCKS resident an SM (at
 // most 170 registers: ptxas takes 166 and spills nothing); the fastest of
 // G = 2, 4, 8 in blocks of 64 and 128 threads, 2 to 6 an SM, on an H100
-// (ops/leaf_groups.py --kind g2_bls24315).
+// (ops/leaf_groups.py --kind g2_bls24315).  Its ladder and Horner fold
+// are ladder_sliced_kernel and horner_fold_sliced_kernel (SlicedPoint):
+// the ladder's chains on LADDER_GROUP = 4 lanes, a lane a coefficient, in
+// blocks of LADDER_THREADS = 128 (two points, 110.8 KB of shared memory),
+// LADDER_BLOCKS = 2 an SM (134 registers, no spills); the fold's one
+// chain on FOLD_GROUP = 16 lanes, four a coefficient, each a quarter of a
+// level's products (130 registers); on an H100 the fastest of the ladder
+// at G = 2, 4, 8 in 64 and 128 threads and of the fold at G = 4, 8, 16
+// (ops/leaf_groups.py --kernel ladder|horner_fold --kind g2_bls24315).
+// LADDER_POINTS is the template ladder's, which ops/inline_check.py
+// builds.
 struct G2Bls24 {
   using F = FpK<BLS24315Fp, 4, 13>;
   static constexpr bool B3_PRODUCT = true;
@@ -203,7 +220,9 @@ struct G2Bls24 {
   static constexpr int LEAF_THREADS = 128, LEAF_BLOCKS = 3;
   static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 128, WSUM_CLUSTER = 4;
   static constexpr int LANES_GROUP = 8, LANES_THREADS = 128, LANES_CLUSTER = 4;
-  static constexpr int LADDER_BLOCKS = 1;
+  static constexpr int LADDER_GROUP = 4, LADDER_THREADS = 128;
+  static constexpr int LADDER_BLOCKS = 2;
+  static constexpr int FOLD_GROUP = 16;
   static constexpr int LADDER_POINTS = 4;
   GT_HD static F b3() {
     constexpr uint32_t c3[10] = {0x91789d7eu, 0xf9b9b51cu, 0xf0c0536cu,
@@ -282,20 +301,24 @@ struct Prod<FpK<P, K, C>> {
 // A kind's shape, for ops/_cuda.py (its SHAPE names these, in this
 // order): the base field's 32-bit words, the coordinate field's degree
 // over it, Prod<F>::S, B3_PRODUCT, the curve struct's launch shapes, a
-// point's bytes, the leaf's threads a block and whether the leaf is
-// leaf_sliced_kernel.  Host code too, so that the tests' g++ harness
-// reads it.
+// point's bytes, the leaf's threads a block, whether the leaf (and the
+// ladder and the fold) are the coefficient-sliced kernels, and the
+// shipped ladder's threads a chain, threads a block and blocks an SM and
+// the fold's threads a chain (LadderShape).  Host code too, so that the
+// tests' g++ harness reads it.
 #define GNARK_MSM_SHAPE(NAME, CURVE)                                          \
   extern "C" void gnark_msm_shape_##NAME(int* out) {                          \
     using F = CURVE::F;                                                       \
     using Base = Prod<F>::Base;                                               \
+    using LS = LadderShape<CURVE>;                                            \
     const int v[] = {Base::N, F::N / Base::N, Prod<F>::S,                     \
                      (int)CURVE::B3_PRODUCT, CURVE::LEAF_GROUP,               \
                      CURVE::WSUM_GROUP, CURVE::WSUM_THREADS,                  \
                      CURVE::WSUM_CLUSTER, CURVE::LANES_GROUP,                 \
                      CURVE::LANES_THREADS, CURVE::LANES_CLUSTER,              \
                      CURVE::LADDER_POINTS, (int)sizeof(Point<F>),             \
-                     leaf_threads<CURVE>(), (int)FpKTraits<F>::SLICED};       \
+                     leaf_threads<CURVE>(), (int)FpKTraits<F>::SLICED,        \
+                     LS::GROUP, LS::THREADS, LS::BLOCKS, LS::FOLD};           \
     for (int i = 0; i < (int)(sizeof v / sizeof v[0]); ++i) out[i] = v[i];    \
   }
 
@@ -1100,6 +1123,306 @@ __global__ void __launch_bounds__(THREADS, BLOCKS)
   }
 }
 
+// ---- complete point operations over fp^K, a point's coefficients over a group
+
+// The exchange of one group's point operations, by coefficient: a level's
+// values and their NR multiples (at most 9: alg 7's second level has 6
+// values, 3 of them first operands), and its products' columns (at most 6).
+template <class P, int K>
+struct PointSlots {
+  XSlot<P> v[9][K], r[6][K];
+};
+
+// Product k's operand as value a, plus value a2 (7: none): 6 bits a
+// product, for SlicedPoint::level's DA and DB.
+GT_HD constexpr uint64_t opnd(int k, int a, int a2 = 7) {
+  return (uint64_t)(a | a2 << 3) << (6 * k);
+}
+
+// ec_complete.cuh's padd (alg 7) and pdbl (alg 9) over F = fp^K (u^K =
+// NR) on a group of G lanes that hold a point by coefficient: the first
+// SPAN = min(G, K) lanes own distinct coefficients, lane l coefficients l,
+// l + SPAN, ... (KPL = K / SPAN of them); where G > K, LPC = G / SPAN
+// lanes hold each coefficient, the same values on each (its copies, half
+// = 0 .. LPC - 1).  An addition is KPL base additions a lane.  A formula's
+// independent products run as one level (level): the lanes write the
+// level's values to the group's slots, one sync, each lane computes its
+// columns of its products, one sync, each lane reads its columns of all
+// of them.  So a point operation is its two levels of products and the
+// b3 level between them (mul_b3), in the formula's order: every field
+// operation ends canonical, so the columns give FpKOps.mul's limbs and the
+// point the plain version's representative.  Every base product is
+// inlined (ptxas -O3 miscompiles the fp4 product called as a function,
+// ops/inline_check.py).
+template <class Curve, int G>
+struct SlicedPoint {
+  using T = FpKTraits<typename Curve::F>;
+  using P = typename T::P;
+  using B = Fp<P>;
+  static constexpr int K = T::DEG, NR = T::NR, E = Curve::B3_COEF;
+  static constexpr int SPAN = G < K ? G : K, KPL = K / SPAN, LPC = G / SPAN;
+  static_assert(K % SPAN == 0 && G % SPAN == 0, "G divides K, or K divides G");
+  using Slots = PointSlots<P, K>;
+
+  Slots& s;
+  const XSlot<P>* kb3;  // the block's b3 column constants (b3_column)
+  int lane0, half;      // this lane's first coefficient and its copy
+  GroupSync sync;
+
+  GT_HD int coef(int t) const { return lane0 + SPAN * t; }
+
+  // Column m's constant of b3 = c u^E: c, times NR where E > m.
+  GT_HD static B b3_column(int m) {
+    const B c = Curve::b3().c[E];
+    return E > m ? mul_const<NR>(c) : c;
+  }
+
+  // r_k = a_k b_k for the level's M products, from its NV values v: each
+  // lane writes its coefficients of the values (a coefficient's copies
+  // share them out) and NR times those of the first NA, one sync; each
+  // lane computes its columns of products k = half, half + LPC, ...
+  // (column m is sum_s a_(m-s mod K) b_s, a's NR multiple where s > m, so
+  // a product's first operand is among the first NA values) into the r
+  // slots, one sync; every lane reads its columns of all M.  DA, DB:
+  // opnd() of each product's first and second operand.  The k loop stays
+  // rolled: one column's code, two base products in flight.
+  template <int M, int NV, int NA, uint64_t DA, uint64_t DB>
+  GT_INLINE void level(B (*r)[KPL], const B (*v)[KPL]) const {
+    static_assert(M <= 6 && NV + NA <= 9 && NV < 7 && NA <= NV, "slots");
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i % LPC == half)
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          slot_put(s.v[i][coef(t)], v[i][t]);
+          if (i < NA) slot_put(s.v[NV + i][coef(t)], mul_const<NR>(v[i][t]));
+        }
+    sync();
+#pragma unroll 1
+    for (int k = half; k < M; k += LPC) {
+      const int a = DA >> (6 * k) & 7, a2 = DA >> (6 * k + 3) & 7;
+      const int b = DB >> (6 * k) & 7, b2 = DB >> (6 * k + 3) & 7;
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) {
+        const int m = coef(t);
+        B acc = fp_zero<P>();
+#pragma unroll 2
+        for (int i = 0; i < K; ++i) {
+          const int j = (m - i + K) % K, an = i > m ? NV : 0;
+          B x = slot_get(s.v[an + a][j]), y = slot_get(s.v[b][i]);
+          if (a2 != 7) x = add(x, slot_get(s.v[an + a2][j]));
+          if (b2 != 7) y = add(y, slot_get(s.v[b2][i]));
+          acc = add(acc, ::mul(x, y));
+        }
+        slot_put(s.r[k][m], acc);
+      }
+    }
+    sync();
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) r[k][t] = slot_get(s.r[k][coef(t)]);
+  }
+
+  // r_q = b3 a_q for q < NB (r may be a): column m is a_(m-E mod K) times
+  // the block's kb3[m], one base product; the operands through the v
+  // slots, a sync before the reads and one after.
+  template <int NB>
+  GT_INLINE void mul_b3(B (*r)[KPL], const B (*a)[KPL]) const {
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+      if (q % LPC == half)
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) slot_put(s.v[q][coef(t)], a[q][t]);
+    sync();
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      const int m = coef(t);
+      const B c = slot_get(kb3[m]);
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+        r[q][t] = ::mul(slot_get(s.v[q][(m - E + K) % K]), c);
+    }
+    sync();
+  }
+
+  // P = 2P: alg 9's Y^2, YZ, Z^2, XY; b3 Z^2; t2 Z3, YZ Z3, t0 Y3, t0 XY
+  GT_INLINE void pdbl(B* X, B* Y, B* Z) const {
+    B v[6][KPL], r[4][KPL], t2[1][KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      v[0][t] = Y[t];
+      v[1][t] = Z[t];
+      v[2][t] = X[t];
+    }
+    level<4, 3, 2, opnd(0, 0) | opnd(1, 0) | opnd(2, 1) | opnd(3, 0),
+          opnd(0, 0) | opnd(1, 1) | opnd(2, 1) | opnd(3, 2)>(r, v);
+    mul_b3<1>(t2, r + 2);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      const B t0 = r[0][t], b = t2[0][t];
+      v[0][t] = dbl(dbl(dbl(t0)));       // Z3 = 8 Y^2
+      v[1][t] = sub(t0, add(dbl(b), b));  // t0 = Y^2 - 3 b3 Z^2
+      v[2][t] = b;
+      v[3][t] = r[1][t];                  // YZ
+      v[4][t] = add(t0, b);               // Y3
+      v[5][t] = r[3][t];                  // XY
+    }
+    level<4, 6, 2, opnd(0, 0) | opnd(1, 0) | opnd(2, 1) | opnd(3, 1),
+          opnd(0, 2) | opnd(1, 3) | opnd(2, 4) | opnd(3, 5)>(r, v);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      X[t] = dbl(r[3][t]);
+      Y[t] = add(r[2][t], r[0][t]);
+      Z[t] = r[1][t];
+    }
+  }
+
+  // P = P + Q: alg 7's X1X2, Y1Y2, Z1Z2, (X1+Y1)(X2+Y2), (Y1+Z1)(Y2+Z2),
+  // (X1+Z1)(X2+Z2) (the sums at the reader); b3 t2, b3 Y3; t3 t1, Y3 t4,
+  // Z3 t1, Y3 t0, Z3 t4, t3 t0
+  GT_INLINE void padd(B* X, B* Y, B* Z, const B* X2, const B* Y2,
+                      const B* Z2) const {
+    B v[6][KPL], r[6][KPL], b[2][KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      v[0][t] = X[t];
+      v[1][t] = Y[t];
+      v[2][t] = Z[t];
+      v[3][t] = X2[t];
+      v[4][t] = Y2[t];
+      v[5][t] = Z2[t];
+    }
+    level<6, 6, 3,
+          opnd(0, 0) | opnd(1, 1) | opnd(2, 2) | opnd(3, 0, 1) | opnd(4, 1, 2) |
+              opnd(5, 0, 2),
+          opnd(0, 3) | opnd(1, 4) | opnd(2, 5) | opnd(3, 3, 4) | opnd(4, 4, 5) |
+              opnd(5, 3, 5)>(r, v);
+    B t0[KPL], t1[KPL], t3[KPL], t4[KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      t1[t] = r[1][t];
+      t3[t] = sub(r[3][t], add(r[0][t], r[1][t]));
+      t4[t] = sub(r[4][t], add(r[1][t], r[2][t]));
+      b[0][t] = r[2][t];                                // t2
+      b[1][t] = sub(r[5][t], add(r[0][t], r[2][t]));  // Y3
+      t0[t] = add(dbl(r[0][t]), r[0][t]);              // 3 X1X2
+    }
+    mul_b3<2>(b, b);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      v[0][t] = t3[t];
+      v[1][t] = add(t1[t], b[0][t]);  // Z3
+      v[2][t] = b[1][t];              // Y3
+      v[3][t] = sub(t1[t], b[0][t]);  // t1
+      v[4][t] = t4[t];
+      v[5][t] = t0[t];
+    }
+    level<6, 6, 3,
+          opnd(0, 0) | opnd(1, 2) | opnd(2, 1) | opnd(3, 2) | opnd(4, 1) |
+              opnd(5, 0),
+          opnd(0, 3) | opnd(1, 4) | opnd(2, 3) | opnd(3, 5) | opnd(4, 4) |
+              opnd(5, 5)>(r, v);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      X[t] = sub(r[0][t], r[1][t]);
+      Y[t] = add(r[2][t], r[3][t]);
+      Z[t] = add(r[4][t], r[5][t]);
+    }
+  }
+};
+
+// A block's shared memory of a sliced kernel: dynamic on the card (above
+// 48 KB it needs the attribute, launch_sliced), a static object on the
+// host.
+template <class S>
+GT_INLINE S& sliced_shared() {
+#ifdef __CUDACC__
+  extern __shared__ __align__(16) unsigned char sliced_bytes[];
+  return *reinterpret_cast<S*>(sliced_bytes);
+#else
+  __shared__ S s;
+  return s;
+#endif
+}
+
+// A point's coefficients as a lane holds them: coordinate c's coefficient
+// m of a point of [3*L16, ...] limb planes at src, limb stride `stride`.
+template <class SP>
+GT_HD void load_sliced(const SP& sp, const int64_t* src, long stride,
+                       typename SP::B* X, typename SP::B* Y,
+                       typename SP::B* Z) {
+  constexpr long L = Fp<typename SP::P>::L16, L3 = SP::K * L;
+#pragma unroll
+  for (int t = 0; t < SP::KPL; ++t) {
+    const int64_t* c = src + sp.coef(t) * L * stride;
+    X[t] = load<typename SP::P>(c, stride);
+    Y[t] = load<typename SP::P>(c + L3 * stride, stride);
+    Z[t] = load<typename SP::P>(c + 2 * L3 * stride, stride);
+  }
+}
+
+// The same stored, by a coefficient's first copy (half 0).
+template <class SP>
+GT_HD void store_sliced(const SP& sp, int64_t* dst, long stride,
+                        const typename SP::B* X, const typename SP::B* Y,
+                        const typename SP::B* Z) {
+  constexpr long L = Fp<typename SP::P>::L16, L3 = SP::K * L;
+  if (sp.half) return;
+#pragma unroll
+  for (int t = 0; t < SP::KPL; ++t) {
+    int64_t* c = dst + sp.coef(t) * L * stride;
+    store(X[t], c, stride);
+    store(Y[t], c + L3 * stride, stride);
+    store(Z[t], c + 2 * L3 * stride, stride);
+  }
+}
+
+// The Horner fold's block over fp^K: b3's columns and the group's slots.
+template <class Curve, int G>
+struct FoldSlicedShared {
+  using SP = SlicedPoint<Curve, G>;
+  XSlot<typename SP::P> kb3[SP::K];
+  typename SP::Slots slots;
+};
+
+// S: [3*L16, nw]; out: [3*L16, 1] = sum_w 2^(c w) S_w, the same function as
+// horner_fold_kernel, for F = fp^K: one group of G lanes (SlicedPoint)
+// runs the chain, c doublings and one addition a window from the highest
+// window that is not the identity (every lane finds it: no shared word),
+// each lane loading its coefficients of S[w].  One block of G threads.
+// The chain is latency-bound: a doubling is 3 levels, 5 syncs of the
+// group, and each lane's columns (at G = 16, four lanes a coefficient,
+// one or two products of 4 base products a level) in place of lane 0's
+// 16-product schoolbook and the additions between levels.
+template <class Curve, int G>
+__global__ void __launch_bounds__(G)
+    horner_fold_sliced_kernel(const int64_t* S, int64_t* out, int nw, int c) {
+  using SP = SlicedPoint<Curve, G>;
+  using Sh = FoldSlicedShared<Curve, G>;
+  using B = typename SP::B;
+  constexpr int KPL = SP::KPL;
+  static_assert(G <= 16 && 32 % G == 0, "a group lies inside one warp");
+  __shared__ Sh sh;
+  const int tid = threadIdx.x, lane = tid % G;
+  for (int m = tid; m < SP::K; m += blockDim.x) slot_put(sh.kb3[m], SP::b3_column(m));
+  __syncthreads();
+  const SP sp{sh.slots, sh.kb3, lane % SP::SPAN, lane / SP::SPAN,
+              GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+  using IO = FieldIO<typename Curve::F>;
+  const long Zoff = 2L * Curve::F::L16 * nw;
+  int top = nw - 1;
+  while (top > 0 && is_zero(IO::load(S + top + Zoff, nw))) --top;
+  B X[KPL], Y[KPL], Z[KPL], X2[KPL], Y2[KPL], Z2[KPL];
+  load_sliced(sp, S + top, nw, X, Y, Z);
+  for (int w = top - 1; w >= 0; --w) {
+    for (int k = 0; k < c; ++k) sp.pdbl(X, Y, Z);
+    load_sliced(sp, S + w, nw, X2, Y2, Z2);
+    sp.padd(X, Y, Z, X2, Y2, Z2);
+  }
+  store_sliced(sp, out, 1, X, Y, Z);
+}
+
 // ---- the chunked, windowed ladder ---------------------------------------------
 
 constexpr int LADDER_CHUNKS = 16;  // K: chunks a scalar, a thread each
@@ -1109,6 +1432,22 @@ constexpr int LADDER_TABLE = 1 << LADDER_WINDOW;
 // 8 would pass 48 KB of static shared memory) x K chunks
 template <class Curve>
 constexpr int ladder_threads() { return Curve::LADDER_POINTS * LADDER_CHUNKS; }
+
+// A curve's shipped ladder and fold (GNARK_MSM_SHAPE): over fp^K the
+// sliced kernels' LADDER_GROUP threads a chain in blocks of
+// LADDER_THREADS, LADDER_BLOCKS an SM, and FOLD_GROUP threads; otherwise
+// ladder_kernel's thread a chain and horner_fold_kernel's warp.
+template <class Curve, bool = FpKTraits<typename Curve::F>::SLICED>
+struct LadderShape {
+  static constexpr int GROUP = Curve::LADDER_GROUP,
+                       THREADS = Curve::LADDER_THREADS,
+                       BLOCKS = Curve::LADDER_BLOCKS, FOLD = Curve::FOLD_GROUP;
+};
+template <class Curve>
+struct LadderShape<Curve, false> {
+  static constexpr int GROUP = 1, THREADS = ladder_threads<Curve>(),
+                       BLOCKS = Curve::LADDER_BLOCKS, FOLD = FOLD_THREADS;
+};
 
 // Levels of the table recipe T[2k] = 2 T[k], T[2k+1] = T[2k] + T[1]:
 // entry e is ready after table_depth(e) of them.
@@ -1179,6 +1518,127 @@ __global__ void __launch_bounds__(ladder_threads<Curve>(), Curve::LADDER_BLOCKS)
     }
     store_point<Curve>(acc, out + (long)j * n + i, (long)K * n);
   }
+}
+
+// A table entry over fp^K, by coordinate and coefficient.
+template <class P, int K>
+using SlicedEntry = XSlot<P>[3][K];
+
+// The sliced ladder's block: b3's columns, the table of LADDER_TABLE
+// multiples of each of its PTS points, and its groups' slots (110.8 KB at
+// G = 4 and 128 threads: two points).
+template <class Curve, int G, int THREADS>
+struct LadderShared {
+  using SP = SlicedPoint<Curve, G>;
+  using P = typename SP::P;
+  static constexpr int CHAINS = THREADS / G;
+  static constexpr int PTS = CHAINS >= LADDER_CHUNKS ? CHAINS / LADDER_CHUNKS : 1;
+  XSlot<P> kb3[SP::K];
+  SlicedEntry<P, SP::K> table[PTS][LADDER_TABLE];
+  typename SP::Slots slots[CHAINS];
+};
+
+// xs, ys, inf, sc, out as ladder_kernel's, and the same function, for F =
+// fp^K.  Chain q = (point q / K, chunk q % K) runs on the G consecutive
+// threads G q .. G q + G - 1 (SlicedPoint): a block of T threads runs
+// T / G chains, PTS = T / (G K) points (or one point's T / G chunks).  The
+// block builds each point's table of 2^w multiples in shared memory by
+// ladder_kernel's recipe and levels (table_depth), an entry of a level on
+// a group, each lane writing its coefficients; then each chain runs its
+// windows, every lane of the group reading the same digit (the table
+// lookup is the group's) and only its coefficients of T[digit].  A
+// coefficient's first copy stores its limbs of X, Y and Z.  What bounds it
+// is the products (65,536 chains of 12 doublings and 3 additions at 4,096
+// points, 153 M base products with the tables), so the lanes stay busy:
+// at G = 4 a lane holds one coefficient and computes its column of every
+// product of a level (at G = 8, two lanes a coefficient, each half of the
+// products, it was 1.7x slower on an H100).  A group's slots are 2.9 KB;
+// at 128 threads and G = 4 shared memory holds 2 blocks an SM.
+template <class Curve, int G, int THREADS, int BLOCKS>
+__global__ void __launch_bounds__(THREADS, BLOCKS)
+    ladder_sliced_kernel(const int64_t* xs, const int64_t* ys,
+                         const uint8_t* inf, const int64_t* sc, int64_t* out,
+                         int n, int Ls) {
+  using SP = SlicedPoint<Curve, G>;
+  using Sh = LadderShared<Curve, G, THREADS>;
+  using P = typename SP::P;
+  using B = typename SP::B;
+  constexpr int K = LADDER_CHUNKS, w = LADDER_WINDOW, D = SP::K;
+  constexpr int KPL = SP::KPL, L = Fp<P>::L16;
+  static_assert(G <= 16 && 32 % G == 0, "a group lies inside one warp");
+  Sh& sh = sliced_shared<Sh>();
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid % G;
+  const int chains = nt / G, pts = chains >= K ? chains / K : 1;
+  const long q0 = (long)blockIdx.x * chains, i0 = q0 / K;
+  const SP sp{sh.slots[tid / G], sh.kb3, lane % SP::SPAN, lane / SP::SPAN,
+              GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+  // b3's columns; T[0] = (0 : 1 : 0) and T[1] = (x : y : 1), or the
+  // identity, a thread a (point, coefficient)
+  for (int m = tid; m < D; m += nt) slot_put(sh.kb3[m], SP::b3_column(m));
+  for (int o = tid; o < pts * D; o += nt) {
+    const int k = o / D, m = o % D;
+    const long i = i0 + k;
+    const B zero = fp_zero<P>(), lead = m == 0 ? fp_one<P>() : zero;
+    B x = zero, y = lead, z = zero;
+    if (i < n && !inf[i]) {
+      x = load<P>(xs + (long)m * L * n + i, n);
+      y = load<P>(ys + (long)m * L * n + i, n);
+      z = lead;
+    }
+    SlicedEntry<P, D>* T = sh.table[k];
+    slot_put(T[0][0][m], zero);
+    slot_put(T[0][1][m], lead);
+    slot_put(T[0][2][m], zero);
+    slot_put(T[1][0][m], x);
+    slot_put(T[1][1][m], y);
+    slot_put(T[1][2][m], z);
+  }
+  __syncthreads();
+  auto get = [&](const SlicedEntry<P, D>& e, B* X, B* Y, B* Z) {
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      X[t] = slot_get(e[0][sp.coef(t)]);
+      Y[t] = slot_get(e[1][sp.coef(t)]);
+      Z[t] = slot_get(e[2][sp.coef(t)]);
+    }
+  };
+  B X[KPL], Y[KPL], Z[KPL], X2[KPL], Y2[KPL], Z2[KPL];
+  for (int lev = 1, top = table_depth(LADDER_TABLE - 1); lev <= top; ++lev) {
+    for (int o = tid / G; o < pts * LADDER_TABLE; o += chains) {
+      const int e = o % LADDER_TABLE;
+      if (e < 2 || table_depth(e) != lev) continue;  // the whole group
+      SlicedEntry<P, D>* T = sh.table[o / LADDER_TABLE];
+      get(T[(e & 1) ? e - 1 : e >> 1], X, Y, Z);
+      if (e & 1) {
+        get(T[1], X2, Y2, Z2);
+        sp.padd(X, Y, Z, X2, Y2, Z2);
+      } else {
+        sp.pdbl(X, Y, Z);
+      }
+      if (sp.half == 0)
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          slot_put(T[e][0][sp.coef(t)], X[t]);
+          slot_put(T[e][1][sp.coef(t)], Y[t]);
+          slot_put(T[e][2][sp.coef(t)], Z[t]);
+        }
+    }
+    __syncthreads();
+  }
+  const long q = q0 + tid / G;
+  if (q >= (long)n * K) return;  // the whole group
+  const long i = q / K;
+  const int j = (int)(q % K);
+  const SlicedEntry<P, D>* T = sh.table[i - i0];
+  const int Bc = 16 * Ls / K, nwin = (Bc + w - 1) / w, top = (nwin - 1) * w;
+  const int lo = j * Bc;
+  get(T[scalar_bits(sc, n, i, lo + top, Bc - top)], X, Y, Z);
+  for (int m = nwin - 2; m >= 0; --m) {
+    for (int d = 0; d < w; ++d) sp.pdbl(X, Y, Z);
+    get(T[scalar_bits(sc, n, i, lo + m * w, w)], X2, Y2, Z2);
+    sp.padd(X, Y, Z, X2, Y2, Z2);
+  }
+  store_sliced(sp, out + (long)j * n + i, (long)K * n, X, Y, Z);
 }
 
 constexpr int REDUCE_LANES = 256;
@@ -1300,6 +1760,66 @@ int launch_lane_offsets(const void* tot, void* out, void* scratch, int nw,
       nw, R);
 }
 
+template <class Curve, int G, int THREADS, int BLOCKS>
+int launch_ladder_sliced(const void* xs, const void* ys, const void* inf,
+                         const void* sc, void* out, int n, int Ls,
+                         void* stream) {
+  constexpr int shared = (int)sizeof(LadderShared<Curve, G, THREADS>);
+  static_assert(shared <= 227 * 1024, "the block passes its shared memory");
+  auto kern = ladder_sliced_kernel<Curve, G, THREADS, BLOCKS>;
+  if (shared > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const long chains = (long)n * LADDER_CHUNKS;
+  constexpr int per = THREADS / G;
+  kern<<<(unsigned)((chains + per - 1) / per), THREADS, shared,
+         (cudaStream_t)stream>>>((const int64_t*)xs, (const int64_t*)ys,
+                                 (const uint8_t*)inf, (const int64_t*)sc,
+                                 (int64_t*)out, n, Ls);
+  return (int)cudaGetLastError();
+}
+
+template <class Curve, int G>
+int launch_horner_fold_sliced(const void* S, void* out, int nw, int c,
+                              void* stream) {
+  horner_fold_sliced_kernel<Curve, G><<<1, G, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)S, (int64_t*)out, nw, c);
+  return (int)cudaGetLastError();
+}
+
+// A curve's ladder and Horner fold: the sliced kernels over fp^K (at its
+// LadderShape), ladder_kernel and horner_fold_kernel otherwise.
+template <class Curve>
+int launch_ladder(const void* xs, const void* ys, const void* inf,
+                  const void* sc, void* out, int n, int Ls, void* stream) {
+  if constexpr (FpKTraits<typename Curve::F>::SLICED) {
+    using LS = LadderShape<Curve>;
+    return launch_ladder_sliced<Curve, LS::GROUP, LS::THREADS, LS::BLOCKS>(
+        xs, ys, inf, sc, out, n, Ls, stream);
+  } else {
+    ladder_kernel<Curve><<<(n + Curve::LADDER_POINTS - 1) /
+                               Curve::LADDER_POINTS,
+                           ladder_threads<Curve>(), 0, (cudaStream_t)stream>>>(
+        (const int64_t*)xs, (const int64_t*)ys, (const uint8_t*)inf,
+        (const int64_t*)sc, (int64_t*)out, n, Ls);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <class Curve>
+int launch_horner_fold(const void* S, void* out, int nw, int c, void* stream) {
+  if constexpr (FpKTraits<typename Curve::F>::SLICED) {
+    return launch_horner_fold_sliced<Curve, Curve::FOLD_GROUP>(S, out, nw, c,
+                                                              stream);
+  } else {
+    horner_fold_kernel<Curve><<<1, FOLD_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)S, (int64_t*)out, nw, c);
+    return (int)cudaGetLastError();
+  }
+}
+
 #define GNARK_MSM_LAUNCHERS(NAME, CURVE)                                      \
   extern "C" int gnark_msm_leaf_prefix_##NAME(                                \
       const void* sx, const void* sy, void* rows, int nw, int C, int R,       \
@@ -1323,19 +1843,12 @@ int launch_lane_offsets(const void* tot, void* out, void* scratch, int nw,
   }                                                                           \
   extern "C" int gnark_msm_horner_fold_##NAME(const void* S, void* out,       \
                                               int nw, int c, void* stream) {  \
-    horner_fold_kernel<CURVE><<<1, FOLD_THREADS, 0, (cudaStream_t)stream>>>(  \
-        (const int64_t*)S, (int64_t*)out, nw, c);                             \
-    return (int)cudaGetLastError();                                           \
+    return launch_horner_fold<CURVE>(S, out, nw, c, stream);                  \
   }                                                                           \
   extern "C" int gnark_msm_ladder_##NAME(                                    \
       const void* xs, const void* ys, const void* inf, const void* sc,        \
       void* out, int n, int Ls, void* stream) {                               \
-    ladder_kernel<CURVE><<<(n + CURVE::LADDER_POINTS - 1) /                   \
-                               CURVE::LADDER_POINTS,                          \
-                           ladder_threads<CURVE>(), 0, (cudaStream_t)stream>>>( \
-        (const int64_t*)xs, (const int64_t*)ys, (const uint8_t*)inf,          \
-        (const int64_t*)sc, (int64_t*)out, n, Ls);                            \
-    return (int)cudaGetLastError();                                           \
+    return launch_ladder<CURVE>(xs, ys, inf, sc, out, n, Ls, stream);         \
   }                                                                           \
   extern "C" int gnark_msm_reduce_##NAME(const void* pts, void* out,          \
                                          void* scratch, int n, int K,         \

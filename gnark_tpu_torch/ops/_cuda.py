@@ -60,12 +60,16 @@ _L16 = {"g1": 16, "g2": 32,     # 16-bit limb planes of one coordinate
 # WSUM_CLUSTER (threads a weighted-sum operation, threads a block, blocks
 # a window), LANES_GROUP, LANES_THREADS, LANES_CLUSTER (the same for a
 # lane-offsets addition), LADDER_POINTS (points a ladder block), a
-# Point<F>'s bytes, the leaf's threads a block, and whether the leaf is
-# leaf_sliced_kernel (fp4: a chain's coefficients over the group)
+# Point<F>'s bytes, the leaf's threads a block, whether the leaf, the
+# ladder and the fold are the sliced kernels (fp4: a chain's coefficients
+# over the group), and the shipped ladder's threads a chain, threads a
+# block and blocks an SM and the fold's threads (LadderShape: 1, 16
+# LADDER_POINTS, LADDER_BLOCKS and one warp for the template kernels)
 SHAPE = ("words", "degree", "prod_s", "b3_product", "leaf_group",
          "wsum_group", "wsum_threads", "wsum_cluster", "lanes_group",
          "lanes_threads", "lanes_cluster", "ladder_points", "point_bytes",
-         "leaf_threads", "leaf_sliced")
+         "leaf_threads", "leaf_sliced", "ladder_group", "ladder_threads",
+         "ladder_blocks", "fold_group")
 LADDER_CHUNKS = 16       # msm_kernels.cu's ladder_kernel: chunks a
 LADDER_WINDOW = 4        # scalar, bits a window
 # microbench.cu's enum Op, in order; then the two kernels of their own

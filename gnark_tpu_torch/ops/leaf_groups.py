@@ -1,7 +1,7 @@
 """A group kernel at several thread-group widths and block sizes, on one card.
 
     python -m gnark_tpu_torch.ops.leaf_groups
-        [--kernel leaf_prefix|weighted_sum|lane_offsets]
+        [--kernel leaf_prefix|weighted_sum|lane_offsets|ladder|horner_fold]
         [--kind g2_bls24315] [--csrc DIR] [--baseline DIR] [--out FILE]
 
 Builds one library that instantiates the kernel of ``csrc/msm_kernels.cu``
@@ -29,7 +29,20 @@ directory), the two compilers side by side:
     for G1 at G = 2, 4, 8 and G2 at G = 4, 8, 16, each in blocks of 128
     and 256 threads, in clusters of 1, 2 and 4 blocks a window, on the
     2^16 plan's lane totals (24 windows of 512) for G1 and G2, made by
-    the plain leaf on the card.
+    the plain leaf on the card;
+  * ``ladder --kind g2_bls24315``: BLS24-315's fp4 ladder
+    ``ladder_sliced_kernel<G2Bls24, G, THREADS, BLOCKS>`` at each of
+    LADDER_SHAPES on 4,096 points (1 in 64 infinite, random scalars), as
+    chip_smoke.py's phase 8 runs it;
+  * ``horner_fold --kind g2_bls24315``: its fold
+    ``horner_fold_sliced_kernel<G2Bls24, G>`` at G in FOLD_GROUPS on the
+    2^16 plan's window sums (24 windows, c = 11, made by the plain leaf,
+    lane offsets, bucket and weighted-sum steps on the card) and on the
+    ladder's chunk sums of those 4,096 points (16, c = 16);
+    ``--baseline`` for these two is the other version's
+    ``msm_g2_bls24315.cu`` (its ``gnark_msm_{ladder,horner_fold}_
+    g2_bls24315``).  The trial shapes build in translation units of their
+    own, side by side, never in the shipped library.
 
 Every shape (and the baseline) is held against the plain version on the
 same CUDA tensors, bit for bit, and timed with CUDA events: 3 launches
@@ -39,7 +52,8 @@ one line a shape and, with ``--out``, writes the numbers as JSON.  The
 shapes that ship are ``G1/G2::LEAF_GROUP``, ``WSUM_GROUP``,
 ``WSUM_THREADS``, ``WSUM_CLUSTER`` and ``LANES_GROUP``, ``LANES_THREADS``,
 ``LANES_CLUSTER``, and ``G2Bls24::LEAF_GROUP``, ``LEAF_THREADS``,
-``LEAF_BLOCKS``.
+``LEAF_BLOCKS``, ``LADDER_GROUP``, ``LADDER_THREADS``, ``LADDER_BLOCKS``
+and ``FOLD_GROUP``.
 """
 
 from __future__ import annotations
@@ -72,6 +86,17 @@ WIDTHS = {"g1": (2, 4, 8), "g2": (4, 8, 16)}
 SLICED_SHAPES = [(2, 128, 2), (4, 128, 2), (4, 128, 3), (4, 128, 4),
                  (4, 64, 6), (8, 128, 2), (8, 128, 3), (8, 128, 4),
                  (8, 64, 6)]
+# the fp4 ladder's trial shapes: (G, threads a block, resident blocks an
+# SM that its launch bounds ask for: a register cap of 65,536 / (threads
+# x blocks), at most 255); a block holds threads / G / 16 points (or half
+# a point's chunks at G = 8 and 64 threads), 9.2 KB of table and 2.9 KB of
+# slots a group, so G = 4 and 2 in 128 threads pass half an SM's shared
+# memory.  One translation unit for each (G, threads), built side by side.
+LADDER_SHAPES = [(8, 128, 2), (8, 128, 3), (8, 128, 4), (8, 64, 4),
+                 (8, 64, 6), (8, 64, 8), (4, 64, 4), (4, 64, 6), (4, 128, 2),
+                 (2, 64, 2)]
+FOLD_GROUPS = (4, 8, 16)      # the fp4 fold's trial widths
+N_LADDER = 1 << 12
 BLOCKS = (128, 256, 512)      # the weighted sum's threads a block
 CLUSTERS = (1, 2, 4, 8)       # and its blocks a window, from 256 threads
 WSUM_SHAPES = [(g, t, cl) for g in (2, 4, 8, 16) for t in BLOCKS
@@ -124,6 +149,38 @@ _LANES_TU = """#include "msm_kernels.cu"
               if g in ws)
 _TU = {"leaf_prefix": _LEAF_TU, "weighted_sum": _WSUM_TU,
        "lane_offsets": _LANES_TU}
+_FP4_HEAD = """#define GNARK_MSM_BLS24315
+#include "msm_kernels.cu"
+"""
+_LADDER_TRIAL = """#define TRIAL(G, T, B)                                                      \\
+  extern "C" int ladder_trial_g2_bls24315_##G##_##T##_##B(const void* xs,   \\
+      const void* ys, const void* inf, const void* sc, void* out, int n,    \\
+      int Ls, void* stream) {                                               \\
+    return launch_ladder_sliced<G2Bls24, G, T, B>(xs, ys, inf, sc, out, n,  \\
+                                                  Ls, stream);              \\
+  }
+"""
+_FOLD_TRIAL = """#define TRIAL(G)                                                            \\
+  extern "C" int fold_trial_g2_bls24315_##G(const void* S, void* out,       \\
+      int nw, int c, void* stream) {                                        \\
+    return launch_horner_fold_sliced<G2Bls24, G>(S, out, nw, c, stream);    \\
+  }
+"""
+
+
+def trial_units(kernel, kind=None):
+    """{name: source} of the translation units a sweep builds: one, or
+    for the fp4 ladder one for each (G, threads) of LADDER_SHAPES."""
+    if kernel == "ladder":
+        units = {}
+        for g, t, b in LADDER_SHAPES:
+            units.setdefault(f"trial_{g}_{t}", _FP4_HEAD + _LADDER_TRIAL)
+            units[f"trial_{g}_{t}"] += f"TRIAL({g}, {t}, {b})\n"
+        return units
+    if kernel == "horner_fold":
+        return {"trial": _FP4_HEAD + _FOLD_TRIAL + "".join(
+            f"TRIAL({g})\n" for g in FOLD_GROUPS)}
+    return {"trial": _SLICED_TU if kind else _TU[kernel]}
 
 
 def _build(name, source, include):
@@ -149,7 +206,8 @@ def kernel_registers(report, kernel="leaf_prefix"):
     without a width) -> the stack and register lines of each
     instantiation of ``{kernel}_kernel``."""
     out, name, props = {}, None, ""
-    labels = ("G", "T", "B") if kernel == "leaf_sliced" else ("G", "T", "CL")
+    labels = (("G", "T", "B") if kernel in ("leaf_sliced", "ladder_sliced")
+              else ("G", "T", "CL"))
     for line in report.splitlines():
         m = re.search(rf"Function properties for _Z\d+{kernel}_kernelI\d+"
                       r"(G[12](?:Bls24)?)((?:Li\d+E)*)E", line)
@@ -168,11 +226,14 @@ def kernel_registers(report, kernel="leaf_prefix"):
     return out
 
 
-def _bind(lib, fn, ints):
-    """A launcher of three pointers, ``ints`` ints and the stream."""
+def _bind(lib, fn, ints, ptrs=3):
+    """A launcher of ``ptrs`` pointers, ``ints`` ints and the stream;
+    ``lib`` may be {name: library}, the one that has ``fn``."""
+    if isinstance(lib, dict):
+        lib = next(x for x in lib.values() if hasattr(x, fn))
     f = getattr(lib, fn)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    f.argtypes = [vp] * 3 + [ci] * ints + [vp]
+    f.argtypes = [vp] * ptrs + [ci] * ints + [vp]
     f.restype = ci
     return f
 
@@ -246,10 +307,10 @@ def leaf_cases(libs, rng, device, kind=None):
         nw, C, _, R = sx.shape
         if kind == "g2_bls24315":
             fns = {f"G={g} T={t} B={b}": _bind(
-                libs["trial"], f"leaf_trial_{kind}_{g}_{t}_{b}", 3)
+                _trials(libs), f"leaf_trial_{kind}_{g}_{t}_{b}", 3)
                 for g, t, b in SLICED_SHAPES}
         else:
-            fns = {f"G={g}": _bind(libs["trial"], f"leaf_trial_{kind}_{g}", 3)
+            fns = {f"G={g}": _bind(_trials(libs), f"leaf_trial_{kind}_{g}", 3)
                    for g in WIDTHS[kind]}
         if "baseline" in libs:
             fns = {"baseline": _bind(libs["baseline"],
@@ -282,7 +343,7 @@ def wsum_cases(libs, rng, device):
         scratch = torch.empty(nw * (nb + nb // 2 + 1) * 3 * _cuda._L16[kind]
                               // 2, dtype=torch.int32, device=device)
         fns = {f"G={g} T={t} CL={cl}": _bind(
-            libs["trial"], f"wsum_trial_{kind}_{g}_{t}_{cl}", 2)
+            _trials(libs), f"wsum_trial_{kind}_{g}_{t}_{cl}", 2)
             for g, t, cl in WSUM_SHAPES if g in WIDTHS[kind]}
         if "baseline" in libs:
             fns = {"baseline": _bind(libs["baseline"],
@@ -299,6 +360,87 @@ def wsum_cases(libs, rng, device):
             return nw * t * cl / 32 / sms
         yield (f"{kind} nw={nw} nb={nb}", {"kind": kind, "nw": nw, "nb": nb},
                want, variants, warps)
+
+
+def _trials(libs):
+    return {k: v for k, v in libs.items() if k != "baseline"}
+
+
+def _ladder_inputs(rng, device, n=None):
+    """n (N_LADDER) fp4 points 2^(i mod 64) G, 1 in 64 infinite, random
+    scalars."""
+    n = n or N_LADDER
+    kind = "g2_bls24315"
+    G, H, gen = _group(kind)
+    base, P = [], gen
+    for _ in range(64):
+        base.append(P)
+        P = H.double(P)
+    reps = -(-n // 64)
+    xs = G.F.pack([p[0] for p in base], device).repeat(1, reps)[:, :n]
+    ys = G.F.pack([p[1] for p in base], device).repeat(1, reps)[:, :n]
+    inf = torch.zeros(n, dtype=torch.bool, device=device)
+    inf[::64] = True
+    r_mod = BLS24_315.fr.modulus
+    sc = torch.from_numpy(ints_to_limbs(
+        [int.from_bytes(rng.bytes(32), "little") % r_mod for _ in range(n)],
+        BN254.fr.L).astype(np.int64)).to(device)
+    return (xs.contiguous(), ys.contiguous(), inf, sc), M.complete_ops(G)
+
+
+def ladder_cases(libs, rng, device):
+    """The same for the fp4 ladder at LADDER_SHAPES, on 4,096 points."""
+    kind = "g2_bls24315"
+    (xs, ys, inf, sc), GC = _ladder_inputs(rng, device)
+    want = M.ladder_plain(xs, ys, inf, sc, GC)
+    n, Ls = xs.shape[1], sc.shape[0]
+    fns = {f"G={g} T={t} B={b}": _bind(
+        _trials(libs), f"ladder_trial_{kind}_{g}_{t}_{b}", 2, ptrs=5)
+        for g, t, b in LADDER_SHAPES}
+    if "baseline" in libs:
+        fns = {"baseline": _bind(libs["baseline"], f"gnark_msm_ladder_{kind}",
+                                 2, ptrs=5), **fns}
+    variants = {v: (lambda out, f=f: _checked(
+        f, xs.data_ptr(), ys.data_ptr(), inf.data_ptr(), sc.data_ptr(),
+        out.data_ptr(), n, Ls)) for v, f in fns.items()}
+
+    def warps(v, sms):
+        if "T=" not in v:
+            return None
+        g, t = (int(x) for x in re.findall(r"[GT]=(\d+)", v))
+        return -(-n * M.LADDER_CHUNKS * g // t) * t / 32 / sms
+    yield (f"{kind} n={n}", {"kind": kind, "n": n}, want, variants, warps)
+
+
+def fold_cases(libs, rng, device):
+    """The same for the fp4 Horner fold at FOLD_GROUPS: on the 2^16
+    plan's window sums, and on the chunk sums of the ladder's 4,096
+    points (nw = 16, c = 16)."""
+    kind = "g2_bls24315"
+    plan, sx, sy, d_sorted = _inputs(kind, N, rng, device)
+    GC = plan.GC
+    rows = M.leaf_prefix_plain(sx, sy, GC)
+    offs = M.lane_offsets_plain(plan.lane_totals(rows), GC)
+    S = M.weighted_sum_plain(plan._buckets(rows, offs, d_sorted), GC)
+    lad, _ = _ladder_inputs(rng, device)
+    T = M.reduce_plain(M.ladder_plain(*lad, GC), GC)
+    for label, sums, c in ((f"plan n={N} nw={S.shape[1]} c={plan.c}", S,
+                            plan.c),
+                           (f"chunks nw={T.shape[1]} c=16", T, 16)):
+        sums = sums.contiguous()
+        want = M.horner_fold_plain(sums, c, GC)
+        fns = {f"G={g}": _bind(_trials(libs), f"fold_trial_{kind}_{g}", 2,
+                               ptrs=2) for g in FOLD_GROUPS}
+        if "baseline" in libs:
+            fns = {"baseline": _bind(libs["baseline"],
+                                     f"gnark_msm_horner_fold_{kind}", 2,
+                                     ptrs=2), **fns}
+        variants = {v: (lambda out, f=f, sums=sums, c=c: _checked(
+            f, sums.data_ptr(), out.data_ptr(), sums.shape[1], c))
+            for v, f in fns.items()}
+        yield (f"{kind} {label}", {"kind": kind, "nw": sums.shape[1],
+                                   "c": c}, want, variants,
+               lambda v, sms: None)
 
 
 def hillis_steele_plain(tot, GC):
@@ -334,7 +476,7 @@ def lanes_cases(libs, rng, device):
         scratch = torch.empty(2 * nw * R * 3 * _cuda._L16[kind] // 2,
                               dtype=torch.int32, device=device)
         fns = {f"G={g} T={t} CL={cl}": _bind(
-            libs["trial"], f"lanes_trial_{kind}_{g}_{t}_{cl}", 2)
+            _trials(libs), f"lanes_trial_{kind}_{g}_{t}_{cl}", 2)
             for g, t, cl in LANES_SHAPES if g in WIDTHS[kind]}
         if "baseline" in libs:
             fns = {"baseline": _bind(libs["baseline"],
@@ -355,25 +497,34 @@ def lanes_cases(libs, rng, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=tuple(_TU), default="leaf_prefix")
+    ap.add_argument("--kernel", choices=tuple(_TU) + ("ladder", "horner_fold"),
+                    default="leaf_prefix")
     ap.add_argument("--csrc", default=_cuda._CSRC, help="the csrc "
                     "directory whose kernel runs at each shape")
     ap.add_argument("--baseline", help="a csrc directory whose "
                     "msm_kernels.cu is timed beside the shapes")
     ap.add_argument("--kind", choices=("g2_bls24315",), help="sweep this "
-                    "kind's leaf (SLICED_SHAPES) instead of BN254's")
+                    "kind's leaf (SLICED_SHAPES) instead of BN254's; the "
+                    "ladder and the fold take it alone")
     ap.add_argument("--out", help="write the numbers here as JSON")
     args = ap.parse_args(argv)
-    if args.kind and args.kernel != "leaf_prefix":
-        ap.error("--kind takes the leaf only")
+    fp4 = args.kernel in ("ladder", "horner_fold")
+    if args.kind and args.kernel not in ("leaf_prefix", "ladder",
+                                         "horner_fold"):
+        ap.error("--kind takes the leaf, the ladder or the fold")
+    if fp4 and not args.kind:
+        ap.error(f"--kernel {args.kernel} sweeps --kind g2_bls24315")
     if not torch.cuda.is_available():
         raise SystemExit("leaf_groups needs a CUDA card")
     device = torch.device("cuda", 0)
-    tu = os.path.join(_cuda._BUILD, f"{args.kernel}_trial_{os.getpid()}.cu")
     os.makedirs(_cuda._BUILD, exist_ok=True)
-    with open(tu, "w") as f:
-        f.write(_SLICED_TU if args.kind else _TU[args.kernel])
-    jobs = {"trial": (tu, os.path.abspath(args.csrc))}
+    jobs = {}
+    for name, source in trial_units(args.kernel, args.kind).items():
+        tu = os.path.join(_cuda._BUILD,
+                          f"{args.kernel}_{name}_{os.getpid()}.cu")
+        with open(tu, "w") as f:
+            f.write(source)
+        jobs[name] = (tu, os.path.abspath(args.csrc))
     if args.baseline:
         base = os.path.abspath(args.baseline)
         lib = "msm_g2_bls24315.cu" if args.kind else "msm_kernels.cu"
@@ -382,10 +533,13 @@ def main(argv=None):
         built = dict(zip(jobs, pool.map(
             lambda j: _build(f"{args.kernel}_{j}", *jobs[j]), jobs)))
     libs = {k: ctypes.CDLL(path) for k, (path, _) in built.items()}
-    kernels = ("leaf_sliced", "leaf_prefix") if args.kind else (args.kernel,)
+    kernels = ((f"{'leaf' if args.kernel == 'leaf_prefix' else args.kernel}"
+                "_sliced", args.kernel) if args.kind else (args.kernel,))
+    ptxas = {}
     for k, (_, report) in built.items():
         for kernel in kernels:
             for name, line in kernel_registers(report, kernel).items():
+                ptxas[f"{k} {kernel} {name}"] = line
                 print(f"[leaf_groups] ptxas {k} {kernel} {name}: {line}",
                       flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -395,10 +549,11 @@ def main(argv=None):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(SEED)
     result = {"card": card, "kernel": args.kernel, "kind": args.kind,
-              "cases": []}
+              "ptxas": ptxas, "cases": []}
     cases = {"leaf_prefix": leaf_cases, "weighted_sum": wsum_cases,
-             "lane_offsets": lanes_cases}[args.kernel]
-    if args.kind:
+             "lane_offsets": lanes_cases, "ladder": ladder_cases,
+             "horner_fold": fold_cases}[args.kernel]
+    if args.kind and args.kernel == "leaf_prefix":
         cases = functools.partial(leaf_cases, kind=args.kind)
     for label, case, want, variants, warps in cases(libs, rng, device):
         times = {v: [] for v in variants}

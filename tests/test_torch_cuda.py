@@ -34,7 +34,9 @@ The file imports no jax, so it runs where the port runs:
     fp4) through the same kernel checks (not the rollup's plan), and a
     BLS24-315 Groth16 proof on the card equal to the host mode's; a
     BLS12-381 one too, its quotient on the card and its MSMs on the
-    native core.
+    native core; BLS24-315 G2's coefficient-sliced ladder and fold
+    launched twice on the same inputs, each launch against the plain
+    version.
 
 Tolerance: none.  Limbs compare exactly; points compare as Python ints.
 The microbenchmark's ``fma_f32`` alone compares within
@@ -325,6 +327,53 @@ def test_ladder_small_shapes_match_plain_on_cuda(dev, kind, case):
         small[1] &= 0xF
         args = (xs, ys, inf, small)
     _ladder_on_cuda(G, args)
+
+
+def _twice(fn, *args):
+    """Two launches of a kernel wrapper: their outputs and launch count."""
+    name = fn.__name__
+    before = _cuda.launches[f"{name}_g2_bls24315"]
+    first, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    return first, again, _cuda.launches[f"{name}_g2_bls24315"] - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["1 in 64 infinite", "top chunks zero"])
+def test_fp4_ladder_sliced_matches_plain_on_cuda(dev, case):
+    """BLS24-315 G2's ladder, ladder_sliced_kernel (a chain's fp4
+    coefficients over a group of LADDER_GROUP lanes), at 4,096 points,
+    launched twice: each launch equals the plain ladder bit for bit.
+    The second case leaves 14 of the 16 chunks of every scalar zero."""
+    G, (xs, ys, inf, sc), _ = _oracle_inputs("g2_bls24315", dev, 13)
+    inf = torch.zeros_like(inf)
+    inf[::64] = True
+    if case == "top chunks zero":
+        sc = sc.clone()
+        sc[2:] = 0
+    GC = M.complete_ops(G)
+    first, again, n = _twice(M.ladder, xs, ys, inf, sc, GC)
+    assert n == 2 and _cuda.shape("g2_bls24315")["leaf_sliced"]
+    assert torch.equal(first, again)
+    assert torch.equal(first, M.ladder_plain(xs, ys, inf, sc, GC))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [16, 3, 0])
+def test_fp4_fold_sliced_matches_plain_on_cuda(dev, live):
+    """BLS24-315 G2's Horner fold, horner_fold_sliced_kernel (one group
+    of FOLD_GROUP lanes), at the ladder's chunk fold (16 sums of 4,096
+    points' chunks, c = 16), the top 16 - ``live`` sums the identity,
+    launched twice: each launch equals the plain fold bit for bit."""
+    G, args, _ = _oracle_inputs("g2_bls24315", dev, 17)
+    GC = M.complete_ops(G)
+    T = M.reduce_plain(M.ladder_plain(*args, GC), GC)
+    S = torch.cat([T[:, :live], torch.cat(GC.inf(16 - live, dev))],
+                  1).contiguous()
+    first, again, n = _twice(M.horner_fold, S, 16, GC)
+    assert n == 2
+    assert torch.equal(first, again)
+    assert torch.equal(first, M.horner_fold_plain(S, 16, GC))
 
 
 @pytest.mark.cuda

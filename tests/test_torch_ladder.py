@@ -221,10 +221,19 @@ static Dim blockIdx, threadIdx, blockDim;
 #include "msm_kernels.cu"
 
 // one block at a time, blockDim.x = 1: every loop over a block's work
-// steps by blockDim.x, so the one thread does it all in order
+// steps by blockDim.x, so the one thread does it all in order; over fp4
+// the shipped ladder_sliced_kernel, a group of one thread a chain, a block
+// a chain
 template <class Cv> static void grid_ladder(const int64_t* xs, const int64_t* ys,
     const uint8_t* inf, const int64_t* sc, int64_t* out, int n, int Ls) {
   blockDim.x = 1; threadIdx.x = 0;
+  if constexpr (FpKTraits<typename Cv::F>::SLICED) {
+    for (long b = 0; b < (long)n * LADDER_CHUNKS; ++b) {
+      blockIdx.x = (unsigned)b;
+      ladder_sliced_kernel<Cv, 1, 1, 1>(xs, ys, inf, sc, out, n, Ls);
+    }
+    return;
+  }
   for (int b = 0; b < (n + Cv::LADDER_POINTS - 1) / Cv::LADDER_POINTS; ++b) {
     blockIdx.x = (unsigned)b;
     ladder_kernel<Cv>(xs, ys, inf, sc, out, n, Ls);
@@ -387,9 +396,10 @@ int main(int argc, char** argv) {
 
 @pytest.mark.parametrize("build", ["inlined", "called"])
 def test_fp4_ladder_source_clean_under_sanitizers(ladders, tmp_path, build):
-    """BLS24-315 G2's ladder and reduction sources, with the fp4 product
-    inlined (as shipped) or a called function (GT_FPK_MUL, the build whose
-    card ladder disagreed: PERF.md, ops/inline_check.py), as one g++
+    """BLS24-315 G2's ladder (the shipped ladder_sliced_kernel, its base
+    products inlined) and reduction sources, with the fp4 product of the
+    reduction inlined (as shipped) or a called function (GT_FPK_MUL, the
+    build whose card ladder disagreed: PERF.md, ops/inline_check.py), as one g++
     program under AddressSanitizer and UndefinedBehaviorSanitizer, every
     automatic variable filled with a pattern before its first store:
     no report, and the limbs of the plain versions.  An out-of-bounds

@@ -247,7 +247,10 @@ template <class Cv> static void grid_lanes(const int64_t* t, int64_t* o, int nw,
 }
 template <class Cv> static void grid_fold(const int64_t* S, int64_t* o, int nw, int c) {
   blockDim.x = 1; threadIdx.x = 0; blockIdx.x = 0;
-  horner_fold_kernel<Cv>(S, o, nw, c);
+  if constexpr (FpKTraits<typename Cv::F>::SLICED)   // fp4's shipped fold
+    horner_fold_sliced_kernel<Cv, 1>(S, o, nw, c);
+  else
+    horner_fold_kernel<Cv>(S, o, nw, c);
 }
 template <class Cv> static void grid_wsum(const int64_t* b, int64_t* o, int nw, int nb) {
   std::vector<Point<typename Cv::F>> s((long)nw * (nb + nb / 2));
@@ -434,6 +437,93 @@ extern "C" int host_sliced_mul(int G, const int64_t* a, const int64_t* b,
     case 2: return sliced_mul_threads<2>(a, b, out, n);
     case 4: return sliced_mul_threads<4>(a, b, out, n);
     case 8: return sliced_mul_threads<8>(a, b, out, n);
+  }
+  return -1;
+}
+// the sliced complete addition and doubling (SlicedPoint::padd, pdbl) over
+// n pairs of fp4 points at group width G, a group a block on G host
+// threads: sum gets p + q, twice 2 p ([3 kL, n] each)
+template <int G> static int sliced_point_threads(const int64_t* p,
+    const int64_t* q, int64_t* sum, int64_t* twice, int n) {
+  using Cv = G2Bls24;
+  using SP = SlicedPoint<Cv, G>;
+  using B = SP::B;
+  constexpr int KPL = SP::KPL;
+  bad_masks = 0;
+  for (int e = 0; e < n; ++e)
+    run_cluster((unsigned)e, 1, G, G, [=] {
+      static FoldSlicedShared<Cv, G> sh;
+      const int tid = threadIdx.x, lane = tid % G;
+      for (int m = tid; m < SP::K; m += G) slot_put(sh.kb3[m], SP::b3_column(m));
+      __syncthreads();
+      const SP sp{sh.slots, sh.kb3, lane % SP::SPAN, lane / SP::SPAN,
+                  GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+      B X[KPL], Y[KPL], Z[KPL], X2[KPL], Y2[KPL], Z2[KPL];
+      load_sliced(sp, p + e, n, X, Y, Z);
+      load_sliced(sp, q + e, n, X2, Y2, Z2);
+      B DX[KPL], DY[KPL], DZ[KPL];
+      for (int t = 0; t < KPL; ++t) {
+        DX[t] = X[t];
+        DY[t] = Y[t];
+        DZ[t] = Z[t];
+      }
+      sp.pdbl(DX, DY, DZ);
+      sp.padd(X, Y, Z, X2, Y2, Z2);
+      store_sliced(sp, sum + e, n, X, Y, Z);
+      store_sliced(sp, twice + e, n, DX, DY, DZ);
+    });
+  return bad_masks;
+}
+extern "C" int host_sliced_point_ops(int G, const int64_t* p, const int64_t* q,
+                                     int64_t* sum, int64_t* twice, int n) {
+  switch (G) {
+    case 1: return sliced_point_threads<1>(p, q, sum, twice, n);
+    case 2: return sliced_point_threads<2>(p, q, sum, twice, n);
+    case 4: return sliced_point_threads<4>(p, q, sum, twice, n);
+    case 8: return sliced_point_threads<8>(p, q, sum, twice, n);
+    case 16: return sliced_point_threads<16>(p, q, sum, twice, n);
+  }
+  return -1;
+}
+// the fp4 ladder (ladder_sliced_kernel) at group width G in blocks of T
+// host threads, a block at a time
+template <int G, int T> static int ladder_sliced_threads(const int64_t* xs,
+    const int64_t* ys, const uint8_t* inf, const int64_t* sc, int64_t* out,
+    int n, int Ls) {
+  bad_masks = 0;
+  const long chains = (long)n * LADDER_CHUNKS;
+  for (long b = 0; b < (chains + T / G - 1) / (T / G); ++b)
+    run_cluster((unsigned)b, 1, T, G, [=] {
+      ladder_sliced_kernel<G2Bls24, G, T, 1>(xs, ys, inf, sc, out, n, Ls);
+    });
+  return bad_masks;
+}
+#define LADDER_SHAPE(G, T)                                                    \
+  if (g == G && t == T)                                                       \
+    return ladder_sliced_threads<G, T>(xs, ys, inf, sc, out, n, Ls);
+extern "C" int host_ladder_sliced_threads(int g, int t, const int64_t* xs,
+    const int64_t* ys, const uint8_t* inf, const int64_t* sc, int64_t* out,
+    int n, int Ls) {
+  LADDER_SHAPE(1, 16) LADDER_SHAPE(2, 32) LADDER_SHAPE(4, 64)
+  LADDER_SHAPE(4, 128) LADDER_SHAPE(8, 64) LADDER_SHAPE(8, 128)
+  return -1;
+}
+// the fp4 Horner fold (horner_fold_sliced_kernel) on G host threads
+template <int G> static int fold_sliced_threads(const int64_t* S, int64_t* out,
+                                                int nw, int c) {
+  bad_masks = 0;
+  run_cluster(0, 1, G, G,
+              [=] { horner_fold_sliced_kernel<G2Bls24, G>(S, out, nw, c); });
+  return bad_masks;
+}
+extern "C" int host_fold_sliced_threads(int G, const int64_t* S, int64_t* out,
+                                        int nw, int c) {
+  switch (G) {
+    case 1: return fold_sliced_threads<1>(S, out, nw, c);
+    case 2: return fold_sliced_threads<2>(S, out, nw, c);
+    case 4: return fold_sliced_threads<4>(S, out, nw, c);
+    case 8: return fold_sliced_threads<8>(S, out, nw, c);
+    case 16: return fold_sliced_threads<16>(S, out, nw, c);
   }
   return -1;
 }
@@ -624,6 +714,144 @@ def test_sliced_fp4_product_and_b3_on_host_threads(threaded_leaf, width):
                                           for x in a_ints]
     assert F.unpack(out[2 * F.L:]) == [_fp4_mul_ints(y, b3, p)
                                        for y in b_ints]
+
+
+def _fp4_point_pairs():
+    """Pairs (P, Q) of projective fp4 points of G2 as [3 kL, n] planes:
+    the identity (0 : 1 : 0) on either side and on both, P + P (the same
+    representative, and another: P + O rescales P), P + (-P), and points
+    with Z = 1 (affine) and Z != 1 (doubles)."""
+    G, H, gen, _ = group("g2_bls24315")
+    GC = M.complete_ops(G)
+    pts, P = [], gen
+    for _ in range(6):
+        pts.append(P)
+        P = H.add(P, gen)
+    A = (G.F.pack([q[0] for q in pts], "cpu"),
+         G.F.pack([q[1] for q in pts], "cpu"), G.F.ones(6, "cpu"))
+    D = GC.double(A)
+    O = GC.inf(1, "cpu")
+
+    def col(T, i):
+        return tuple(t[:, i:i + 1] for t in T)
+    pairs = [(O, col(A, 0)), (col(A, 1), O), (O, O),
+             (col(D, 2), col(D, 2)), (col(D, 3), GC.add(col(D, 3), O)),
+             (col(A, 4), GC.neg(col(A, 4))), (col(D, 5), GC.neg(col(D, 5))),
+             (col(A, 0), col(D, 1)), (col(D, 0), col(A, 5)),
+             (col(D, 1), col(D, 4))]
+    Pp, Qp = (torch.cat([torch.cat([pq[side][i] for pq in pairs], -1)
+                         for i in range(3)]) for side in (0, 1))
+    return GC, Pp, Qp
+
+
+# the widths of the sliced point operations: a lane four, two or one
+# coefficients, or two or four lanes a coefficient (G = 8, 16)
+POINT_WIDTHS = SLICED_WIDTHS + [16]
+
+
+@pytest.mark.parametrize("width", POINT_WIDTHS)
+def test_sliced_fp4_point_ops_on_host_threads(threaded_leaf, width):
+    """SlicedPoint::padd and pdbl (alg 7 and alg 9 over a point's fp4
+    coefficients split over G lanes, each formula's products as levels)
+    at group width G on G host threads, bit for bit against the plain
+    complete addition and doubling: with the identity, P + P and
+    P + (-P)."""
+    GC, Pp, Qp = _fp4_point_pairs()
+    L = GC.F.L
+    n = Pp.shape[1]
+    P, Q = M.split_points(Pp, L), M.split_points(Qp, L)
+    total, twice = torch.empty_like(Pp), torch.empty_like(Pp)
+    assert threaded_leaf.host_sliced_point_ops(
+        width, _ptr(Pp), _ptr(Qp), _ptr(total), _ptr(twice), n) == 0
+    assert torch.equal(total, torch.cat(GC.add(P, Q)))
+    assert torch.equal(twice, torch.cat(GC.double(P)))
+    ident = torch.cat(GC.inf(1, "cpu"))[:, 0]
+    assert torch.equal(total[:, 2], ident)                  # O + O
+
+
+# the fp4 ladder's trial shapes in the threaded harness, (G, threads a
+# block): one point a block at G = 1, 2, 4, 8, two at (4, 128), half a
+# point's chunks at (8, 64)
+LADDER_HOST_SHAPES = [(1, 16), (2, 32), (4, 64), (4, 128), (8, 64), (8, 128)]
+
+
+@pytest.fixture(scope="module")
+def fp4_ladder():
+    """20 fp4 points k G (the 4th repeating the 3rd, the 7th and 14th
+    infinite) and 128-bit scalars (8 limbs: 16 chunks of 8 bits, two
+    windows, so 4 doublings and 2 table additions a chain, in a third of
+    the full width's plain time) with zero chunks (0, 1, 5, 2^127 beside
+    2^128 - 1 and random ones), with the plain ladder's output."""
+    G, H, gen, _ = group("g2_bls24315")
+    n = 20
+    pts = [gen]
+    for _ in range(n - 1):
+        pts.append(H.add(pts[-1], gen))
+    pts[3] = pts[2]
+    rng = np.random.default_rng(59)
+    scalars = [0, 1, 5, 1 << 127, (1 << 128) - 1, 0, 3 << 120, 2] + [
+        int.from_bytes(rng.bytes(16), "little") for _ in range(n - 8)]
+    inf = np.zeros(n, bool)
+    inf[[6, 13]] = True
+    args = (G.F.pack([p[0] for p in pts], "cpu"),
+            G.F.pack([p[1] for p in pts], "cpu"), torch.from_numpy(inf),
+            torch.from_numpy(ints_to_limbs(scalars, 8).astype(np.int64)))
+    return args, M.ladder_plain(*args, M.complete_ops(G))
+
+
+@pytest.mark.parametrize("shape", LADDER_HOST_SHAPES,
+                         ids=[f"G={g},T={t}" for g, t in LADDER_HOST_SHAPES])
+def test_ladder_sliced_matches_plain_on_host_threads(threaded_leaf,
+                                                     fp4_ladder, shape):
+    """The fp4 ladder (ladder_sliced_kernel) at group width G in blocks of
+    T threads, every lane on a host thread: the table built by the
+    block's groups, each chain on a group; bit for bit against the plain
+    ladder, with infinity points and chunks whose digits are all zero.
+    The shipped shape is among them."""
+    (xs, ys, inf, sc), want = fp4_ladder
+    n = xs.shape[1]
+    out = torch.empty_like(want)
+    g, t = shape
+    assert threaded_leaf.host_ladder_sliced_threads(
+        g, t, _ptr(xs), _ptr(ys), _ptr(inf), _ptr(sc), _ptr(out), n,
+        sc.shape[0]) == 0   # group masks
+    assert torch.equal(out, want)
+    ship = _shape(threaded_leaf, "g2_bls24315")
+    assert (ship["ladder_group"], ship["ladder_threads"]) in \
+        LADDER_HOST_SHAPES
+
+
+@pytest.fixture(scope="module")
+def fp4_folds(runs):
+    """{live: (S, c, the plain fold)}: five window sums of the run, the
+    top 5 - live of them the identity; and the ladder's chunk fold's
+    shape, 16 sums at c = 16."""
+    run = runs["g2_bls24315"]
+    GC, c = run.plan.GC, run.plan.c
+    cases = {live: (torch.cat([run.S[:, :live],
+                               torch.cat(GC.inf(5 - live, "cpu"))], 1), c)
+             for live in (0, 1, 3)}
+    cases["chunks nw=16, c=16"] = (run.S[:, :16].contiguous(), 16)
+    return {k: (S, c, M.horner_fold_plain(S, c, GC))
+            for k, (S, c) in cases.items()}
+
+
+@pytest.mark.parametrize("live", [0, 1, 3, "chunks nw=16, c=16"])
+@pytest.mark.parametrize("width", POINT_WIDTHS)
+def test_fold_sliced_matches_plain_on_host_threads(threaded_leaf, fp4_folds,
+                                                   width, live):
+    """The fp4 Horner fold (horner_fold_sliced_kernel) on one group of G
+    host threads: five window sums, the top 5 - ``live`` of them the
+    identity (the fold starts at the highest live one), or the ladder's
+    chunk fold's shape (16 sums, c = 16); bit for bit against the plain
+    fold."""
+    S, c, want = fp4_folds[live]
+    out = torch.empty_like(want)
+    assert threaded_leaf.host_fold_sliced_threads(
+        width, _ptr(S), _ptr(out), S.shape[1], c) == 0   # group masks
+    assert torch.equal(out, want)
+    assert _shape(threaded_leaf, "g2_bls24315")["fold_group"] in \
+        POINT_WIDTHS
 
 
 def _wsum_case(run, case):
@@ -876,6 +1104,43 @@ def test_ptxas_reports_name_the_fp4_leaf(parser):
     assert list(leaf_groups.kernel_registers(PTXAS_REPORT)) == ["G1 G=4"]
 
 
+# ptxas -v lines of the fp4 ladder and fold (run BB's shipped shapes)
+PTXAS_FP4_CHAINS = """\
+ptxas info    : Compiling entry function '_Z20ladder_sliced_kernelI7G2Bls24Li4ELi128ELi2EEvPKlS2_PKhS2_Plii' for 'sm_90a'
+ptxas info    : Function properties for _Z20ladder_sliced_kernelI7G2Bls24Li4ELi128ELi2EEvPKlS2_PKhS2_Plii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 134 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z25horner_fold_sliced_kernelI7G2Bls24Li16EEvPKlPlii' for 'sm_90a'
+ptxas info    : Function properties for _Z25horner_fold_sliced_kernelI7G2Bls24Li16EEvPKlPlii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 130 registers, used 1 barriers, 3072 bytes smem, 400 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("parser", ["chip_smoke", "leaf_groups"])
+def test_ptxas_reports_name_the_fp4_ladder_and_fold(parser):
+    """The [ptxas] lines of chip_smoke.py and ops/leaf_groups.py name the
+    coefficient-sliced ladder and fold with their shapes, and neither is
+    taken for the template ladder or fold."""
+    if parser == "chip_smoke":
+        assert _chip_smoke().ptxas_summary(PTXAS_FP4_CHAINS) == [
+            "ladder_sliced_kernel<G2Bls24, 4, 128, 2>: 134 registers; 0 "
+            "bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "horner_fold_sliced_kernel<G2Bls24, 16>: 130 registers; 0 bytes "
+            "stack frame, 0 bytes spill stores, 0 bytes spill loads"]
+        return
+    from gnark_tpu_torch.ops import leaf_groups
+    ladder = leaf_groups.kernel_registers(PTXAS_FP4_CHAINS, "ladder_sliced")
+    assert list(ladder) == ["G2Bls24 G=4 T=128 B=2"]
+    assert "Used 134 registers" in ladder["G2Bls24 G=4 T=128 B=2"]
+    fold = leaf_groups.kernel_registers(PTXAS_FP4_CHAINS,
+                                        "horner_fold_sliced")
+    assert list(fold) == ["G2Bls24 G=16"]
+    assert "0 bytes spill stores" in fold["G2Bls24 G=16"]
+    assert not leaf_groups.kernel_registers(PTXAS_FP4_CHAINS, "ladder")
+    assert not leaf_groups.kernel_registers(PTXAS_FP4_CHAINS, "horner_fold")
+
+
 def _source_limbs(text, name):
     m = re.search(name + r"\[8\] = \{([^}]*)\}", text)
     return [int(v.strip().rstrip("u"), 16) for v in m.group(1).split(",")]
@@ -929,6 +1194,25 @@ def test_bls24315_kernel_constants_match_field_spec():
     b3 = [3 * c % p for c in BLS24_315.b2]
     assert b3[:3] == [0, 0, 0] and b3[3] == 3 * pow(13, -1, p) % p
     assert val("c3", kern) == b3[3] * R % p
+    # G2's sliced ladder and fold shapes: a group inside a warp, whole
+    # warps a block, among the sweep's shapes, and the block's shared
+    # memory (b3's 4 columns, the table of 16 entries of 3 x 4 slots of
+    # each of its points, a group's 9 + 6 value and product slots of 4,
+    # 48 bytes a slot) for its resident blocks in an SM's 227 KB
+    from gnark_tpu_torch.ops import leaf_groups
+    g2 = kern[kern.index("struct G2Bls24"):]
+    g2 = g2[:g2.index("};")]
+    shape = {k: int(re.search(k + r" = (\d+)", g2).group(1)) for k in (
+        "LADDER_GROUP", "LADDER_THREADS", "LADDER_BLOCKS", "FOLD_GROUP")}
+    G, T, blocks = (shape[k] for k in ("LADDER_GROUP", "LADDER_THREADS",
+                                       "LADDER_BLOCKS"))
+    assert 32 % G == 0 and T % 32 == 0 and 32 % shape["FOLD_GROUP"] == 0
+    assert (G, T, blocks) in leaf_groups.LADDER_SHAPES
+    assert shape["FOLD_GROUP"] in leaf_groups.FOLD_GROUPS
+    pts = max(1, T // G // 16)
+    slot = 48
+    block = 4 * slot + pts * 16 * 3 * 4 * slot + T // G * 15 * 4 * slot
+    assert block * blocks <= 227 * 1024
 
 
 # ---- device routing ----------------------------------------------------------
