@@ -31,10 +31,10 @@ main paths once, at the sizes the repo has always measured:
      point operations, the leaf prefix, a chain of mixed additions a
      thread group, the lane offsets, a Brent-Kung scan of 2K - 1 steps,
      and the weighted sum, a wavefront over the halving fold's dependency
-     graph, also get their critical path: the levels of
+     graph, and the reduction, also get their critical path: the levels of
      products on the longest dependent chain times the latency of one
-     dependent product (the montmul_bn254 chain launched on one element,
-     in one thread);
+     dependent product of the curve's base field (the montmul_bn254 or
+     montmul_bls24315 chain launched on one element, in one thread);
   4. MSMs against a host oracle (point i = 2^(i mod 64) G), G1 and G2: at
      2^16 the windowed plan, kernel path and plain path, in points/s; and
      the ladder against the windowed plan, kernel paths, at 4096 and 2^16
@@ -64,10 +64,11 @@ main paths once, at the sizes the repo has always measured:
      plan, the ladder, its reduction and the fold of the chunk sums at
      4096 points; G1's windowed four also at the plan of phase 10's
      commitments (2^14 + 3 points: c = 10, 512 buckets, C = 33); the fp4
-     leaf, ladder and both folds (leaf_sliced_kernel,
-     ladder_sliced_kernel, horner_fold_sliced_kernel) launched twice each
-     (the leaf on two seeds' inputs), against each other and the plain
-     version;
+     leaf, weighted sum, ladder, reduction and both folds
+     (leaf_sliced_kernel, weighted_sum_sliced_kernel,
+     ladder_sliced_kernel, reduce_sliced_kernel,
+     horner_fold_sliced_kernel) launched twice each (the leaf on two
+     seeds' inputs), against each other and the plain version;
   9. Groth16 over the other five curves, routed as gnark_tpu routes them:
      MiMC chains that fill a domain of 2^16 over BLS12-381, BLS12-377
      (BASELINE config 4's curves) and BLS24-315, a 12-hash chain over
@@ -330,7 +331,7 @@ def phase_microbench(device):
         f"(SMs x {INT32_LANES_PER_SM} lanes x clocks.max.sm)")
     entries = {}
     for op in MB.OPS:
-        montmul = op == "montmul_bn254"
+        montmul = op in MB.MONTMUL_FIELDS
         n = MB.N_MONTMUL if montmul else MB.N_U32
         steps = MB.MONTMUL_STEPS if montmul else MB.STEPS
         assert montmul or _cuda.microbench_steps() == MB.STEPS
@@ -352,7 +353,7 @@ def phase_microbench(device):
         ms = MB.time_op(op, x, y)
         ops = n * 4 * steps * MB.OPS_PER_STEP[op]
         if montmul:
-            ops *= muls_per_product("g1")     # BN254's product
+            ops *= MB.MONTMUL_FIELDS[op][1]   # the product's multiplies
         elif op == "add_u32":
             ops //= ADDS_PER_IADD3
         nbytes = 3 * x.numel() * x.element_size()
@@ -365,21 +366,24 @@ def phase_microbench(device):
         entries[f"microbench_{op}"] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
-    # the latency of one dependent product: one montmul chain on one
-    # element, in one thread (held against its plain version first)
-    x1, y1 = MB.inputs("montmul_bn254", 1, device, SEED)
-    one = MB.chain("montmul_bn254", x1, y1, LATENCY_STEPS, chains=1)
-    sync()
-    assert torch.equal(one, MB.chain_plain("montmul_bn254", x1, y1,
-                                           LATENCY_STEPS, chains=1))
-    lat_ms = cuda_ms(lambda: MB.chain("montmul_bn254", x1, y1, LATENCY_STEPS,
-                                      chains=1), 5) / LATENCY_STEPS
-    four_ms = cuda_ms(lambda: MB.chain("montmul_bn254", x1, y1,
-                                       LATENCY_STEPS), 5) / LATENCY_STEPS
-    log(f"[microbench] montmul_bn254 dependent latency {lat_ms * 1e6:.1f} ns "
-        f"a product (one chain of {LATENCY_STEPS} on one element, one "
-        f"thread, bit-exact); four chains in that thread "
-        f"{four_ms * 1e6:.1f} ns a step")
+    # the latency of one dependent product of each field: one montmul
+    # chain on one element, in one thread (held against its plain version
+    # first)
+    lat = {}
+    for op in MB.MONTMUL_FIELDS:
+        x1, y1 = MB.inputs(op, 1, device, SEED)
+        one = MB.chain(op, x1, y1, LATENCY_STEPS, chains=1)
+        sync()
+        assert torch.equal(one, MB.chain_plain(op, x1, y1, LATENCY_STEPS,
+                                               chains=1))
+        lat[op] = cuda_ms(lambda: MB.chain(op, x1, y1, LATENCY_STEPS,
+                                           chains=1), 5) / LATENCY_STEPS
+        four_ms = cuda_ms(lambda: MB.chain(op, x1, y1, LATENCY_STEPS),
+                          5) / LATENCY_STEPS
+        log(f"[microbench] {op} dependent latency {lat[op] * 1e6:.1f} ns "
+            f"a product (one chain of {LATENCY_STEPS} on one element, one "
+            f"thread, bit-exact); four chains in that thread "
+            f"{four_ms * 1e6:.1f} ns a step")
     # the main path: the entry point, with the counts taken over it
     _cuda.reset_launches()
     rates = MB.run(device, log=log)
@@ -389,7 +393,7 @@ def phase_microbench(device):
         entries[name]["launches"] = launches[name]
     log(f"[microbench] launches during its run: "
         f"{ {k: v for k, v in launches.items() if v} }")
-    return entries, rates, peak, lat_ms
+    return entries, rates, peak, lat
 
 
 def device_busy(label, fn):
@@ -632,7 +636,8 @@ def warps_per_sm(name, kind, args):
         threads = -(-t[0].shape[1] * M.LADDER_CHUNKS
                     * _cuda.shape(kind)["ladder_group"] // block) * block
     elif name == "reduce":
-        threads = t[0].shape[1] * _cuda.REDUCE_LANES
+        threads = (t[0].shape[1] * _cuda.shape(kind)["reduce_threads"]
+                   * _cuda.shape(kind)["reduce_cluster"])
     else:
         raise KeyError(name)
     return -(-threads // 32) / sms
@@ -659,23 +664,67 @@ def leaf_critical_path(kind, sy, latency_ms):
             adds * rounds * latency_ms)
 
 
+def lane_products(kind, op, g):
+    """Base products one lane of a group of g runs in a point operation of
+    the coefficient-sliced kernels (SlicedPoint, over degree k): a level
+    of m products on LPC = g / min(g, k) copies of each coefficient, each
+    lane its columns (k / min(g, k) of them, k base products each) of
+    ceil(m / LPC) products; the b3 level one base product a column."""
+    k = _shape(kind)["degree"]
+    span = min(g, k)
+    kpl, lpc = k // span, g // span
+    first, b3s, last = {"pdbl": (4, 1, 4), "padd": (6, 2, 6)}[op]
+    return (-(-first // lpc) + -(-last // lpc)) * kpl * k + b3s * kpl
+
+
+def _shape(kind):
+    from gnark_tpu_torch.ops import _cuda
+    return _cuda.shape(kind)
+
+
 def wsum_critical_path(kind, bk, latency_ms):
     """The weighted sum's critical path at nb = 2^K buckets: the 3K - 2
     operations of the halving fold's dependency graph (K >= 2; K - 1 tree
     levels, K - 1 doublings, K - 1 W additions and B + W), as (additions,
     doublings, their levels of products, that path in ms at the measured
-    latency of one dependent product by levels, lane 0's rounds of
-    products at the group width, that path by rounds)."""
-    from gnark_tpu_torch.ops import _cuda
+    latency of one dependent product by levels, the rounds of products on
+    lane 0 at the group width (the coefficient-sliced kernel: a lane's base
+    products, lane_products), that path by rounds)."""
     K = bk.shape[-1].bit_length() - 1
     adds, dbls = 2 * K - 1, K - 1
     padd, pdbl = fold_products(kind, "padd"), fold_products(kind, "pdbl")
     levels = adds * len(padd) + dbls * len(pdbl)
-    g = _cuda.shape(kind)["wsum_group"]
-    rounds = (adds * sum(-(-m // g) for m in padd)
-              + dbls * sum(-(-m // g) for m in pdbl))
+    g = _shape(kind)["wsum_group"]
+    if _shape(kind)["leaf_sliced"]:
+        rounds = (adds * lane_products(kind, "padd", g)
+                  + dbls * lane_products(kind, "pdbl", g))
+    else:
+        rounds = (adds * sum(-(-m // g) for m in padd)
+                  + dbls * sum(-(-m // g) for m in pdbl))
     return (adds, dbls, levels, levels * latency_ms, rounds,
             rounds * latency_ms)
+
+
+def reduce_critical_path(kind, pts, latency_ms):
+    """The reduction's critical path over n points a chunk: a lane's
+    ceil(n / 256) - 1 strided additions, then the 8 levels of the tree,
+    as (additions, the dependent products of one, that path in ms at the
+    measured latency of one dependent product, a lane's base products an
+    addition, that path by them).  The coefficient-sliced kernel runs an
+    addition as 3 levels of products, a lane's share of them
+    lane_products; the template kernel all of its products on one
+    thread."""
+    from gnark_tpu_torch.ops import _cuda
+    lanes = _cuda.REDUCE_LANES
+    adds = -(-pts.shape[-1] // lanes) - 1 + lanes.bit_length() - 1
+    padd = fold_products(kind, "padd")
+    if _shape(kind)["leaf_sliced"]:
+        levels = len(padd)
+        per = lane_products(kind, "padd", _shape(kind)["reduce_group"])
+    else:
+        levels = per = sum(padd)
+    return (adds, levels, adds * levels * latency_ms, per,
+            adds * per * latency_ms)
 
 
 def lanes_critical_path(kind, tot, latency_ms):
@@ -700,6 +749,13 @@ def fold_critical_path(kind, S, c, latency_ms):
     chain = fold_top(S) * (c * len(fold_products(kind, "pdbl"))
                            + len(fold_products(kind, "padd")))
     return chain, chain * latency_ms
+
+
+def latency_ms(kind, rates):
+    """The measured latency of one dependent product of the kind's base
+    field (rates: the issue peak, the mad.wide.u32 rate, then BN254's and
+    BLS24-315's latency in ms)."""
+    return rates[3] if kind in BLS24_KINDS else rates[2]
 
 
 def share(x):
@@ -875,34 +931,35 @@ def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
     assert ms >= b["bound_ms"], (f"{name} {kind} beats its bound", ms, b)
     b["warps_per_sm"] = warps_per_sm(work, kind, args)
     extra = ""
+    lat = latency_ms(kind, rates)
+    sliced = shape["leaf_sliced"]
+    tag = ", coefficient-sliced" if sliced else ""
     if work == "horner_fold":
         chain, b["critical_path_ms"] = fold_critical_path(
-            kind, args[0], args[1], rates[2])
+            kind, args[0], args[1], lat)
         extra = (f"; critical path {chain} dependent products x "
-                 f"{rates[2] * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
+                 f"{lat * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached); "
-                 f"{shape['fold_group']} threads"
-                 + (", coefficient-sliced" if shape["leaf_sliced"] else ""))
+                 f"{shape['fold_group']} threads{tag}")
     elif work == "ladder":
         extra = (f"; {shape['ladder_group']} thread(s) a (point, chunk) "
-                 f"chain in blocks of {shape['ladder_threads']}"
-                 + (", coefficient-sliced" if shape["leaf_sliced"] else ""))
+                 f"chain in blocks of {shape['ladder_threads']}{tag}")
     elif work == "leaf_prefix":
         adds, lv, rounds, b["critical_path_ms"], by_rounds = \
-            leaf_critical_path(kind, args[1], rates[2])
+            leaf_critical_path(kind, args[1], lat)
         extra = (f"; critical path {adds} mixed additions x {lv} levels x "
-                 f"{rates[2] * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
+                 f"{lat * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached), "
                  f"{rounds} rounds of products an addition "
-                 f"{'a lane' if shape['leaf_sliced'] else 'on lane 0'} at "
+                 f"{'a lane' if sliced else 'on lane 0'} at "
                  f"G = {shape['leaf_group']}: {by_rounds:.4g} ms "
                  f"({share(by_rounds / ms)}); blocks of "
                  f"{shape['leaf_threads']} threads")
     elif work == "lane_offsets":
         adds, lv, b["critical_path_ms"], rounds, by_rounds = \
-            lanes_critical_path(kind, args[0], rates[2])
+            lanes_critical_path(kind, args[0], lat)
         extra = (f"; critical path {adds} additions (the scan's steps), "
-                 f"{lv} levels of products x {rates[2] * 1e6:.1f} ns = "
+                 f"{lv} levels of products x {lat * 1e6:.1f} ns = "
                  f"{b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached), "
                  f"{rounds} rounds of products on lane 0 at G = "
@@ -912,15 +969,28 @@ def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
                  f"window, the narrow steps on one")
     elif work == "weighted_sum":
         adds, dbls, lv, b["critical_path_ms"], rounds, by_rounds = \
-            wsum_critical_path(kind, args[0], rates[2])
+            wsum_critical_path(kind, args[0], lat)
         extra = (f"; critical path {adds} additions + {dbls} doublings, "
-                 f"{lv} levels of products x {rates[2] * 1e6:.1f} ns = "
+                 f"{lv} levels of products x {lat * 1e6:.1f} ns = "
                  f"{b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached), "
-                 f"{rounds} rounds of products on lane 0 at G = "
-                 f"{shape['wsum_group']}: {by_rounds:.4g} ms "
+                 f"{rounds} {'base products a lane' if sliced else 'rounds of products on lane 0'}"
+                 f" at G = {shape['wsum_group']}: {by_rounds:.4g} ms "
                  f"({share(by_rounds / ms)}); {shape['wsum_cluster']} "
-                 f"block(s) of {shape['wsum_threads']} threads a window")
+                 f"block(s) of {shape['wsum_threads']} threads a "
+                 f"window{tag}")
+    elif work == "reduce":
+        adds, lv, b["critical_path_ms"], per, by_lane = \
+            reduce_critical_path(kind, args[0], lat)
+        extra = (f"; critical path {adds} additions x {lv} "
+                 f"{'levels of products' if sliced else 'dependent products'}"
+                 f" x {lat * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
+                 f"({share(b['critical_path_ms'] / ms)} of it reached), "
+                 f"{per} base products an addition a lane at G = "
+                 f"{shape['reduce_group']}: {by_lane:.4g} ms "
+                 f"({share(by_lane / ms)}); {shape['reduce_cluster']} "
+                 f"block(s) of {shape['reduce_threads']} threads a "
+                 f"chunk{tag}")
     log(f"[kernels {kind}] {name}: bit-exact (tolerance 0), "
         f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{b['bound_ms']:.4g} ms by {b['bound_by']} ({products} field "
@@ -1314,10 +1384,11 @@ def phase_bls24_kernels(device, rates):
     at 4096 points, infinity points among them; G1's four windowed
     kernels also at the plan of the PLONK commitments of phase 10
     (N_CURVE_PLONK + 3 points: c = 10, 512 buckets, C = 33).  The fp4
-    leaf, ladder and both folds (leaf_sliced_kernel, ladder_sliced_kernel,
-    horner_fold_sliced_kernel) are launched twice on their inputs (the
-    leaf on the 2^16 plan's of two seeds), both launches against the
-    plain version.  Returns (the results, those at the PLONK plan)."""
+    kernels (leaf_sliced_kernel, weighted_sum_sliced_kernel,
+    ladder_sliced_kernel, reduce_sliced_kernel, horner_fold_sliced_kernel)
+    are launched twice on their inputs (the leaf on the 2^16 plan's of two
+    seeds), both launches against the plain version.  Returns (the
+    results, those at the PLONK plan)."""
     from gnark_tpu_torch.ops import msm as M
     results, at_plonk = {}, {}
     rng = np.random.default_rng(SEED + 3)
@@ -1344,7 +1415,8 @@ def phase_bls24_kernels(device, rates):
             results[f"{name}_{kind}"] = compare(
                 kind, name, args, kern, plain, rates,
                 twice=sliced and name in ("leaf_prefix", "ladder",
-                                          "horner_fold"))
+                                          "horner_fold", "weighted_sum",
+                                          "reduce"))
         T = M.reduce(lout, GC)
         compare(kind, f"horner_fold chunks nw={M.LADDER_CHUNKS} c={B}",
                 (T, B, GC), M.horner_fold, M.horner_fold_plain, rates,
@@ -2098,8 +2170,8 @@ MUL_TYPE = re.compile(r"^IMAD(\.WIDE|\.HI|\.U32|$)")
 def sass_report(out_dir=None):
     """Disassemble both libraries with cuobjdump, count the multiply and
     add instructions of each function, and keep the microbenchmark's
-    listing in ``out_dir`` when one is given.  The montmul chain's loop
-    body (the instructions between a backward branch and its label) is
+    listing in ``out_dir`` when one is given.  The BN254 montmul chain's
+    loop body (the instructions between a backward branch and its label) is
     counted apart: its products are its chains x its unroll factor, and
     its add-type instructions over its products are the product's."""
     import shutil
@@ -2135,7 +2207,7 @@ def sass_report(out_dir=None):
                     counts[m.group(1)] = counts.get(m.group(1), 0) + 1
             log(f"[sass {name}] {fn}: " + ", ".join(
                 f"{k} {v}" for k, v in sorted(counts.items())))
-            if "chain_montmul" in fn:
+            if "chain_montmul_kernelI7BN254Fp" in fn:   # BN254's product
                 montmul_loop(lines, op_re)
 
 
@@ -2206,10 +2278,11 @@ def main():
             sass_report(a.partition("=")[2] or None)
 
     t0 = time.perf_counter()
-    micro, rates, peak, lat_ms = phase_microbench(device)
+    micro, rates, peak, lat = phase_microbench(device)
     log(f"[phase] microbenchmark {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    msm_rates = (peak, rates["mad_wide_u32"]["ops_per_s"], lat_ms)
+    msm_rates = (peak, rates["mad_wide_u32"]["ops_per_s"],
+                 lat["montmul_bn254"], lat["montmul_bls24315"])
     kern = phase_kernels(device, msm_rates)
     log(f"[phase] kernels vs plain {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

@@ -25,6 +25,10 @@
 //                  caller picks the steps per chain, and four chains or
 //                  one: one chain on one element times the latency of a
 //                  dependent product)
+//   montmul_bls24315  the same over BLS24-315's fp (ten 32-bit limbs,
+//                  R = 2^320, field.cuh's portable product: 210
+//                  multiplies), whose latency prices the critical paths
+//                  of the BLS24-315 kernels
 //
 // What bounds it on the H100: the issue rate of the one instruction, by
 // design: 24 bytes of traffic per element against 512 operations.  The
@@ -150,19 +154,20 @@ __global__ void __launch_bounds__(256)
   out[i] = __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), a[2]), a[3]);
 }
 
-// x, y, out: [16, n] int64 planes of 16-bit limbs, Montgomery form, < p.
-// Chain k starts at 2^k x (field doublings); the output is the field sum
-// of the CHAINS accumulators.  ``steps`` products per chain.
-template <int CHAINS>
+// x, y, out: [2N, n] int64 planes of 16-bit limbs of the field P (N
+// words), Montgomery form, < p.  Chain k starts at 2^k x (field
+// doublings); the output is the field sum of the CHAINS accumulators.
+// ``steps`` products per chain.
+template <class P, int CHAINS>
 __global__ void __launch_bounds__(128)
     chain_montmul_kernel(const int64_t* x, const int64_t* y, int64_t* out,
                          long n, int steps) {
-  using F = Fp<BN254Fp>;
+  using F = Fp<P>;
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const F y0 = load<BN254Fp>(y + i, n);
+  const F y0 = load<P>(y + i, n);
   F a[CHAINS];
-  a[0] = load<BN254Fp>(x + i, n);
+  a[0] = load<P>(x + i, n);
 #pragma unroll
   for (int k = 1; k < CHAINS; ++k) a[k] = dbl(a[k - 1]);
   for (int s = 0; s < steps; ++s) {
@@ -217,21 +222,33 @@ extern "C" int gnark_microbench_fma_f32(const void* x, const void* y,
   return (int)cudaGetLastError();
 }
 
-extern "C" int gnark_microbench_montmul(const void* x, const void* y,
-                                        void* out, long n, int steps,
-                                        int chains, void* stream) {
+template <class P>
+int launch_montmul(const void* x, const void* y, void* out, long n, int steps,
+                   int chains, void* stream) {
   const int block = 128;
   const unsigned grid = (unsigned)((n + block - 1) / block);
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t* xp = (const int64_t*)x;
   const int64_t* yp = (const int64_t*)y;
   if (chains == 4)
-    chain_montmul_kernel<4><<<grid, block, 0, st>>>(xp, yp, (int64_t*)out, n,
-                                                    steps);
+    chain_montmul_kernel<P, 4><<<grid, block, 0, st>>>(xp, yp, (int64_t*)out,
+                                                       n, steps);
   else if (chains == 1)
-    chain_montmul_kernel<1><<<grid, block, 0, st>>>(xp, yp, (int64_t*)out, n,
-                                                    steps);
+    chain_montmul_kernel<P, 1><<<grid, block, 0, st>>>(xp, yp, (int64_t*)out,
+                                                       n, steps);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+extern "C" int gnark_microbench_montmul(const void* x, const void* y,
+                                        void* out, long n, int steps,
+                                        int chains, void* stream) {
+  return launch_montmul<BN254Fp>(x, y, out, n, steps, chains, stream);
+}
+
+extern "C" int gnark_microbench_montmul_bls24315(const void* x, const void* y,
+                                                 void* out, long n, int steps,
+                                                 int chains, void* stream) {
+  return launch_montmul<BLS24315Fp>(x, y, out, n, steps, chains, stream);
 }

@@ -88,8 +88,10 @@
 //     built once per block in shared memory, level by level, by the
 //     threads of the block.  Output column (chunk j, point i) is d_ij P_i.
 //   * reduce: one block per chunk sums that chunk's n points: each of its
-//     256 lanes a strided share, then a tree over the lanes.  The fold of
-//     the K chunk sums, sum_j 2^(jB) T_j, is horner_fold with c = B.
+//     256 lanes a strided share, then a tree over the lanes (over fp4 a
+//     cluster a chunk, an accumulator a lane group, reduce_sliced_kernel).
+//     The fold of the K chunk sums, sum_j 2^(jB) T_j, is horner_fold with
+//     c = B.
 // The complete formulas (ec_complete.cuh) take the identity, P + P and
 // P + (-P) without a branch, so every lane of a warp runs the same code.
 // None uses wgmma or TMA; the lane offsets and the weighted sum use
@@ -99,20 +101,22 @@
 // G1 and G2 (g1_bls24315, g2_bls24315) are libraries of their own,
 // msm_g1_bls24315.cu and msm_g2_bls24315.cu, which include this file with
 // GNARK_MSM_BLS24315 defined: three nvcc runs side by side.  G1's kernels
-// and three of G2's (lane offsets, weighted sum, reduction) are the same
-// templates at their widths.  An fp4 element is 40 words and a point 120,
-// so where lane 0 holds the point its registers spill, and the FoldShared
-// slot (16 base products a product) is 11.5 KB: the weighted sum and lane
-// offsets run blocks of 128 threads (16 slots, 184 KB of dynamic shared
-// memory).  The leaf, the ladder and the Horner fold were redesigned for
-// fp4 (leaf_sliced_kernel, ladder_sliced_kernel,
-// horner_fold_sliced_kernel, picked by FpKTraits): a chain's coefficients
-// split over its group's lanes, so no lane holds a whole point and
-// nothing waits on a serial lane 0.  The leaf runs each product through
-// Sliced's exchange; the ladder and the fold run SlicedPoint's complete
-// addition and doubling, each formula's independent products as one
-// level (one write of the operands, one sync, each lane's columns, one
-// sync).
+// and one of G2's (the lane offsets) are the same templates at their
+// widths.  An fp4 element is 40 words and a point 120, so where lane 0
+// holds the point its registers spill, and the FoldShared slot (16 base
+// products a product) is 11.5 KB: the lane offsets run blocks of 128
+// threads (16 slots, 184 KB of dynamic shared memory).  The leaf, the
+// weighted sum, the ladder, the reduction and the Horner fold were
+// redesigned for fp4 (leaf_sliced_kernel, weighted_sum_sliced_kernel,
+// ladder_sliced_kernel, reduce_sliced_kernel, horner_fold_sliced_kernel,
+// picked by FpKTraits): a point's coefficients split over its group's
+// lanes, so no lane holds a whole point and nothing waits on a serial
+// lane 0.  The leaf runs each product through Sliced's exchange; the
+// others run SlicedPoint's complete addition and doubling, each formula's
+// independent products as one level (one write of the operands, one
+// sync, each lane's columns, one sync), the weighted sum and the
+// reduction each operation on one group, its operands by coefficient
+// through scratch.
 //
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
 // out), so a host harness that defines blockIdx, threadIdx, blockDim,
@@ -210,16 +214,27 @@ struct G1Bls24 {
 // level's products (130 registers); on an H100 the fastest of the ladder
 // at G = 2, 4, 8 in 64 and 128 threads and of the fold at G = 4, 8, 16
 // (ops/leaf_groups.py --kernel ladder|horner_fold --kind g2_bls24315).
-// LADDER_POINTS is the template ladder's, which ops/inline_check.py
-// builds.
+// Its weighted sum and reduction are weighted_sum_sliced_kernel and
+// reduce_sliced_kernel: an operation a group of WSUM_GROUP = 8 lanes (a
+// lane pair a coefficient) in blocks of WSUM_THREADS = 256, WSUM_CLUSTER
+// = 4 blocks a window, and a chunk's accumulators on groups of
+// REDUCE_GROUP = 8 lanes in blocks of REDUCE_THREADS = 128, REDUCE_CLUSTER
+// = 8 blocks a chunk (two accumulators a group); launch bounds of one
+// block an SM, so ptxas takes 171 and 152 registers and spills nothing
+// (left to itself it took 128 and spilled); the fastest of G = 4, 8, 16
+// in 64-512 threads and clusters of 4 and 8 (ops/leaf_groups.py --kernel
+// weighted_sum|reduce --kind g2_bls24315).  LADDER_POINTS is the template
+// ladder's, which ops/inline_check.py builds.
 struct G2Bls24 {
   using F = FpK<BLS24315Fp, 4, 13>;
   static constexpr bool B3_PRODUCT = true;
   static constexpr int B3_COEF = 3;  // b3's one nonzero coefficient
   static constexpr int LEAF_GROUP = 8;
   static constexpr int LEAF_THREADS = 128, LEAF_BLOCKS = 3;
-  static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 128, WSUM_CLUSTER = 4;
+  static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
   static constexpr int LANES_GROUP = 8, LANES_THREADS = 128, LANES_CLUSTER = 4;
+  static constexpr int REDUCE_GROUP = 8, REDUCE_THREADS = 128,
+                       REDUCE_CLUSTER = 8;
   static constexpr int LADDER_GROUP = 4, LADDER_THREADS = 128;
   static constexpr int LADDER_BLOCKS = 2;
   static constexpr int FOLD_GROUP = 16;
@@ -318,7 +333,9 @@ struct Prod<FpK<P, K, C>> {
                      CURVE::LANES_THREADS, CURVE::LANES_CLUSTER,              \
                      CURVE::LADDER_POINTS, (int)sizeof(Point<F>),             \
                      leaf_threads<CURVE>(), (int)FpKTraits<F>::SLICED,        \
-                     LS::GROUP, LS::THREADS, LS::BLOCKS, LS::FOLD};           \
+                     LS::GROUP, LS::THREADS, LS::BLOCKS, LS::FOLD,            \
+                     LS::REDUCE_GROUP, LS::REDUCE_THREADS,                    \
+                     LS::REDUCE_CLUSTER};                                     \
     for (int i = 0; i < (int)(sizeof v / sizeof v[0]); ++i) out[i] = v[i];    \
   }
 
@@ -1159,6 +1176,7 @@ struct SlicedPoint {
   using T = FpKTraits<typename Curve::F>;
   using P = typename T::P;
   using B = Fp<P>;
+  using Pt = Point<typename Curve::F>;
   static constexpr int K = T::DEG, NR = T::NR, E = Curve::B3_COEF;
   static constexpr int SPAN = G < K ? G : K, KPL = K / SPAN, LPC = G / SPAN;
   static_assert(K % SPAN == 0 && G % SPAN == 0, "G divides K, or K divides G");
@@ -1170,6 +1188,33 @@ struct SlicedPoint {
   GroupSync sync;
 
   GT_HD int coef(int t) const { return lane0 + SPAN * t; }
+
+  // This lane's coefficients of a point in a scratch of whole points, and
+  // back (by a coefficient's first copy), and of the identity (0 : 1 : 0).
+  GT_HD void get(const Pt& p, B* X, B* Y, B* Z) const {
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      X[t] = p.X.c[coef(t)];
+      Y[t] = p.Y.c[coef(t)];
+      Z[t] = p.Z.c[coef(t)];
+    }
+  }
+  GT_HD void put(Pt& p, const B* X, const B* Y, const B* Z) const {
+    if (half) return;
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      p.X.c[coef(t)] = X[t];
+      p.Y.c[coef(t)] = Y[t];
+      p.Z.c[coef(t)] = Z[t];
+    }
+  }
+  GT_HD void identity(B* X, B* Y, B* Z) const {
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      X[t] = Z[t] = fp_zero<P>();
+      Y[t] = coef(t) == 0 ? fp_one<P>() : fp_zero<P>();
+    }
+  }
 
   // Column m's constant of b3 = c u^E: c, times NR where E > m.
   GT_HD static B b3_column(int m) {
@@ -1334,17 +1379,27 @@ struct SlicedPoint {
 
 // A block's shared memory of a sliced kernel: dynamic on the card (above
 // 48 KB it needs the attribute, launch_sliced), a static object on the
-// host.
-template <class S>
-GT_INLINE S& sliced_shared() {
+// host, one for each block of a cluster (rank).
+template <class S, int CLUSTER = 1>
+GT_INLINE S& sliced_shared(int rank = 0) {
 #ifdef __CUDACC__
   extern __shared__ __align__(16) unsigned char sliced_bytes[];
   return *reinterpret_cast<S*>(sliced_bytes);
 #else
-  __shared__ S s;
-  return s;
+  __shared__ S s[CLUSTER];
+  return s[rank];
 #endif
 }
+
+// The block of a sliced kernel whose groups each run their own point
+// operations (the weighted sum, the reduction): b3's columns and the
+// slots of its THREADS / G groups (2.9 KB a group).
+template <class Curve, int G, int THREADS>
+struct GroupsShared {
+  using SP = SlicedPoint<Curve, G>;
+  XSlot<typename SP::P> kb3[SP::K];
+  typename SP::Slots slots[THREADS / G];
+};
 
 // A point's coefficients as a lane holds them: coordinate c's coefficient
 // m of a point of [3*L16, ...] limb planes at src, limb stride `stride`.
@@ -1423,30 +1478,153 @@ __global__ void __launch_bounds__(G)
   store_sliced(sp, out, 1, X, Y, Z);
 }
 
+// Coordinate c (X, Y, Z) of a point.
+template <class F>
+GT_HD F& coordinate(Point<F>& p, int c) {
+  return c == 0 ? p.X : c == 1 ? p.Y : p.Z;
+}
+
+// bk: [3*L16, nw, nb], out: [3*L16, nw], scratch: as weighted_sum_kernel's,
+// and the same function, for F = fp^K: the same wavefront (wsum_steps),
+// the same operations of each step on the same operands in the same
+// order, and the same scratch layout.  Each operation runs on one group
+// of G lanes (SlicedPoint): every lane reads its coefficients of the
+// operands from scratch, the group runs padd or pdbl, and each
+// coefficient's first copy writes its coefficients of the result (the
+// last step: of out).  The threads of a window's cluster load its
+// buckets into scratch a base element each, neighbouring threads
+// neighbouring buckets.  No lane holds a whole point and nothing waits
+// on a serial lane 0: the template kernel's lane 0 held two 120-word
+// points and dealt 16 base products a product through an 11.5 KB slot
+// (255 registers, 1.9 KB of spills on an H100), where a group's
+// PointSlots are 2.9 KB.  Launch bounds of one block an SM: left to
+// itself ptxas capped it at 128 registers and spilled.
+template <class Curve, int G, int THREADS, int CLUSTER>
+__global__ void __launch_bounds__(THREADS, 1)
+    weighted_sum_sliced_kernel(const int64_t* bk, int64_t* out,
+                               Point<typename Curve::F>* scratch, int nw,
+                               int nb) {
+  using SP = SlicedPoint<Curve, G>;
+  using Sh = GroupsShared<Curve, G, THREADS>;
+  using Pt = typename SP::Pt;
+  using P = typename SP::P;
+  using B = typename SP::B;
+  constexpr int KPL = SP::KPL, D = SP::K, L = Fp<P>::L16;
+  static_assert(G <= 16 && 32 % G == 0 && THREADS % G == 0,
+                "a group lies inside one warp");
+  const int w = blockIdx.x / CLUSTER, rank = blockIdx.x % CLUSTER;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid % G;
+  const int groups = CLUSTER * (nt / G), group = rank * (nt / G) + tid / G;
+  Sh& sh = sliced_shared<Sh, CLUSTER>(rank);
+  for (int m = tid; m < D; m += nt) slot_put(sh.kb3[m], SP::b3_column(m));
+  const SP sp{sh.slots[tid / G], sh.kb3, lane % SP::SPAN, lane / SP::SPAN,
+              GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+  const long stride = (long)nw * nb;
+  Pt* Bk = scratch + (long)w * (nb + nb / 2);
+  Pt* T = Bk + nb;
+  Pt* W = T + nb / 2 - 1;  // W_k for k < K
+  auto hs = [&](int k) { return k >= 2 ? T + (1 << (k - 2)) - 1 : Bk + 1; };
+  int K = 0;
+  while ((1 << K) < nb) ++K;
+  // element e = (coordinate, coefficient) of bucket j, from its limb planes
+  for (long o = (long)rank * nt + tid; o < 3L * D * nb; o += (long)CLUSTER * nt) {
+    const int j = (int)(o % nb), e = (int)(o / nb);
+    coordinate(Bk[j], e / D).c[e % D] =
+        load<P>(bk + (long)w * nb + j + (long)e * L * stride, stride);
+  }
+  wsum_sync<CLUSTER>();  // the buckets, and b3's columns
+  B X[KPL], Y[KPL], Z[KPL], X2[KPL], Y2[KPL], Z2[KPL];
+  if (K == 0) {
+    if (group == 0) {
+      sp.get(Bk[0], X, Y, Z);
+      store_sliced(sp, out + w, nw, X, Y, Z);
+    }
+    return;
+  }
+  const int Dsteps = wsum_steps(K);
+  for (int s = 1; s <= Dsteps; ++s) {
+    // this step's operations, in weighted_sum_kernel's order
+    const int nf = s <= K ? 1 << (K - s) : 0;
+    const int per = s < K ? 1 << (K - 1 - s) : 0;
+    const int ntr = s * per;
+    const int nd = s >= K && s <= 2 * K - 2 ? 2 * K - 1 - s : 0;
+    const int nwk = s == Dsteps || (s >= 2 * K - 1 && s <= 3 * K - 3) ? 1 : 0;
+    const int nops = nf + ntr + nd + nwk;
+    for (int o = group; o < nops; o += groups) {
+      const Pt *a, *b = nullptr;  // b: none for a doubling
+      Pt* dst = nullptr;          // none: S, into out
+      if (o < nf) {
+        dst = Bk + o;
+        a = Bk + o;
+        b = Bk + nf + o;
+      } else if (o < nf + ntr) {
+        const int q = o - nf, k = K - q / per, j = q % per;
+        Pt* Tk = hs(k);
+        const Pt* src = s == K - k + 1 ? Bk + (1 << (k - 1)) : Tk;
+        dst = Tk + j;
+        a = src + j;
+        b = src + per + j;
+      } else if (o < nf + ntr + nd) {
+        dst = hs(K - (o - nf - ntr));
+        a = dst;
+      } else if (s < Dsteps) {
+        const int k = 3 * K - 2 - s;
+        dst = W;
+        a = k == K - 1 ? hs(K) : W;
+        b = hs(k);
+      } else {
+        a = Bk;
+        b = K == 1 ? hs(1) : W;
+      }
+      sp.get(*a, X, Y, Z);
+      if (b) {
+        sp.get(*b, X2, Y2, Z2);
+        sp.padd(X, Y, Z, X2, Y2, Z2);
+      } else {
+        sp.pdbl(X, Y, Z);
+      }
+      if (dst)
+        sp.put(*dst, X, Y, Z);
+      else
+        store_sliced(sp, out + w, nw, X, Y, Z);
+    }
+    wsum_sync<CLUSTER>();
+  }
+}
+
 // ---- the chunked, windowed ladder ---------------------------------------------
 
 constexpr int LADDER_CHUNKS = 16;  // K: chunks a scalar, a thread each
 constexpr int LADDER_WINDOW = 4;   // w: bits a window
 constexpr int LADDER_TABLE = 1 << LADDER_WINDOW;
+constexpr int REDUCE_LANES = 256;  // accumulators a chunk of the reduction
 // threads a block: Curve::LADDER_POINTS points (8, or 4 where the table of
 // 8 would pass 48 KB of static shared memory) x K chunks
 template <class Curve>
 constexpr int ladder_threads() { return Curve::LADDER_POINTS * LADDER_CHUNKS; }
 
-// A curve's shipped ladder and fold (GNARK_MSM_SHAPE): over fp^K the
-// sliced kernels' LADDER_GROUP threads a chain in blocks of
-// LADDER_THREADS, LADDER_BLOCKS an SM, and FOLD_GROUP threads; otherwise
-// ladder_kernel's thread a chain and horner_fold_kernel's warp.
+// A curve's shipped ladder, fold and reduction (GNARK_MSM_SHAPE): over
+// fp^K the sliced kernels' LADDER_GROUP threads a chain in blocks of
+// LADDER_THREADS, LADDER_BLOCKS an SM, FOLD_GROUP threads, and the
+// reduction's REDUCE_GROUP threads an accumulator in blocks of
+// REDUCE_THREADS, REDUCE_CLUSTER blocks a chunk; otherwise ladder_kernel's
+// thread a chain, horner_fold_kernel's warp and reduce_kernel's block of
+// REDUCE_LANES threads a chunk.
 template <class Curve, bool = FpKTraits<typename Curve::F>::SLICED>
 struct LadderShape {
   static constexpr int GROUP = Curve::LADDER_GROUP,
                        THREADS = Curve::LADDER_THREADS,
-                       BLOCKS = Curve::LADDER_BLOCKS, FOLD = Curve::FOLD_GROUP;
+                       BLOCKS = Curve::LADDER_BLOCKS, FOLD = Curve::FOLD_GROUP,
+                       REDUCE_GROUP = Curve::REDUCE_GROUP,
+                       REDUCE_THREADS = Curve::REDUCE_THREADS,
+                       REDUCE_CLUSTER = Curve::REDUCE_CLUSTER;
 };
 template <class Curve>
 struct LadderShape<Curve, false> {
   static constexpr int GROUP = 1, THREADS = ladder_threads<Curve>(),
-                       BLOCKS = Curve::LADDER_BLOCKS, FOLD = FOLD_THREADS;
+                       BLOCKS = Curve::LADDER_BLOCKS, FOLD = FOLD_THREADS,
+                       REDUCE_GROUP = 1, REDUCE_THREADS = REDUCE_LANES,
+                       REDUCE_CLUSTER = 1;
 };
 
 // Levels of the table recipe T[2k] = 2 T[k], T[2k+1] = T[2k] + T[1]:
@@ -1641,8 +1819,6 @@ __global__ void __launch_bounds__(THREADS, BLOCKS)
   store_sliced(sp, out + (long)j * n + i, (long)K * n, X, Y, Z);
 }
 
-constexpr int REDUCE_LANES = 256;
-
 // pts: [3*L16, K, n] projective points; out: [3*L16, K], the sum of each
 // chunk's n points.  Block j, lane t sums points t, t + 256, ... of chunk
 // j in order, over n rounded up to a multiple of 256 with the identity
@@ -1673,6 +1849,91 @@ __global__ void __launch_bounds__(REDUCE_LANES)
     __syncthreads();
   }
   if (threadIdx.x == 0) store_point<Curve>(s[0], out + j, K);
+}
+
+// pts, out, scratch as reduce_kernel's, and the same function, for F =
+// fp^K: the same complete additions on the same operands in the same
+// order.  Chunk j runs on a cluster of CLUSTER blocks (one block where
+// CLUSTER = 1) whose groups of G lanes (SlicedPoint) hold its
+// REDUCE_LANES accumulators s[t] in scratch by coefficient, accumulator t
+// on group t (t, t + groups, ... where the cluster has fewer groups):
+// each lane reads its coefficients of s[t] and of point t + 256 (r + 1)
+// straight from pts, the group adds them and writes s[t] back.  The
+// halving tree's level h then adds s[t + h] to s[t] for t < h: a cluster
+// barrier before a level whose entries lie on other blocks, and once they
+// all lie on rank 0's block (2h <= its groups) the other blocks leave and
+// __syncthreads orders the rest.  What bounds it is the latency of its 23
+// dependent additions at 4,096 points (15 strided, 8 tree levels), each
+// two levels of products and the b3 level: the template kernel ran them
+// on one thread a lane, a whole fp4 point and 16 base products a product
+// there (255 registers, spills on an H100).  Launch bounds of one block
+// an SM: left to itself ptxas capped it at 128 registers and spilled.
+template <class Curve, int G, int THREADS, int CLUSTER>
+__global__ void __launch_bounds__(THREADS, 1)
+    reduce_sliced_kernel(const int64_t* pts, int64_t* out,
+                         Point<typename Curve::F>* scratch, int n, int K) {
+  using SP = SlicedPoint<Curve, G>;
+  using Sh = GroupsShared<Curve, G, THREADS>;
+  using B = typename SP::B;
+  constexpr int KPL = SP::KPL, A = THREADS / G;  // groups a block
+  static_assert(G <= 16 && 32 % G == 0 && THREADS % G == 0,
+                "a group lies inside one warp");
+  const int j = blockIdx.x / CLUSTER, rank = blockIdx.x % CLUSTER;
+  const int tid = threadIdx.x, lane = tid % G;
+  const int groups = CLUSTER * A, group = rank * A + tid / G;
+  Sh& sh = sliced_shared<Sh, CLUSTER>(rank);
+  for (int m = tid; m < SP::K; m += blockDim.x)
+    slot_put(sh.kb3[m], SP::b3_column(m));
+  __syncthreads();
+  const SP sp{sh.slots[tid / G], sh.kb3, lane % SP::SPAN, lane / SP::SPAN,
+              GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+  const long stride = (long)K * n;
+  const int64_t* col = pts + (long)j * n;
+  typename SP::Pt* s = scratch + (long)j * REDUCE_LANES;
+  B X[KPL], Y[KPL], Z[KPL], X2[KPL], Y2[KPL], Z2[KPL];
+  // accumulator t starts at point t (the identity past n)
+  for (int t = group; t < REDUCE_LANES; t += groups) {
+    if (t < n)
+      load_sliced(sp, col + t, stride, X, Y, Z);
+    else
+      sp.identity(X, Y, Z);
+    sp.put(s[t], X, Y, Z);
+  }
+  // round r < M - 1 adds point t + 256 (r + 1) to accumulator t (its
+  // group alone reads and writes it: a group sync orders the copies'
+  // reads after the first copy's write); then the tree's level h = 128 >>
+  // (r - M + 1) adds s[t + h] to s[t] for t < h.  One addition in the
+  // code, so one inlined padd.
+  constexpr int LEVELS = 8;  // of the tree
+  static_assert(1 << LEVELS == REDUCE_LANES, "a tree over the lanes");
+  const int M = n > REDUCE_LANES ? (n + REDUCE_LANES - 1) / REDUCE_LANES : 1;
+  for (int r = 0; r < M - 1 + LEVELS; ++r) {
+    const bool tree = r >= M - 1;
+    const int h = tree ? REDUCE_LANES / 2 >> (r - M + 1) : 0;
+    if (!tree) {
+      sp.sync();
+    } else if (2 * h > A) {  // level h reads s[0, 2h): groups 0 .. 2h - 1
+      wsum_sync<CLUSTER>();
+    } else {
+      if (rank) return;
+      __syncthreads();
+    }
+    for (int t = group; t < (tree ? h : REDUCE_LANES); t += groups) {
+      sp.get(s[t], X, Y, Z);
+      const long i = t + (long)REDUCE_LANES * (r + 1);
+      if (tree)
+        sp.get(s[t + h], X2, Y2, Z2);
+      else if (i < n)
+        load_sliced(sp, col + i, stride, X2, Y2, Z2);
+      else
+        sp.identity(X2, Y2, Z2);
+      sp.padd(X, Y, Z, X2, Y2, Z2);
+      if (h != 1)
+        sp.put(s[t], X, Y, Z);
+      else
+        store_sliced(sp, out + j, K, X, Y, Z);
+    }
+  }
 }
 
 // ---- C launchers: launch on the given stream, return cudaGetLastError() --
@@ -1709,16 +1970,15 @@ int launch_leaf_prefix(const void* sx, const void* sy, void* rows, int nw,
   }
 }
 
-// A kernel that runs a window on a cluster of CLUSTER blocks of THREADS
-// threads (nw clusters), the FoldShared slots of its groups of G threads in
-// dynamic shared memory.  Above 48 KB of slots a block needs the dynamic
-// shared memory attribute, which the kernel keeps once set; the cluster is
-// a launch attribute.
-template <class F, int G, int THREADS, int CLUSTER, class... KArgs,
-          class... Args>
-int launch_cluster(void (*kern)(KArgs...), int nw, void* stream,
-                   Args... args) {
-  constexpr int shared = THREADS / G * (int)sizeof(FoldShared<F>);
+// A kernel that runs a window (or a chunk) on a cluster of CLUSTER blocks
+// of THREADS threads (nw clusters), with SHARED bytes of dynamic shared
+// memory a block.  Above 48 KB a block needs the dynamic shared memory
+// attribute, which the kernel keeps once set; the cluster is a launch
+// attribute.
+template <int SHARED, int THREADS, int CLUSTER, class... KArgs, class... Args>
+int launch_clusters(void (*kern)(KArgs...), int nw, void* stream,
+                    Args... args) {
+  constexpr int shared = SHARED;
   static_assert(shared <= 227 * 1024, "the slots pass a block's shared memory");
   static_assert(CLUSTER >= 1 && CLUSTER <= 8, "a portable cluster");
   if (shared > 48 * 1024) {
@@ -1742,13 +2002,68 @@ int launch_cluster(void (*kern)(KArgs...), int nw, void* stream,
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
+// The same, the FoldShared slots of its groups of G threads in the block's
+// dynamic shared memory.
+template <class F, int G, int THREADS, int CLUSTER, class... KArgs,
+          class... Args>
+int launch_cluster(void (*kern)(KArgs...), int nw, void* stream,
+                   Args... args) {
+  return launch_clusters<THREADS / G * (int)sizeof(FoldShared<F>), THREADS,
+                         CLUSTER>(kern, nw, stream, args...);
+}
+
+template <class Curve, int G, int THREADS, int CLUSTER>
+int launch_weighted_sum_sliced(const void* bk, void* out, void* scratch,
+                               int nw, int nb, void* stream) {
+  return launch_clusters<(int)sizeof(GroupsShared<Curve, G, THREADS>),
+                         THREADS, CLUSTER>(
+      weighted_sum_sliced_kernel<Curve, G, THREADS, CLUSTER>, nw, stream,
+      (const int64_t*)bk, (int64_t*)out, (Point<typename Curve::F>*)scratch,
+      nw, nb);
+}
+
+// A curve's weighted sum at group width G: weighted_sum_sliced_kernel over
+// fp^K, weighted_sum_kernel otherwise.
 template <class Curve, int G, int THREADS, int CLUSTER>
 int launch_weighted_sum(const void* bk, void* out, void* scratch, int nw,
                         int nb, void* stream) {
-  return launch_cluster<typename Curve::F, G, THREADS, CLUSTER>(
-      weighted_sum_kernel<Curve, G, THREADS, CLUSTER>, nw, stream,
-      (const int64_t*)bk, (int64_t*)out, (Point<typename Curve::F>*)scratch,
-      nw, nb);
+  if constexpr (FpKTraits<typename Curve::F>::SLICED)
+    return launch_weighted_sum_sliced<Curve, G, THREADS, CLUSTER>(
+        bk, out, scratch, nw, nb, stream);
+  else
+    return launch_cluster<typename Curve::F, G, THREADS, CLUSTER>(
+        weighted_sum_kernel<Curve, G, THREADS, CLUSTER>, nw, stream,
+        (const int64_t*)bk, (int64_t*)out, (Point<typename Curve::F>*)scratch,
+        nw, nb);
+}
+
+// The per-chunk reduction over fp^K: a cluster of CLUSTER blocks a chunk.
+template <class Curve, int G, int THREADS, int CLUSTER>
+int launch_reduce_sliced(const void* pts, void* out, void* scratch, int n,
+                         int K, void* stream) {
+  return launch_clusters<(int)sizeof(GroupsShared<Curve, G, THREADS>),
+                         THREADS, CLUSTER>(
+      reduce_sliced_kernel<Curve, G, THREADS, CLUSTER>, K, stream,
+      (const int64_t*)pts, (int64_t*)out, (Point<typename Curve::F>*)scratch,
+      n, K);
+}
+
+// A curve's reduction: reduce_sliced_kernel over fp^K (at its
+// LadderShape), reduce_kernel otherwise.
+template <class Curve>
+int launch_reduce(const void* pts, void* out, void* scratch, int n, int K,
+                  void* stream) {
+  if constexpr (FpKTraits<typename Curve::F>::SLICED) {
+    using LS = LadderShape<Curve>;
+    return launch_reduce_sliced<Curve, LS::REDUCE_GROUP, LS::REDUCE_THREADS,
+                                LS::REDUCE_CLUSTER>(pts, out, scratch, n, K,
+                                                    stream);
+  } else {
+    reduce_kernel<Curve><<<K, REDUCE_LANES, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)pts, (int64_t*)out,
+        (Point<typename Curve::F>*)scratch, n, K);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <class Curve, int G, int THREADS, int CLUSTER>
@@ -1853,10 +2168,7 @@ int launch_horner_fold(const void* S, void* out, int nw, int c, void* stream) {
   extern "C" int gnark_msm_reduce_##NAME(const void* pts, void* out,          \
                                          void* scratch, int n, int K,         \
                                          void* stream) {                      \
-    reduce_kernel<CURVE><<<K, REDUCE_LANES, 0, (cudaStream_t)stream>>>(       \
-        (const int64_t*)pts, (int64_t*)out, (Point<CURVE::F>*)scratch, n,     \
-        K);                                                                   \
-    return (int)cudaGetLastError();                                           \
+    return launch_reduce<CURVE>(pts, out, scratch, n, K, stream);             \
   }                                                                           \
   GNARK_MSM_SHAPE(NAME, CURVE)
 

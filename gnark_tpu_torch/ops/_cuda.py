@@ -61,21 +61,28 @@ _L16 = {"g1": 16, "g2": 32,     # 16-bit limb planes of one coordinate
 # a window), LANES_GROUP, LANES_THREADS, LANES_CLUSTER (the same for a
 # lane-offsets addition), LADDER_POINTS (points a ladder block), a
 # Point<F>'s bytes, the leaf's threads a block, whether the leaf, the
-# ladder and the fold are the sliced kernels (fp4: a chain's coefficients
-# over the group), and the shipped ladder's threads a chain, threads a
-# block and blocks an SM and the fold's threads (LadderShape: 1, 16
-# LADDER_POINTS, LADDER_BLOCKS and one warp for the template kernels)
+# ladder, the fold, the weighted sum and the reduction are the sliced
+# kernels (fp4: a point's coefficients over the group), the shipped
+# ladder's threads a chain, threads a block and blocks an SM, the fold's
+# threads, and the reduction's threads an accumulator, threads a block
+# and blocks a chunk (LadderShape: 1, 16 LADDER_POINTS, LADDER_BLOCKS, one
+# warp, and 1, REDUCE_LANES, 1 for the template kernels)
 SHAPE = ("words", "degree", "prod_s", "b3_product", "leaf_group",
          "wsum_group", "wsum_threads", "wsum_cluster", "lanes_group",
          "lanes_threads", "lanes_cluster", "ladder_points", "point_bytes",
          "leaf_threads", "leaf_sliced", "ladder_group", "ladder_threads",
-         "ladder_blocks", "fold_group")
+         "ladder_blocks", "fold_group", "reduce_group", "reduce_threads",
+         "reduce_cluster")
 LADDER_CHUNKS = 16       # msm_kernels.cu's ladder_kernel: chunks a
 LADDER_WINDOW = 4        # scalar, bits a window
 # microbench.cu's enum Op, in order; then the two kernels of their own
 MICROBENCH_U32_OPS = ("mul_u32", "mul16_u32", "add_u32", "mad_wide_u32",
                       "mad_lo_hi_u32")
-MICROBENCH_OPS = MICROBENCH_U32_OPS + ("fma_f32", "montmul_bn254")
+MICROBENCH_OPS = MICROBENCH_U32_OPS + ("fma_f32", "montmul_bn254",
+                                       "montmul_bls24315")
+# the Montgomery products' kinds: their 16-bit limb planes, their launcher
+MONTMUL = {"montmul_bn254": (16, "montmul"),
+           "montmul_bls24315": (20, "montmul_bls24315")}
 
 launches = {f"{k}_{kind}": 0 for k in KERNELS for kind in KINDS}
 launches.update({f"microbench_{op}": 0 for op in MICROBENCH_OPS})
@@ -163,7 +170,8 @@ def _bind_microbench(lib):
     for name, args in (("steps", []),
                        ("u32", [ci, vp, vp, vp, cl, vp]),
                        ("fma_f32", [vp, vp, vp, cl, vp]),
-                       ("montmul", [vp, vp, vp, cl, ci, ci, vp])):
+                       ("montmul", [vp, vp, vp, cl, ci, ci, vp]),
+                       ("montmul_bls24315", [vp, vp, vp, cl, ci, ci, vp])):
         fn = getattr(lib, f"gnark_microbench_{name}")
         fn.argtypes = args
         fn.restype = ci
@@ -313,9 +321,10 @@ def microbench_steps() -> int:
 
 def microbench(op, x, y, steps=None, chains=4):
     """One launch of the chain kernel for ``op`` over every element of x
-    against y (see csrc/microbench.cu).  ``steps`` is montmul_bn254's
-    products per chain, ``chains`` its chains an element (4 or 1); the
-    other ops run microbench_steps() on four chains."""
+    against y (see csrc/microbench.cu).  ``steps`` is a Montgomery
+    product's (montmul_bn254, montmul_bls24315) products per chain,
+    ``chains`` its chains an element (4 or 1); the other ops run
+    microbench_steps() on four chains."""
     if op not in MICROBENCH_OPS:
         raise ValueError(f"unknown microbenchmark op {op!r}")
     want = torch.float32 if op == "fma_f32" else torch.int64
@@ -330,14 +339,15 @@ def microbench(op, x, y, steps=None, chains=4):
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty_like(x)
     ptrs = (x.data_ptr(), y.data_ptr(), out.data_ptr())
-    if op == "montmul_bn254":
-        if x.ndim != 2 or x.shape[0] != _L16["g1"] or not steps or steps < 1:
-            raise ValueError(f"montmul_bn254: want [16, n] limb planes and "
+    if op in MONTMUL:
+        planes, fn = MONTMUL[op]
+        if x.ndim != 2 or x.shape[0] != planes or not steps or steps < 1:
+            raise ValueError(f"{op}: want [{planes}, n] limb planes and "
                              f"steps >= 1, got {tuple(x.shape)}, {steps}")
         if chains not in (1, 4):
-            raise ValueError(f"montmul_bn254: 4 chains or 1, not {chains}")
-        rc = lib.gnark_microbench_montmul(*ptrs, x.shape[1], steps, chains,
-                                          stream)
+            raise ValueError(f"{op}: 4 chains or 1, not {chains}")
+        rc = getattr(lib, f"gnark_microbench_{fn}")(*ptrs, x.shape[1], steps,
+                                                    chains, stream)
     elif steps is not None or chains != 4:
         raise ValueError(f"{op}: steps and chains are fixed at build time")
     elif op == "fma_f32":

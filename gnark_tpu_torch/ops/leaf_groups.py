@@ -1,7 +1,8 @@
 """A group kernel at several thread-group widths and block sizes, on one card.
 
     python -m gnark_tpu_torch.ops.leaf_groups
-        [--kernel leaf_prefix|weighted_sum|lane_offsets|ladder|horner_fold]
+        [--kernel leaf_prefix|weighted_sum|lane_offsets|ladder|horner_fold|
+                  reduce]
         [--kind g2_bls24315] [--csrc DIR] [--baseline DIR] [--out FILE]
 
 Builds one library that instantiates the kernel of ``csrc/msm_kernels.cu``
@@ -24,7 +25,9 @@ directory), the two compilers side by side:
     256 and 512 threads, the last two also in clusters of 2, 4 and 8
     blocks a window, on the 2^16 plan's buckets (24 windows of 1,024) for
     G1 and G2, made by the plain leaf, lane offsets and bucket steps on
-    the card;
+    the card; with ``--kind g2_bls24315``, BLS24-315's fp4 weighted sum
+    ``weighted_sum_sliced_kernel<G2Bls24, G, THREADS, CLUSTER>`` at each
+    of WSUM_FP4_SHAPES on that plan's fp4 buckets;
   * ``lane_offsets``: ``lane_offsets_kernel<Curve, G, THREADS, CLUSTER>``
     for G1 at G = 2, 4, 8 and G2 at G = 4, 8, 16, each in blocks of 128
     and 256 threads, in clusters of 1, 2 and 4 blocks a window, on the
@@ -39,10 +42,15 @@ directory), the two compilers side by side:
     2^16 plan's window sums (24 windows, c = 11, made by the plain leaf,
     lane offsets, bucket and weighted-sum steps on the card) and on the
     ladder's chunk sums of those 4,096 points (16, c = 16);
-    ``--baseline`` for these two is the other version's
-    ``msm_g2_bls24315.cu`` (its ``gnark_msm_{ladder,horner_fold}_
-    g2_bls24315``).  The trial shapes build in translation units of their
-    own, side by side, never in the shipped library.
+  * ``reduce --kind g2_bls24315``: its reduction
+    ``reduce_sliced_kernel<G2Bls24, G, THREADS, CLUSTER>`` at each of
+    REDUCE_SHAPES on the plain ladder's output at those 4,096 points (16
+    chunks);
+    ``--baseline`` for the fp4 kernels is the other version's
+    ``msm_g2_bls24315.cu`` (its ``gnark_msm_<kernel>_g2_bls24315``).  The
+    trial shapes build in translation units of their own, one a (G,
+    threads) for the fp4 ladder, weighted sum and reduction, side by side,
+    never in the shipped library.
 
 Every shape (and the baseline) is held against the plain version on the
 same CUDA tensors, bit for bit, and timed with CUDA events: 3 launches
@@ -52,8 +60,9 @@ one line a shape and, with ``--out``, writes the numbers as JSON.  The
 shapes that ship are ``G1/G2::LEAF_GROUP``, ``WSUM_GROUP``,
 ``WSUM_THREADS``, ``WSUM_CLUSTER`` and ``LANES_GROUP``, ``LANES_THREADS``,
 ``LANES_CLUSTER``, and ``G2Bls24::LEAF_GROUP``, ``LEAF_THREADS``,
-``LEAF_BLOCKS``, ``LADDER_GROUP``, ``LADDER_THREADS``, ``LADDER_BLOCKS``
-and ``FOLD_GROUP``.
+``LEAF_BLOCKS``, ``LADDER_GROUP``, ``LADDER_THREADS``, ``LADDER_BLOCKS``,
+``FOLD_GROUP``, ``WSUM_GROUP``, ``WSUM_THREADS``, ``WSUM_CLUSTER``,
+``REDUCE_GROUP``, ``REDUCE_THREADS`` and ``REDUCE_CLUSTER``.
 """
 
 from __future__ import annotations
@@ -96,6 +105,17 @@ LADDER_SHAPES = [(8, 128, 2), (8, 128, 3), (8, 128, 4), (8, 64, 4),
                  (8, 64, 6), (8, 64, 8), (4, 64, 4), (4, 64, 6), (4, 128, 2),
                  (2, 64, 2)]
 FOLD_GROUPS = (4, 8, 16)      # the fp4 fold's trial widths
+# the fp4 weighted sum's and reduction's trial shapes: (G, threads a block,
+# blocks a cluster).  A group's slots are 2.9 KB, so 32 groups a block
+# (92 KB) leave two blocks an SM and 64 (184 KB) one; 512 threads cap a
+# thread at 128 registers.  The 2^16 plan's first steps have 768
+# operations a window; a chunk of the reduction has 256 accumulators (a
+# cluster with fewer groups runs two on each).
+WSUM_FP4_SHAPES = [(4, 128, 4), (4, 128, 8), (4, 64, 8), (8, 128, 4),
+                   (8, 256, 4), (8, 256, 8), (16, 256, 4), (16, 256, 8),
+                   (16, 512, 4)]
+REDUCE_SHAPES = [(4, 128, 8), (4, 64, 8), (4, 256, 4), (8, 256, 8),
+                 (8, 128, 8), (8, 512, 4), (16, 512, 8), (16, 256, 8)]
 N_LADDER = 1 << 12
 BLOCKS = (128, 256, 512)      # the weighted sum's threads a block
 CLUSTERS = (1, 2, 4, 8)       # and its blocks a window, from 256 threads
@@ -166,11 +186,32 @@ _FOLD_TRIAL = """#define TRIAL(G)                                               
     return launch_horner_fold_sliced<G2Bls24, G>(S, out, nw, c, stream);    \\
   }
 """
+# the fp4 weighted sum's and reduction's trials: (kernel's launcher, the
+# names of its two int arguments)
+_GROUPS_TRIAL = """#define TRIAL(G, T, CL)                                                     \\
+  extern "C" int {name}_trial_g2_bls24315_##G##_##T##_##CL(const void* a,   \\
+      void* out, void* scratch, int x, int y, void* stream) {{              \\
+    return launch_{launcher}_sliced<G2Bls24, G, T, CL>(a, out, scratch, x,  \\
+                                                       y, stream);          \\
+  }}
+"""
+_GROUPS_TRIALS = {"weighted_sum": ("wsum", "weighted_sum"),
+                  "reduce": ("reduce", "reduce")}
 
 
 def trial_units(kernel, kind=None):
     """{name: source} of the translation units a sweep builds: one, or
-    for the fp4 ladder one for each (G, threads) of LADDER_SHAPES."""
+    for the fp4 ladder, weighted sum and reduction one for each (G,
+    threads) of their shapes."""
+    if kind and kernel in _GROUPS_TRIALS:
+        name, launcher = _GROUPS_TRIALS[kernel]
+        units = {}
+        for g, t, cl in (WSUM_FP4_SHAPES if kernel == "weighted_sum"
+                         else REDUCE_SHAPES):
+            units.setdefault(f"trial_{g}_{t}", _FP4_HEAD + _GROUPS_TRIAL.format(
+                name=name, launcher=launcher))
+            units[f"trial_{g}_{t}"] += f"TRIAL({g}, {t}, {cl})\n"
+        return units
     if kernel == "ladder":
         units = {}
         for g, t, b in LADDER_SHAPES:
@@ -443,6 +484,68 @@ def fold_cases(libs, rng, device):
                lambda v, sms: None)
 
 
+def _groups_variants(libs, kernel, shapes, args, baseline):
+    """{shape label: fn(out) -> launch} of the fp4 weighted sum's or
+    reduction's trials (and the baseline) on args = (input, its two ints,
+    scratch, clusters a launch: nw or K), and warps(label, SMs): a
+    launch's clusters x CL blocks x T threads, in warps an SM."""
+    a, x, y, scratch, clusters = args
+    name = _GROUPS_TRIALS[kernel][0]
+    fns = {f"G={g} T={t} CL={cl}": _bind(
+        _trials(libs), f"{name}_trial_g2_bls24315_{g}_{t}_{cl}", 2)
+        for g, t, cl in shapes}
+    if "baseline" in libs:
+        fns = {"baseline": _bind(libs["baseline"], baseline, 2), **fns}
+    variants = {v: (lambda out, f=f: _checked(
+        f, a.data_ptr(), out.data_ptr(), scratch.data_ptr(), x, y))
+        for v, f in fns.items()}
+
+    def warps(v, sms):
+        if "T=" not in v:
+            return None
+        t, cl = (int(z) for z in re.findall(r"[TL]=(\d+)", v))
+        return clusters * t * cl / 32 / sms
+    return variants, warps
+
+
+def wsum_fp4_cases(libs, rng, device):
+    """The fp4 weighted sum at WSUM_FP4_SHAPES, on the 2^16 plan's
+    buckets (24 windows of 1,024), made by the plain leaf, lane offsets
+    and bucket steps on the card."""
+    kind = "g2_bls24315"
+    plan, sx, sy, d_sorted = _inputs(kind, N, rng, device)
+    GC = plan.GC
+    rows = M.leaf_prefix_plain(sx, sy, GC)
+    offs = M.lane_offsets_plain(plan.lane_totals(rows), GC)
+    bk = plan._buckets(rows, offs, d_sorted)
+    want = M.weighted_sum_plain(bk, GC)
+    _, nw, nb = bk.shape
+    scratch = torch.empty(nw * (nb + nb // 2) * 3 * _cuda._L16[kind] // 2,
+                          dtype=torch.int32, device=device)
+    variants, warps = _groups_variants(
+        libs, "weighted_sum", WSUM_FP4_SHAPES, (bk, nw, nb, scratch, nw),
+        f"gnark_msm_weighted_sum_{kind}")
+    yield (f"{kind} nw={nw} nb={nb}", {"kind": kind, "nw": nw, "nb": nb},
+           want, variants, warps)
+
+
+def reduce_cases(libs, rng, device):
+    """The fp4 reduction at REDUCE_SHAPES, on the plain ladder's output at
+    N_LADDER points (16 chunks), as chip_smoke.py's phase 8 runs it."""
+    kind = "g2_bls24315"
+    lad, GC = _ladder_inputs(rng, device)
+    pts = M.ladder_plain(*lad, GC)
+    want = M.reduce_plain(pts, GC)
+    _, K, n = pts.shape
+    scratch = torch.empty(K * _cuda.REDUCE_LANES * 3 * _cuda._L16[kind] // 2,
+                          dtype=torch.int32, device=device)
+    variants, warps = _groups_variants(
+        libs, "reduce", REDUCE_SHAPES, (pts, n, K, scratch, K),
+        f"gnark_msm_reduce_{kind}")
+    yield (f"{kind} n={n} K={K}", {"kind": kind, "n": n, "K": K}, want,
+           variants, warps)
+
+
 def hillis_steele_plain(tot, GC):
     """The lane offsets by the Hillis-Steele scan of the kernel before the
     Brent-Kung one (and of gnark_tpu's): the same points, other
@@ -497,21 +600,23 @@ def lanes_cases(libs, rng, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=tuple(_TU) + ("ladder", "horner_fold"),
+    ap.add_argument("--kernel", choices=tuple(_TU) + ("ladder", "horner_fold",
+                                                      "reduce"),
                     default="leaf_prefix")
     ap.add_argument("--csrc", default=_cuda._CSRC, help="the csrc "
                     "directory whose kernel runs at each shape")
     ap.add_argument("--baseline", help="a csrc directory whose "
                     "msm_kernels.cu is timed beside the shapes")
     ap.add_argument("--kind", choices=("g2_bls24315",), help="sweep this "
-                    "kind's leaf (SLICED_SHAPES) instead of BN254's; the "
-                    "ladder and the fold take it alone")
+                    "kind's leaf (SLICED_SHAPES) or weighted sum "
+                    "(WSUM_FP4_SHAPES) instead of BN254's; the ladder, the "
+                    "fold and the reduction take it alone")
     ap.add_argument("--out", help="write the numbers here as JSON")
     args = ap.parse_args(argv)
-    fp4 = args.kernel in ("ladder", "horner_fold")
-    if args.kind and args.kernel not in ("leaf_prefix", "ladder",
-                                         "horner_fold"):
-        ap.error("--kind takes the leaf, the ladder or the fold")
+    fp4 = args.kernel in ("ladder", "horner_fold", "reduce")
+    if args.kind and args.kernel == "lane_offsets":
+        ap.error("--kind takes the leaf, the weighted sum, the ladder, the "
+                 "fold or the reduction")
     if fp4 and not args.kind:
         ap.error(f"--kernel {args.kernel} sweeps --kind g2_bls24315")
     if not torch.cuda.is_available():
@@ -552,9 +657,11 @@ def main(argv=None):
               "ptxas": ptxas, "cases": []}
     cases = {"leaf_prefix": leaf_cases, "weighted_sum": wsum_cases,
              "lane_offsets": lanes_cases, "ladder": ladder_cases,
-             "horner_fold": fold_cases}[args.kernel]
+             "horner_fold": fold_cases, "reduce": reduce_cases}[args.kernel]
     if args.kind and args.kernel == "leaf_prefix":
         cases = functools.partial(leaf_cases, kind=args.kind)
+    if args.kind and args.kernel == "weighted_sum":
+        cases = wsum_fp4_cases
     for label, case, want, variants, warps in cases(libs, rng, device):
         times = {v: [] for v in variants}
         order = list(variants)

@@ -8,7 +8,9 @@ second operand, then the sum of the four accumulators.  The TPU's four ops
 (``mul_u32``, ``mul16_u32``, ``add_u32``, ``fma_f32``) compute the same
 values here; ``mad_wide_u32``, ``mad_lo_hi_u32`` and ``montmul_bn254`` are
 the multiply-adds and the Montgomery product of csrc/field.cuh, whose
-rate bounds every MSM kernel.  The kernel is csrc/microbench.cu.
+rate bounds every MSM kernel, and ``montmul_bls24315`` that product over
+BLS24-315's 10-word fp (the BLS24-315 kernels').  The kernel is
+csrc/microbench.cu.
 
 ``chain`` launches the kernel on CUDA tensors and runs ``chain_plain`` on
 CPU tensors; any other device raises, and there is no fallback from the
@@ -26,15 +28,19 @@ import subprocess
 import numpy as np
 import torch
 
-from gnark_tpu_torch.curves import BN254
+from gnark_tpu_torch.curves import BLS24_315, BN254
 from gnark_tpu_torch.ops import _cuda
 from gnark_tpu_torch.ops.limbs import field_ops
 
 OPS = _cuda.MICROBENCH_OPS
 # instructions a step issues: what "operations per second" counts
 OPS_PER_STEP = {"mul_u32": 1, "mul16_u32": 1, "add_u32": 1, "fma_f32": 1,
-                "mad_wide_u32": 1, "mad_lo_hi_u32": 2, "montmul_bn254": 1}
+                "mad_wide_u32": 1, "mad_lo_hi_u32": 2, "montmul_bn254": 1,
+                "montmul_bls24315": 1}
 MULS_PER_MONTMUL = 2 * 8 * 8 + 8     # field.cuh: 2N^2 + N at N = 8
+# each Montgomery product's field, and its 32-bit multiplies (2N^2 + N)
+MONTMUL_FIELDS = {"montmul_bn254": (BN254.fp, MULS_PER_MONTMUL),
+                  "montmul_bls24315": (BLS24_315.fp, 2 * 10 * 10 + 10)}
 STEPS = 128                          # microbench.cu's STEPS
 MONTMUL_STEPS = 32
 # 16 threads' worth of elements for each of the 2048 threads an SM holds
@@ -46,12 +52,12 @@ _M32 = 0xFFFFFFFF
 
 def chain_plain(op, x, y, steps=None, chains=4):
     """The chains in plain PyTorch: int64 tensors masked to 32 bits
-    (mad_wide_u32 wraps at 64), float32 for fma_f32, FieldOps for
-    montmul_bn254 (on ``chains`` chains, 4 or 1)."""
+    (mad_wide_u32 wraps at 64), float32 for fma_f32, FieldOps for the
+    Montgomery products (on ``chains`` chains, 4 or 1)."""
     if steps is None:
-        steps = MONTMUL_STEPS if op == "montmul_bn254" else STEPS
-    if op == "montmul_bn254":
-        F = field_ops(BN254.fp)
+        steps = MONTMUL_STEPS if op in MONTMUL_FIELDS else STEPS
+    if op in MONTMUL_FIELDS:
+        F = field_ops(MONTMUL_FIELDS[op][0])
         accs = [x]
         for _ in range(chains - 1):
             accs.append(F.double(accs[-1]))
@@ -112,7 +118,7 @@ def chain(op, x, y, steps=None, chains=4):
     if op not in OPS:
         raise ValueError(f"unknown microbenchmark op {op!r}")
     if x.device.type == "cuda":
-        if op == "montmul_bn254" and steps is None:
+        if op in MONTMUL_FIELDS and steps is None:
             steps = MONTMUL_STEPS
         return _cuda.microbench(op, x, y, steps, chains)
     if x.device.type == "cpu":
@@ -127,13 +133,13 @@ def inputs(op, n, device, seed=0):
     rng = np.random.default_rng(seed)
     if op == "fma_f32":
         x, y = (torch.from_numpy(rng.random(n, np.float32)) for _ in "xy")
-    elif op == "montmul_bn254":
-        p = BN254.fp.modulus
+    elif op in MONTMUL_FIELDS:
+        spec = MONTMUL_FIELDS[op][0]
         # limb planes of values below p: the top limb below p's top limb
-        top = (p >> 240) & 0xFFFF
+        top = (spec.modulus >> (16 * (spec.L - 1))) & 0xFFFF
         x, y = (torch.from_numpy(np.concatenate(
-            [rng.integers(0, 1 << 16, (15, n)), rng.integers(0, top, (1, n))]
-        ).astype(np.int64)) for _ in "xy")
+            [rng.integers(0, 1 << 16, (spec.L - 1, n)),
+             rng.integers(0, top, (1, n))]).astype(np.int64)) for _ in "xy")
     else:
         hi = 1 << (32 if op.startswith("mad_") else 16)
         x, y = (torch.from_numpy(rng.integers(0, hi, n, dtype=np.int64))
@@ -166,14 +172,14 @@ def run(device="cuda", log=print):
         capture_output=True, text=True, check=True).stdout.strip()
     out = {}
     for op in OPS:
-        montmul = op == "montmul_bn254"
+        montmul = op in MONTMUL_FIELDS
         n = N_MONTMUL if montmul else N_U32
         steps = MONTMUL_STEPS if montmul else _cuda.microbench_steps()
         x, y = inputs(op, n, device)
         ms = time_op(op, x, y)
         rate = n * 4 * steps * OPS_PER_STEP[op] / (ms * 1e-3)
         out[op] = {"ms": ms, "ops_per_s": rate, "n": n, "steps": steps}
-        extra = (f" ({rate * MULS_PER_MONTMUL:.4g} 32-bit multiplies/s)"
+        extra = (f" ({rate * MONTMUL_FIELDS[op][1]:.4g} 32-bit multiplies/s)"
                  if montmul else "")
         log(f"[microbench] {op}: {rate:.4g} operations/s{extra}, "
             f"{ms:.4f} ms a launch, n={n}, 4 chains x {steps} steps "

@@ -34,9 +34,9 @@ The file imports no jax, so it runs where the port runs:
     fp4) through the same kernel checks (not the rollup's plan), and a
     BLS24-315 Groth16 proof on the card equal to the host mode's; a
     BLS12-381 one too, its quotient on the card and its MSMs on the
-    native core; BLS24-315 G2's coefficient-sliced ladder and fold
-    launched twice on the same inputs, each launch against the plain
-    version.
+    native core; BLS24-315 G2's coefficient-sliced ladder, fold,
+    weighted sum and reduction launched twice on the same inputs, each
+    launch against the plain version.
 
 Tolerance: none.  Limbs compare exactly; points compare as Python ints.
 The microbenchmark's ``fma_f32`` alone compares within
@@ -377,6 +377,42 @@ def test_fp4_fold_sliced_matches_plain_on_cuda(dev, live):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nw=24 nb=1024", "nw=24 nb=2",
+                                  "nw=20 nb=1024, 9 windows in 10 identity"])
+def test_fp4_weighted_sum_sliced_matches_plain_on_cuda(dev, case):
+    """BLS24-315 G2's weighted sum, weighted_sum_sliced_kernel (each
+    wavefront operation on a group of WSUM_GROUP lanes by coefficient), at
+    the 2^16 plan's shape, at nb = 2 and with nine windows in ten all the
+    identity, launched twice: each launch equals the plain version bit
+    for bit."""
+    nw, nb = (int(v) for v in re.findall(r"=(\d+)", case)[:2])
+    live = range(9, nw, 10) if "identity" in case else range(nw)
+    GC, bk = _buckets("g2_bls24315", dev, nw, nb, live)
+    first, again, n = _twice(M.weighted_sum, bk, GC)
+    assert n == 2 and _cuda.shape("g2_bls24315")["leaf_sliced"]
+    assert torch.equal(first, again)
+    assert torch.equal(first, M.weighted_sum_plain(bk, GC))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 600, 37])
+def test_fp4_reduce_sliced_matches_plain_on_cuda(dev, n):
+    """BLS24-315 G2's reduction, reduce_sliced_kernel (a chunk's 256
+    accumulators on groups of REDUCE_GROUP lanes over a cluster), on the
+    plain ladder's output at 4,096 points (1 in 17 infinite) and on its
+    first 600 (not a multiple of 256) and 37 (fewer points than
+    accumulators), launched twice: each launch equals the plain
+    reduction bit for bit."""
+    G, args, _ = _oracle_inputs("g2_bls24315", dev, 19)
+    GC = M.complete_ops(G)
+    pts = M.ladder_plain(*args, GC)[..., :n].contiguous()
+    first, again, launches = _twice(M.reduce, pts, GC)
+    assert launches == 2
+    assert torch.equal(first, again)
+    assert torch.equal(first, M.reduce_plain(pts, GC))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", KINDS)
 def test_msm_on_cuda_matches_host_oracle(dev, kind):
     G, args, want = _oracle_inputs(kind, dev, 6)
@@ -434,7 +470,7 @@ def test_microbench_kernel_matches_plain_on_cuda(dev, op):
     cx, cy = x.cpu(), y.cpu()
     with pytest.raises(ValueError):
         _cuda.microbench(op, cx, cy)
-    if op == "montmul_bn254":                   # the latency's one chain
+    if op in MB.MONTMUL_FIELDS:                 # the latency's one chain
         got = MB.chain(op, x, y, steps=5, chains=1)
         torch.cuda.synchronize()
         assert torch.equal(got, MB.chain_plain(op, x, y, 5, chains=1))

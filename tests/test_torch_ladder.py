@@ -239,13 +239,19 @@ template <class Cv> static void grid_ladder(const int64_t* xs, const int64_t* ys
     ladder_kernel<Cv>(xs, ys, inf, sc, out, n, Ls);
   }
 }
-template <class Cv> static void grid_reduce(const int64_t* p, int64_t* o, int n,
-                                            int K) {
+// the reduction a chunk a block; over fp4 the shipped reduce_sliced_kernel,
+// its 256 accumulators on one group of one thread (SHIPPED false: the
+// template reduce_kernel, a thread the block's lanes)
+template <class Cv, bool SHIPPED = true> static void grid_reduce(
+    const int64_t* p, int64_t* o, int n, int K) {
   std::vector<Point<typename Cv::F>> s((long)K * REDUCE_LANES);
   blockDim.x = 1; threadIdx.x = 0;
   for (int j = 0; j < K; ++j) {
     blockIdx.x = (unsigned)j;
-    reduce_kernel<Cv>(p, o, s.data(), n, K);
+    if constexpr (SHIPPED && FpKTraits<typename Cv::F>::SLICED)
+      reduce_sliced_kernel<Cv, 1, 1, 1>(p, o, s.data(), n, K);
+    else
+      reduce_kernel<Cv>(p, o, s.data(), n, K);
   }
 }
 #define HOST_GRIDS(NAME, CV)                                                  \
@@ -253,7 +259,9 @@ template <class Cv> static void grid_reduce(const int64_t* p, int64_t* o, int n,
       const uint8_t* inf, const int64_t* sc, int64_t* out, int n, int Ls) {   \
     grid_ladder<CV>(xs, ys, inf, sc, out, n, Ls); }                           \
   extern "C" void host_reduce_##NAME(const int64_t* p, int64_t* o, int n,     \
-      int K) { grid_reduce<CV>(p, o, n, K); }
+      int K) { grid_reduce<CV>(p, o, n, K); }                                 \
+  extern "C" void host_reduce_template_##NAME(const int64_t* p, int64_t* o,   \
+      int n, int K) { grid_reduce<CV, false>(p, o, n, K); }
 HOST_GRIDS(g1, G1)
 HOST_GRIDS(g2, G2)
 HOST_GRIDS(g1_bls24315, G1Bls24)
@@ -383,12 +391,15 @@ int main(int argc, char** argv) {
   auto ys = load_file<int64_t>(argv[1], "ys", L16 * n);
   auto inf = load_file<uint8_t>(argv[1], "inf", n);
   auto sc = load_file<int64_t>(argv[1], "sc", (long)Ls * n);
-  std::vector<int64_t> out(3 * L16 * K * n), red(3 * L16 * K);
+  std::vector<int64_t> out(3 * L16 * K * n), red(3 * L16 * K),
+      red_t(3 * L16 * K);
   host_ladder_g2_bls24315(xs.data(), ys.data(), inf.data(), sc.data(),
                           out.data(), n, Ls);
   host_reduce_g2_bls24315(out.data(), red.data(), n, (int)K);
+  host_reduce_template_g2_bls24315(out.data(), red_t.data(), n, (int)K);
   save_file(argv[1], "out", out);
   save_file(argv[1], "red", red);
+  save_file(argv[1], "red_t", red_t);
   return 0;
 }
 """
@@ -396,15 +407,17 @@ int main(int argc, char** argv) {
 
 @pytest.mark.parametrize("build", ["inlined", "called"])
 def test_fp4_ladder_source_clean_under_sanitizers(ladders, tmp_path, build):
-    """BLS24-315 G2's ladder (the shipped ladder_sliced_kernel, its base
-    products inlined) and reduction sources, with the fp4 product of the
-    reduction inlined (as shipped) or a called function (GT_FPK_MUL, the
-    build whose card ladder disagreed: PERF.md, ops/inline_check.py), as one g++
-    program under AddressSanitizer and UndefinedBehaviorSanitizer, every
-    automatic variable filled with a pattern before its first store:
-    no report, and the limbs of the plain versions.  An out-of-bounds
-    access or undefined behaviour stops the program; a read of an
-    uninitialised variable would change the limbs."""
+    """BLS24-315 G2's ladder and reduction sources (the shipped
+    ladder_sliced_kernel and reduce_sliced_kernel, their base products
+    inlined, and the template reduce_kernel), with the fp4 product of the
+    template reduction inlined (as ops/inline_check.py builds it) or a
+    called function (GT_FPK_MUL, the build whose card ladder disagreed:
+    PERF.md, ops/inline_check.py), as one g++ program under
+    AddressSanitizer and UndefinedBehaviorSanitizer, every automatic
+    variable filled with a pattern before its first store: no report,
+    and the limbs of the plain versions.  An out-of-bounds access or
+    undefined behaviour stops the program; a read of an uninitialised
+    variable would change the limbs."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     lad = ladders["g2_bls24315"]
@@ -431,9 +444,10 @@ def test_fp4_ladder_source_clean_under_sanitizers(ladders, tmp_path, build):
     assert "runtime error" not in res.stderr, res.stderr[-3000:]
     out = torch.from_numpy(np.fromfile(tmp_path / "out", np.int64))
     assert torch.equal(out.reshape(lad.out.shape), lad.out)
-    red = torch.from_numpy(np.fromfile(tmp_path / "red", np.int64))
     want = M.reduce_plain(lad.out, lad.GC)
-    assert torch.equal(red.reshape(want.shape), want)
+    for name in ("red", "red_t"):
+        red = torch.from_numpy(np.fromfile(tmp_path / name, np.int64))
+        assert torch.equal(red.reshape(want.shape), want), name
 
 
 def test_field_product_matches_python_ints(host_ladder):

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from gnark_tpu_torch.curves import BN254
+from gnark_tpu_torch.curves import BLS24_315, BN254
 from gnark_tpu_torch.ops import _cuda
 from gnark_tpu_torch.ops import microbench as MB
 from gnark_tpu_torch.ops.limbs import field_ops
@@ -108,6 +108,23 @@ def test_plain_montmul_one_chain_matches_python_ints():
     xs, ys = F.unpack(x), F.unpack(y)
     got = F.unpack(MB.chain("montmul_bn254", x, y, steps=4, chains=1))
     assert got == [xv * pow(yv, 4, p) % p for xv, yv in zip(xs, ys)]
+
+
+def test_plain_bls24315_montmul_chains_match_python_ints():
+    """The 10-word product's chains (montmul_bls24315, R = 2^320): four
+    chains summed, and one chain (its latency measurement), against
+    x * y^steps in Python ints, operands below p."""
+    x, y = MB.inputs("montmul_bls24315", 6, "cpu", seed=7)
+    F, p = field_ops(BLS24_315.fp), BLS24_315.fp.modulus
+    assert x.shape == (20, 6)
+    xs, ys = F.unpack(x), F.unpack(y)
+    assert all(v < p for v in xs + ys)
+    got = F.unpack(MB.chain("montmul_bls24315", x, y, steps=3))
+    assert got == [sum(xv << k for k in range(4)) * pow(yv, 3, p) % p
+                   for xv, yv in zip(xs, ys)]
+    got = F.unpack(MB.chain("montmul_bls24315", x, y, steps=4, chains=1))
+    assert got == [xv * pow(yv, 4, p) % p for xv, yv in zip(xs, ys)]
+    assert MB.MONTMUL_FIELDS["montmul_bls24315"][1] == 2 * 10 * 10 + 10
 
 
 def test_default_steps_are_the_kernels():

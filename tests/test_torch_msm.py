@@ -255,7 +255,13 @@ template <class Cv> static void grid_fold(const int64_t* S, int64_t* o, int nw, 
 template <class Cv> static void grid_wsum(const int64_t* b, int64_t* o, int nw, int nb) {
   std::vector<Point<typename Cv::F>> s((long)nw * (nb + nb / 2));
   blockDim.x = 1; threadIdx.x = 0;
-  for (int w = 0; w < nw; ++w) { blockIdx.x = w; weighted_sum_kernel<Cv, 1, 1, 1>(b, o, s.data(), nw, nb); }
+  for (int w = 0; w < nw; ++w) {
+    blockIdx.x = w;
+    if constexpr (FpKTraits<typename Cv::F>::SLICED)   // fp4's shipped sum
+      weighted_sum_sliced_kernel<Cv, 1, 1, 1>(b, o, s.data(), nw, nb);
+    else
+      weighted_sum_kernel<Cv, 1, 1, 1>(b, o, s.data(), nw, nb);
+  }
 }
 #define HOST_GRIDS(NAME, CV)                                                  \
   extern "C" void host_leaf_prefix_##NAME(const int64_t* a, const int64_t* b, \
@@ -529,17 +535,57 @@ extern "C" int host_fold_sliced_threads(int G, const int64_t* S, int64_t* out,
 }
 // the weighted sum at its shipped group width, block size and blocks a
 // window, a window's cluster at a time
-template <class Cv> static int grid_wsum_threads(const int64_t* bk, int64_t* out,
-                                                 int nw, int nb) {
-  constexpr int G = Cv::WSUM_GROUP, T = Cv::WSUM_THREADS, CL = Cv::WSUM_CLUSTER;
+template <class Cv, int G = Cv::WSUM_GROUP, int T = Cv::WSUM_THREADS,
+          int CL = Cv::WSUM_CLUSTER>
+static int grid_wsum_threads(const int64_t* bk, int64_t* out, int nw, int nb) {
   std::vector<Point<typename Cv::F>> s((long)nw * (nb + nb / 2));
   Point<typename Cv::F>* scratch = s.data();
   bad_masks = 0;
   for (int w = 0; w < nw; ++w)
     run_cluster((unsigned)(w * CL), CL, T, G, [=] {
-      weighted_sum_kernel<Cv, G, T, CL>(bk, out, scratch, nw, nb);
+      if constexpr (FpKTraits<typename Cv::F>::SLICED)   // fp4's shipped sum
+        weighted_sum_sliced_kernel<Cv, G, T, CL>(bk, out, scratch, nw, nb);
+      else
+        weighted_sum_kernel<Cv, G, T, CL>(bk, out, scratch, nw, nb);
     });
   return bad_masks;
+}
+// the fp4 reduction (reduce_sliced_kernel) at group width G in blocks of T
+// host threads, CL blocks a chunk, a chunk's cluster at a time
+template <int G, int T, int CL>
+static int reduce_sliced_threads(const int64_t* pts, int64_t* out, int n,
+                                 int K) {
+  std::vector<Point<G2Bls24::F>> s((long)K * REDUCE_LANES);
+  Point<G2Bls24::F>* scratch = s.data();
+  bad_masks = 0;
+  for (int j = 0; j < K; ++j)
+    run_cluster((unsigned)(j * CL), CL, T, G, [=] {
+      reduce_sliced_kernel<G2Bls24, G, T, CL>(pts, out, scratch, n, K);
+    });
+  return bad_masks;
+}
+// the fp4 weighted sum and reduction at the trial shapes (G, T, CL) of
+// ops/leaf_groups.py that the tests take
+#define FP4_SHAPE(G, T, CL)                                                   \
+  if (g == G && t == T && cl == CL)                                           \
+    return fn.template operator()<G, T, CL>();
+template <class Fn> static int fp4_shape(int g, int t, int cl, Fn fn) {
+  FP4_SHAPE(4, 128, 8) FP4_SHAPE(8, 256, 4) FP4_SHAPE(8, 128, 8)
+  FP4_SHAPE(16, 256, 8)
+  return -1;
+}
+extern "C" int host_wsum_sliced_threads(int g, int t, int cl, const int64_t* bk,
+                                        int64_t* out, int nw, int nb) {
+  return fp4_shape(g, t, cl, [=]<int G, int T, int CL>() {
+    return grid_wsum_threads<G2Bls24, G, T, CL>(bk, out, nw, nb);
+  });
+}
+extern "C" int host_reduce_sliced_threads(int g, int t, int cl,
+                                          const int64_t* pts, int64_t* out,
+                                          int n, int K) {
+  return fp4_shape(g, t, cl, [=]<int G, int T, int CL>() {
+    return reduce_sliced_threads<G, T, CL>(pts, out, n, K);
+  });
 }
 // the lane offsets at their shipped group width, block size and blocks a
 // window, the narrow steps on one block, a window's cluster at a time
@@ -907,6 +953,94 @@ def test_weighted_sum_wavefront_matches_plain_on_host_threads(
         shape["wsum_cluster"]
 
 
+# the fp4 weighted sum's and reduction's trial shapes in the threaded
+# harness, (G, threads a block, blocks a cluster): a lane a coefficient
+# (G = 4), a lane pair (8) and four lanes (16) a coefficient, clusters with
+# fewer groups than a step's operations or a chunk's accumulators (16, 256,
+# 8: 128 groups), and the shipped shapes (ops/leaf_groups.py sweeps these
+# widths)
+WSUM_HOST_SHAPES = [(4, 128, 8), (8, 256, 4), (16, 256, 8)]
+REDUCE_HOST_SHAPES = [(4, 128, 8), (8, 128, 8), (16, 256, 8)]
+
+
+def _shape_ids(shapes):
+    return [f"G={g},T={t},CL={cl}" for g, t, cl in shapes]
+
+
+@pytest.mark.parametrize("case", ["nb=32", "nb=2", "nb=4",
+                                  "nb=1024, nw=2, identities, P+P, P+(-P)",
+                                  "nb=32, windows 0, 2 and 5 identity"])
+@pytest.mark.parametrize("shape", WSUM_HOST_SHAPES,
+                         ids=_shape_ids(WSUM_HOST_SHAPES))
+def test_weighted_sum_sliced_matches_plain_on_host_threads(
+        runs, threaded_leaf, shape, case):
+    """The fp4 weighted sum (weighted_sum_sliced_kernel: each wavefront
+    operation on a group of G lanes, a lane's coefficients of the operands
+    from scratch) at the sweep's group widths, blocks and clusters, every
+    lane on a host thread, bit for bit against the plain version: the
+    run's buckets (its first 8 windows), its first 2 and 4 buckets, two
+    windows of 1,024 with identities, P + P and P + (-P) among the
+    operands, and windows that are all the identity."""
+    run = runs["g2_bls24315"]
+    if case.startswith("nb=1024"):
+        bk = _wsum_case(run, case)
+    else:
+        nb = int(re.search(r"nb=(\d+)", case).group(1))
+        bk = run.bk[:, :8, :nb].contiguous()
+        if "identity" in case:
+            ident = torch.cat(run.plan.GC.inf((3, nb), "cpu"))
+            bk[:, [0, 2, 5]] = ident
+    _, nw, nb = bk.shape
+    want = M.weighted_sum_plain(bk, run.plan.GC)
+    out = torch.empty_like(want)
+    assert threaded_leaf.host_wsum_sliced_threads(
+        *shape, _ptr(bk), _ptr(out), nw, nb) == 0   # group masks
+    assert torch.equal(out, want)
+    ship = _shape(threaded_leaf, "g2_bls24315")
+    assert (ship["wsum_group"], ship["wsum_threads"],
+            ship["wsum_cluster"]) in WSUM_HOST_SHAPES
+
+
+def _reduce_case(fp4_ladder, case):
+    """[3L, 3, n] points of the fp4 ladder's output (its first 3 chunks;
+    the identity where a chunk is zero or the point infinite): its 20
+    points, 37 of them (17 repeated), or 600: its first 16 repeated to
+    256 (lane t meets P + P in the tree's levels of 16 and up), their
+    negatives (lane t meets P + (-P)), then the first 88 again."""
+    out = fp4_ladder[1][:, :3].contiguous()
+    if case == "n=20":
+        return out
+    if case == "n=37":
+        return torch.cat([out, out[..., :17]], -1).contiguous()
+    GC = M.complete_ops(group("g2_bls24315")[0])
+    A = out[..., :16].repeat(1, 1, 16)
+    negA = torch.cat(GC.neg(M.split_points(A, GC.F.L)))
+    return torch.cat([A, negA, A[..., :88]], -1).contiguous()
+
+
+@pytest.mark.parametrize("case", ["n=20", "n=37", "n=600, P+P, P+(-P)"])
+@pytest.mark.parametrize("shape", REDUCE_HOST_SHAPES,
+                         ids=_shape_ids(REDUCE_HOST_SHAPES))
+def test_reduce_sliced_matches_plain_on_host_threads(threaded_leaf,
+                                                     fp4_ladder, shape, case):
+    """The fp4 reduction (reduce_sliced_kernel: a chunk's 256
+    accumulators on groups of G lanes over a cluster, the halving tree
+    through scratch) at the sweep's group widths, blocks and clusters,
+    every lane on a host thread, bit for bit against the plain version:
+    n below 256 and not a multiple of it, P + P and P + (-P) among the
+    additions, identities (zero chunks, infinity points)."""
+    pts = _reduce_case(fp4_ladder, case)
+    _, K, n = pts.shape
+    want = M.reduce_plain(pts, M.complete_ops(group("g2_bls24315")[0]))
+    out = torch.empty_like(want)
+    assert threaded_leaf.host_reduce_sliced_threads(
+        *shape, _ptr(pts), _ptr(out), n, K) == 0   # group masks
+    assert torch.equal(out, want)
+    ship = _shape(threaded_leaf, "g2_bls24315")
+    assert (ship["reduce_group"], ship["reduce_threads"],
+            ship["reduce_cluster"]) in REDUCE_HOST_SHAPES
+
+
 def _lanes_case(run, case):
     """The lane offsets' totals: the run's own (R = 8), its first lane or
     two (R = 1: everything the identity; R = 2), or R = 512 over two
@@ -1141,6 +1275,51 @@ def test_ptxas_reports_name_the_fp4_ladder_and_fold(parser):
     assert not leaf_groups.kernel_registers(PTXAS_FP4_CHAINS, "horner_fold")
 
 
+# ptxas -v lines of the fp4 weighted sum and reduction (the sweep's
+# shipped shapes, launch bounds of one block an SM) and of the template
+# reduction they replace for fp4
+PTXAS_FP4_SUMS = """\
+ptxas info    : Compiling entry function '_Z26weighted_sum_sliced_kernelI7G2Bls24Li8ELi256ELi4EEvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii' for 'sm_90a'
+ptxas info    : Function properties for _Z26weighted_sum_sliced_kernelI7G2Bls24Li8ELi256ELi4EEvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 171 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z20reduce_sliced_kernelI7G2Bls24Li8ELi128ELi8EEvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii' for 'sm_90a'
+ptxas info    : Function properties for _Z20reduce_sliced_kernelI7G2Bls24Li8ELi128ELi8EEvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 152 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z13reduce_kernelI7G2Bls24EvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii' for 'sm_90a'
+ptxas info    : Function properties for _Z13reduce_kernelI7G2Bls24EvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii
+    3352 bytes stack frame, 304 bytes spill stores, 280 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("parser", ["chip_smoke", "leaf_groups"])
+def test_ptxas_reports_name_the_fp4_weighted_sum_and_reduction(parser):
+    """The [ptxas] lines of chip_smoke.py and ops/leaf_groups.py name the
+    coefficient-sliced weighted sum and reduction with their shapes (G,
+    threads, cluster) and spills, apart from the template reduction."""
+    if parser == "chip_smoke":
+        assert _chip_smoke().ptxas_summary(PTXAS_FP4_SUMS) == [
+            "weighted_sum_sliced_kernel<G2Bls24, 8, 256, 4>: 171 registers; "
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "reduce_sliced_kernel<G2Bls24, 8, 128, 8>: 152 registers; 0 "
+            "bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "reduce_kernel<G2Bls24>: 255 registers; 3352 bytes stack frame, "
+            "304 bytes spill stores, 280 bytes spill loads"]
+        return
+    from gnark_tpu_torch.ops import leaf_groups
+    wsum = leaf_groups.kernel_registers(PTXAS_FP4_SUMS, "weighted_sum_sliced")
+    assert list(wsum) == ["G2Bls24 G=8 T=256 CL=4"]
+    assert "0 bytes spill stores" in wsum["G2Bls24 G=8 T=256 CL=4"]
+    red = leaf_groups.kernel_registers(PTXAS_FP4_SUMS, "reduce_sliced")
+    assert list(red) == ["G2Bls24 G=8 T=128 CL=8"]
+    assert "Used 152 registers" in red["G2Bls24 G=8 T=128 CL=8"]
+    assert list(leaf_groups.kernel_registers(PTXAS_FP4_SUMS, "reduce")) == [
+        "G2Bls24"]
+    assert not leaf_groups.kernel_registers(PTXAS_FP4_SUMS, "weighted_sum")
+
+
 def _source_limbs(text, name):
     m = re.search(name + r"\[8\] = \{([^}]*)\}", text)
     return [int(v.strip().rstrip("u"), 16) for v in m.group(1).split(",")]
@@ -1213,6 +1392,28 @@ def test_bls24315_kernel_constants_match_field_spec():
     slot = 48
     block = 4 * slot + pts * 16 * 3 * 4 * slot + T // G * 15 * 4 * slot
     assert block * blocks <= 227 * 1024
+
+
+def test_bls24315_fp4_sum_shapes_are_swept_and_fit():
+    """G2's weighted sum and reduction shapes (WSUM_*, REDUCE_*) in the
+    source: groups inside a warp, among ops/leaf_groups.py's trial shapes,
+    a block's GroupsShared (b3's 4 columns and a group's 9 + 6 value and
+    product slots of 4, 48 bytes a slot) inside 227 KB, and a portable
+    cluster."""
+    from gnark_tpu_torch.ops import leaf_groups
+    kern = open(os.path.join(CSRC, "msm_kernels.cu")).read()
+    g2 = kern[kern.index("struct G2Bls24"):]
+    g2 = g2[:g2.index("};")]
+    val = {k: int(re.search(k + r" = (\d+)", g2).group(1)) for k in (
+        "WSUM_GROUP", "WSUM_THREADS", "WSUM_CLUSTER", "REDUCE_GROUP",
+        "REDUCE_THREADS", "REDUCE_CLUSTER")}
+    wsum = tuple(val[f"WSUM_{k}"] for k in ("GROUP", "THREADS", "CLUSTER"))
+    red = tuple(val[f"REDUCE_{k}"] for k in ("GROUP", "THREADS", "CLUSTER"))
+    assert wsum in leaf_groups.WSUM_FP4_SHAPES
+    assert red in leaf_groups.REDUCE_SHAPES
+    for g, t, cl in (wsum, red):
+        assert 32 % g == 0 and t % 32 == 0 and 1 <= cl <= 8
+        assert 4 * 48 + t // g * 15 * 4 * 48 <= 227 * 1024
 
 
 # ---- device routing ----------------------------------------------------------
