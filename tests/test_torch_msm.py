@@ -8,8 +8,9 @@
   * the CUDA kernel sources, compiled for the host with g++ and run one
     thread at a time, against their plain versions, bit for bit, and the
     leaf, the lane offsets and the weighted sum at the card's shapes with
-    their lanes on host threads (tests/test_torch_cuda.py runs the kernels
-    themselves on a card).
+    their lanes on host threads, BLS24-315's fp4 kernels (leaf, ladder,
+    fold, weighted sum, reduction) also at the widths their sweeps try
+    (tests/test_torch_cuda.py runs the kernels themselves on a card).
 
 The kinds: BN254's G1 (``g1``) and G2 over fp2 (``g2``), BLS24-315's G1
 (``g1_bls24315``) and G2 over fp4 (``g2_bls24315``).
