@@ -64,11 +64,13 @@ main paths once, at the sizes the repo has always measured:
      plan, the ladder, its reduction and the fold of the chunk sums at
      4096 points; G1's windowed four also at the plan of phase 10's
      commitments (2^14 + 3 points: c = 10, 512 buckets, C = 33); the fp4
-     leaf, weighted sum, ladder, reduction and both folds
-     (leaf_sliced_kernel, weighted_sum_sliced_kernel,
-     ladder_sliced_kernel, reduce_sliced_kernel,
-     horner_fold_sliced_kernel) launched twice each (the leaf on two
-     seeds' inputs), against each other and the plain version;
+     leaf, lane offsets, weighted sum, ladder, reduction and both folds
+     (leaf_sliced_kernel, lane_offsets_sliced_kernel,
+     weighted_sum_sliced_kernel, ladder_sliced_kernel,
+     reduce_sliced_kernel, horner_fold_sliced_kernel) launched twice each
+     (the leaf on two seeds' inputs), against each other and the plain
+     version; then G1's and G2's 2^16 MSM against the host oracle, with
+     the milliseconds of each of its steps, as phase 4 prints BN254's;
   9. Groth16 over the other five curves, routed as gnark_tpu routes them:
      MiMC chains that fill a domain of 2^16 over BLS12-381, BLS12-377
      (BASELINE config 4's curves) and BLS24-315, a 12-hash chain over
@@ -731,15 +733,18 @@ def lanes_critical_path(kind, tot, latency_ms):
     """The lane offsets' critical path at R = 2^K lanes: the 2K - 1 steps
     of the Brent-Kung scan, one addition deep each, as (additions, their
     levels of products, that path in ms at the measured latency of one
-    dependent product, lane 0's rounds of products at the group width,
-    that path by rounds)."""
-    from gnark_tpu_torch.ops import _cuda
+    dependent product, lane 0's rounds of products at the group width (the
+    coefficient-sliced kernel: a lane's base products, lane_products),
+    that path by them)."""
     K = tot.shape[-1].bit_length() - 1
     adds = max(2 * K - 1, 0)
     padd = fold_products(kind, "padd")
     levels = adds * len(padd)
-    g = _cuda.shape(kind)["lanes_group"]
-    rounds = adds * sum(-(-m // g) for m in padd)
+    g = _shape(kind)["lanes_group"]
+    if _shape(kind)["leaf_sliced"]:
+        rounds = adds * lane_products(kind, "padd", g)
+    else:
+        rounds = adds * sum(-(-m // g) for m in padd)
     return adds, levels, levels * latency_ms, rounds, rounds * latency_ms
 
 
@@ -962,11 +967,11 @@ def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
                  f"{lv} levels of products x {lat * 1e6:.1f} ns = "
                  f"{b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached), "
-                 f"{rounds} rounds of products on lane 0 at G = "
-                 f"{shape['lanes_group']}: {by_rounds:.4g} ms "
+                 f"{rounds} {'base products a lane' if sliced else 'rounds of products on lane 0'}"
+                 f" at G = {shape['lanes_group']}: {by_rounds:.4g} ms "
                  f"({share(by_rounds / ms)}); {shape['lanes_cluster']} "
                  f"block(s) of {shape['lanes_threads']} threads a "
-                 f"window, the narrow steps on one")
+                 f"window, the narrow steps on one{tag}")
     elif work == "weighted_sum":
         adds, dbls, lv, b["critical_path_ms"], rounds, by_rounds = \
             wsum_critical_path(kind, args[0], lat)
@@ -1024,6 +1029,20 @@ def msm_breakdown(plan, xs, ys, inf, sc):
     return steps
 
 
+def msm_steps(kind, G, xs, ys, inf, sc, want):
+    """An MSM of oracle inputs on the windowed plan against the host
+    oracle, then its steps, printed as ``[msm <kind>] steps (ms)``."""
+    from gnark_tpu_torch.ops import msm as M
+    from gnark_tpu_torch.ops.ec import points_to_host
+    plan = M.MSM(G, xs.shape[1], 16)
+    out = plan(xs, ys, inf, sc)                 # also the warm-up
+    assert points_to_host(G, out)[0] == want, f"MSM {kind} != oracle"
+    steps = msm_breakdown(plan, xs, ys, inf, sc)
+    log(f"[msm {kind}] steps (ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in steps.items()))
+    return plan
+
+
 def phase_msm(device):
     """2^16 MSMs against the host oracle, kernel path and plain path; then
     the ladder against the windowed plan, kernel paths, at both sizes."""
@@ -1032,8 +1051,7 @@ def phase_msm(device):
     rng = np.random.default_rng(SEED + 1)
     for kind, (G, host, gen) in groups().items():
         xs, ys, inf, sc, want = oracle_inputs(G, host, gen, device, rng)
-        plan = M.MSM(G, N_MSM, 16)
-        plan(xs, ys, inf, sc)                       # warm-up
+        plan = msm_steps(kind, G, xs, ys, inf, sc, want)
         times = []
         for _ in range(3):
             out, ms = wall_ms(lambda: plan(xs, ys, inf, sc))
@@ -1043,9 +1061,6 @@ def phase_msm(device):
         assert points_to_host(G, out_p)[0] == want, \
             f"plain MSM {kind} != oracle"
         best = min(times)
-        steps = msm_breakdown(plan, xs, ys, inf, sc)
-        log(f"[msm {kind}] steps (ms): " + ", ".join(
-            f"{k} {v:.2f}" for k, v in steps.items()))
         log(f"[msm {kind}] n=2^16 oracle ok: kernel path {best:.1f} ms "
             f"({N_MSM / best * 1e3:.0f} points/s), plain path "
             f"{plain_ms:.1f} ms ({N_MSM / plain_ms * 1e3:.0f} points/s)")
@@ -1384,11 +1399,13 @@ def phase_bls24_kernels(device, rates):
     at 4096 points, infinity points among them; G1's four windowed
     kernels also at the plan of the PLONK commitments of phase 10
     (N_CURVE_PLONK + 3 points: c = 10, 512 buckets, C = 33).  The fp4
-    kernels (leaf_sliced_kernel, weighted_sum_sliced_kernel,
-    ladder_sliced_kernel, reduce_sliced_kernel, horner_fold_sliced_kernel)
-    are launched twice on their inputs (the leaf on the 2^16 plan's of two
-    seeds), both launches against the plain version.  Returns (the
-    results, those at the PLONK plan)."""
+    kernels (leaf_sliced_kernel, lane_offsets_sliced_kernel,
+    weighted_sum_sliced_kernel, ladder_sliced_kernel, reduce_sliced_kernel,
+    horner_fold_sliced_kernel) are launched twice on their inputs (the
+    leaf on the 2^16 plan's of two seeds), both launches against the plain
+    version.  Then each kind's 2^16 MSM on the windowed plan against the
+    host oracle, and its steps (msm_breakdown).  Returns (the results,
+    those at the PLONK plan)."""
     from gnark_tpu_torch.ops import msm as M
     results, at_plonk = {}, {}
     rng = np.random.default_rng(SEED + 3)
@@ -1414,13 +1431,17 @@ def phase_bls24_kernels(device, rates):
         for name, (args, kern, plain) in cases.items():
             results[f"{name}_{kind}"] = compare(
                 kind, name, args, kern, plain, rates,
-                twice=sliced and name in ("leaf_prefix", "ladder",
-                                          "horner_fold", "weighted_sum",
-                                          "reduce"))
+                twice=sliced and name in ("leaf_prefix", "lane_offsets",
+                                          "ladder", "horner_fold",
+                                          "weighted_sum", "reduce"))
         T = M.reduce(lout, GC)
         compare(kind, f"horner_fold chunks nw={M.LADDER_CHUNKS} c={B}",
                 (T, B, GC), M.horner_fold, M.horner_fold_plain, rates,
                 work="horner_fold", twice=sliced)
+    for kind in BLS24_KINDS:
+        G, host, gen = groups(BLS24_KINDS)[kind]
+        msm_steps(kind, G, *oracle_inputs(G, host, gen, device, rng, N_MSM,
+                                          scalar_modulus(kind)))
     kind = BLS24_KINDS[0]
     plan, cases = windowed_cases(kind, N_CURVE_PLONK + 3, device, rng)
     assert (plan.c, plan.nwin, plan.nb, plan.R, plan.C) == CURVE_PLONK_PLAN

@@ -52,7 +52,9 @@
 //     between, each addition on a group of LANES_GROUP threads as levels
 //     of products (fold_add), as the weighted sum does; a run of steps too
 //     narrow to fill one block's groups runs on one block with block
-//     barriers between (0-4 % faster than on the whole cluster).
+//     barriers between (0-4 % faster than on the whole cluster).  Over
+//     fp4 each addition runs on a group by coefficient instead
+//     (lane_offsets_sliced_kernel).
 //   * weighted_sum: the plain version's halving fold is a chain of about
 //     110 point operations if each level waits for the last, but its
 //     dependency graph is 3K - 2 operations deep at nb = 2^K buckets (28
@@ -101,22 +103,21 @@
 // G1 and G2 (g1_bls24315, g2_bls24315) are libraries of their own,
 // msm_g1_bls24315.cu and msm_g2_bls24315.cu, which include this file with
 // GNARK_MSM_BLS24315 defined: three nvcc runs side by side.  G1's kernels
-// and one of G2's (the lane offsets) are the same templates at their
-// widths.  An fp4 element is 40 words and a point 120, so where lane 0
-// holds the point its registers spill, and the FoldShared slot (16 base
-// products a product) is 11.5 KB: the lane offsets run blocks of 128
-// threads (16 slots, 184 KB of dynamic shared memory).  The leaf, the
-// weighted sum, the ladder, the reduction and the Horner fold were
-// redesigned for fp4 (leaf_sliced_kernel, weighted_sum_sliced_kernel,
+// are the same templates at their widths.  An fp4 element is 40 words and
+// a point 120, so where lane 0 holds the point its registers spill, and
+// the FoldShared slot (16 base products a product) is 11.5 KB.  So each
+// G2 kernel was redesigned for fp4 (leaf_sliced_kernel,
+// lane_offsets_sliced_kernel, weighted_sum_sliced_kernel,
 // ladder_sliced_kernel, reduce_sliced_kernel, horner_fold_sliced_kernel,
 // picked by FpKTraits): a point's coefficients split over its group's
 // lanes, so no lane holds a whole point and nothing waits on a serial
 // lane 0.  The leaf runs each product through Sliced's exchange; the
 // others run SlicedPoint's complete addition and doubling, each formula's
 // independent products as one level (one write of the operands, one
-// sync, each lane's columns, one sync), the weighted sum and the
-// reduction each operation on one group, its operands by coefficient
-// through scratch.
+// sync, each lane's columns, one sync), the lane offsets, the weighted
+// sum and the reduction each operation on one group, its operands by
+// coefficient through scratch.  The templates at fp4 are built only by
+// ops/inline_check.py and the tests' sanitizer harness.
 //
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
 // out), so a host harness that defines blockIdx, threadIdx, blockDim,
@@ -124,9 +125,10 @@
 // can run a grid one block at a time with blockDim.x = 1: every loop over
 // a block's work steps by blockDim.x, and every loop over a leaf group's
 // by G, so leaf_prefix_kernel<Curve, 1>, lane_offsets_kernel<Curve, 1, 1,
-// 1> and weighted_sum_kernel<Curve, 1, 1, 1> (groups of one) and the other
-// kernels run on one thread that does it all, in order.  On the host
-// the cluster kernels' slots are a static array.
+// 1> and weighted_sum_kernel<Curve, 1, 1, 1> (groups of one; over fp4
+// their sliced kernels at G = 1) and the other kernels run on one thread
+// that does it all, in order.  On the host the cluster kernels' slots are
+// a static array.
 
 #ifdef __CUDACC__
 #include <cooperative_groups.h>
@@ -223,7 +225,12 @@ struct G1Bls24 {
 // block an SM, so ptxas takes 171 and 152 registers and spills nothing
 // (left to itself it took 128 and spilled); the fastest of G = 4, 8, 16
 // in 64-512 threads and clusters of 4 and 8 (ops/leaf_groups.py --kernel
-// weighted_sum|reduce --kind g2_bls24315).  LADDER_POINTS is the template
+// weighted_sum|reduce --kind g2_bls24315).  Its lane offsets are
+// lane_offsets_sliced_kernel: an addition a group of LANES_GROUP = 8 lanes
+// in blocks of LANES_THREADS = 256, LANES_CLUSTER = 4 blocks a window (138
+// registers, no spills); the fastest of G = 4, 8, 16 in 128 and 256
+// threads and clusters of 4 and 8 on an H100 (ops/leaf_groups.py --kernel
+// lane_offsets --kind g2_bls24315).  LADDER_POINTS is the template
 // ladder's, which ops/inline_check.py builds.
 struct G2Bls24 {
   using F = FpK<BLS24315Fp, 4, 13>;
@@ -232,7 +239,7 @@ struct G2Bls24 {
   static constexpr int LEAF_GROUP = 8;
   static constexpr int LEAF_THREADS = 128, LEAF_BLOCKS = 3;
   static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
-  static constexpr int LANES_GROUP = 8, LANES_THREADS = 128, LANES_CLUSTER = 4;
+  static constexpr int LANES_GROUP = 8, LANES_THREADS = 256, LANES_CLUSTER = 4;
   static constexpr int REDUCE_GROUP = 8, REDUCE_THREADS = 128,
                        REDUCE_CLUSTER = 8;
   static constexpr int LADDER_GROUP = 4, LADDER_THREADS = 128;
@@ -1592,6 +1599,89 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// tot, out: [3*L16, nw, R], scratch: nw * R points, as lane_offsets_kernel's,
+// and the same function, for F = fp^K: the same Brent-Kung steps
+// (scan_step), each adding A[i - half] to A[i] in the same order, then the
+// exclusive shift.  Each addition runs on one group of G lanes
+// (SlicedPoint): every lane reads its coefficients of both operands from
+// scratch, the group runs padd, and each coefficient's first copy writes
+// its coefficients of the sum back to A[i].  A step's additions read and
+// write distinct lanes (it writes the lanes -1 mod 2^(d+1) and reads on
+// the left those 2^d - 1), so a group's rounds in one step never read
+// what it wrote in that step, and the copies need no group sync between
+// them; the barrier between two steps orders the rest.  The threads of a
+// window's cluster load its totals into scratch, and store the shifted
+// output, a base element each, neighbouring threads neighbouring lanes.
+// As in the template, a run of steps with fewer additions than a block
+// has groups runs on rank 0's block alone, __syncthreads between two.
+// The template's lane 0 held two 120-word points and dealt 16 base
+// products a product through an 11.5 KB slot (255 registers, spills, 128
+// threads a block on an H100); a group's PointSlots are 2.9 KB.  Launch
+// bounds of one block an SM: left to itself ptxas capped the other sliced
+// kernels at 128 registers and spilled.
+template <class Curve, int G, int THREADS, int CLUSTER>
+__global__ void __launch_bounds__(THREADS, 1)
+    lane_offsets_sliced_kernel(const int64_t* tot, int64_t* out,
+                               Point<typename Curve::F>* scratch, int nw,
+                               int R) {
+  using SP = SlicedPoint<Curve, G>;
+  using Sh = GroupsShared<Curve, G, THREADS>;
+  using P = typename SP::P;
+  using B = typename SP::B;
+  constexpr int KPL = SP::KPL, D = SP::K, L = Fp<P>::L16, A = THREADS / G;
+  static_assert(G <= 16 && 32 % G == 0 && THREADS % G == 0,
+                "a group lies inside one warp");
+  const int w = blockIdx.x / CLUSTER, rank = blockIdx.x % CLUSTER;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid % G;
+  Sh& sh = sliced_shared<Sh, CLUSTER>(rank);
+  for (int m = tid; m < D; m += nt) slot_put(sh.kb3[m], SP::b3_column(m));
+  const SP sp{sh.slots[tid / G], sh.kb3, lane % SP::SPAN, lane / SP::SPAN,
+              GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+  const long stride = (long)nw * R;
+  typename SP::Pt* S = scratch + (long)w * R;
+  int K = 0;
+  while ((1 << K) < R) ++K;
+  // element e = (coordinate, coefficient) of lane r, from its limb planes
+  const long elems = 3L * D * R;
+  for (long o = (long)rank * nt + tid; o < elems; o += (long)CLUSTER * nt) {
+    const int r = (int)(o % R), e = (int)(o / R);
+    coordinate(S[r], e / D).c[e % D] =
+        load<P>(tot + (long)w * R + r + (long)e * L * stride, stride);
+  }
+  wsum_sync<CLUSTER>();  // the totals, and b3's columns
+  const int steps = K ? 2 * K - 1 : 0;
+  auto alone = [&](int s) {  // step s on rank 0's block alone
+    return CLUSTER > 1 && s < steps && scan_step(K, R, s).count < A;
+  };
+  B X[KPL], Y[KPL], Z[KPL], X2[KPL], Y2[KPL], Z2[KPL];
+  for (int s = 0; s < steps; ++s) {
+    const ScanStep st = scan_step(K, R, s);
+    const bool solo = alone(s);
+    if (!solo || rank == 0) {
+      const int groups = solo ? A : CLUSTER * A;
+      for (int o = (solo ? 0 : rank * A) + tid / G; o < st.count;
+           o += groups) {
+        const int i = st.first + 2 * st.half * o;
+        sp.get(S[i - st.half], X, Y, Z);
+        sp.get(S[i], X2, Y2, Z2);
+        sp.padd(X, Y, Z, X2, Y2, Z2);
+        sp.put(S[i], X, Y, Z);
+      }
+    }
+    if (!solo || !alone(s + 1))
+      wsum_sync<CLUSTER>();
+    else if (rank == 0)
+      __syncthreads();
+  }
+  // out[r] = A[r - 1], lane 0 the identity (0 : 1 : 0)
+  for (long o = (long)rank * nt + tid; o < elems; o += (long)CLUSTER * nt) {
+    const int r = (int)(o % R), e = (int)(o / R);
+    const B v = r ? coordinate(S[r - 1], e / D).c[e % D]
+                  : e == D ? fp_one<P>() : fp_zero<P>();
+    store(v, out + (long)w * R + r + (long)e * L * stride, stride);
+  }
+}
+
 // ---- the chunked, windowed ladder ---------------------------------------------
 
 constexpr int LADDER_CHUNKS = 16;  // K: chunks a scalar, a thread each
@@ -2067,12 +2157,28 @@ int launch_reduce(const void* pts, void* out, void* scratch, int n, int K,
 }
 
 template <class Curve, int G, int THREADS, int CLUSTER>
-int launch_lane_offsets(const void* tot, void* out, void* scratch, int nw,
-                        int R, void* stream) {
-  return launch_cluster<typename Curve::F, G, THREADS, CLUSTER>(
-      lane_offsets_kernel<Curve, G, THREADS, CLUSTER>, nw, stream,
+int launch_lane_offsets_sliced(const void* tot, void* out, void* scratch,
+                               int nw, int R, void* stream) {
+  return launch_clusters<(int)sizeof(GroupsShared<Curve, G, THREADS>),
+                         THREADS, CLUSTER>(
+      lane_offsets_sliced_kernel<Curve, G, THREADS, CLUSTER>, nw, stream,
       (const int64_t*)tot, (int64_t*)out, (Point<typename Curve::F>*)scratch,
       nw, R);
+}
+
+// A curve's lane offsets at group width G: lane_offsets_sliced_kernel over
+// fp^K, lane_offsets_kernel otherwise.
+template <class Curve, int G, int THREADS, int CLUSTER>
+int launch_lane_offsets(const void* tot, void* out, void* scratch, int nw,
+                        int R, void* stream) {
+  if constexpr (FpKTraits<typename Curve::F>::SLICED)
+    return launch_lane_offsets_sliced<Curve, G, THREADS, CLUSTER>(
+        tot, out, scratch, nw, R, stream);
+  else
+    return launch_cluster<typename Curve::F, G, THREADS, CLUSTER>(
+        lane_offsets_kernel<Curve, G, THREADS, CLUSTER>, nw, stream,
+        (const int64_t*)tot, (int64_t*)out,
+        (Point<typename Curve::F>*)scratch, nw, R);
 }
 
 template <class Curve, int G, int THREADS, int BLOCKS>

@@ -32,7 +32,9 @@ directory), the two compilers side by side:
     for G1 at G = 2, 4, 8 and G2 at G = 4, 8, 16, each in blocks of 128
     and 256 threads, in clusters of 1, 2 and 4 blocks a window, on the
     2^16 plan's lane totals (24 windows of 512) for G1 and G2, made by
-    the plain leaf on the card;
+    the plain leaf on the card; with ``--kind g2_bls24315``, BLS24-315's
+    fp4 lane offsets ``lane_offsets_sliced_kernel<G2Bls24, G, THREADS,
+    CLUSTER>`` at each of LANES_FP4_SHAPES on that plan's fp4 lane totals;
   * ``ladder --kind g2_bls24315``: BLS24-315's fp4 ladder
     ``ladder_sliced_kernel<G2Bls24, G, THREADS, BLOCKS>`` at each of
     LADDER_SHAPES on 4,096 points (1 in 64 infinite, random scalars), as
@@ -49,8 +51,8 @@ directory), the two compilers side by side:
     ``--baseline`` for the fp4 kernels is the other version's
     ``msm_g2_bls24315.cu`` (its ``gnark_msm_<kernel>_g2_bls24315``).  The
     trial shapes build in translation units of their own, one a (G,
-    threads) for the fp4 ladder, weighted sum and reduction, side by side,
-    never in the shipped library.
+    threads) for the fp4 ladder, weighted sum, reduction and lane offsets,
+    side by side, never in the shipped library.
 
 Every shape (and the baseline) is held against the plain version on the
 same CUDA tensors, bit for bit, and timed with CUDA events: 3 launches
@@ -62,7 +64,8 @@ shapes that ship are ``G1/G2::LEAF_GROUP``, ``WSUM_GROUP``,
 ``LANES_CLUSTER``, and ``G2Bls24::LEAF_GROUP``, ``LEAF_THREADS``,
 ``LEAF_BLOCKS``, ``LADDER_GROUP``, ``LADDER_THREADS``, ``LADDER_BLOCKS``,
 ``FOLD_GROUP``, ``WSUM_GROUP``, ``WSUM_THREADS``, ``WSUM_CLUSTER``,
-``REDUCE_GROUP``, ``REDUCE_THREADS`` and ``REDUCE_CLUSTER``.
+``REDUCE_GROUP``, ``REDUCE_THREADS``, ``REDUCE_CLUSTER``, ``LANES_GROUP``,
+``LANES_THREADS`` and ``LANES_CLUSTER``.
 """
 
 from __future__ import annotations
@@ -116,6 +119,10 @@ WSUM_FP4_SHAPES = [(4, 128, 4), (4, 128, 8), (4, 64, 8), (8, 128, 4),
                    (16, 512, 4)]
 REDUCE_SHAPES = [(4, 128, 8), (4, 64, 8), (4, 256, 4), (8, 256, 8),
                  (8, 128, 8), (8, 512, 4), (16, 512, 8), (16, 256, 8)]
+# the fp4 lane offsets' trial shapes, as the weighted sum's: R = 512's
+# widest steps have 256 and 255 additions a window, its narrowest one
+LANES_FP4_SHAPES = [(4, 128, 4), (4, 128, 8), (8, 128, 4), (8, 128, 8),
+                    (8, 256, 4), (8, 256, 8), (16, 256, 4), (16, 256, 8)]
 N_LADDER = 1 << 12
 BLOCKS = (128, 256, 512)      # the weighted sum's threads a block
 CLUSTERS = (1, 2, 4, 8)       # and its blocks a window, from 256 threads
@@ -186,8 +193,8 @@ _FOLD_TRIAL = """#define TRIAL(G)                                               
     return launch_horner_fold_sliced<G2Bls24, G>(S, out, nw, c, stream);    \\
   }
 """
-# the fp4 weighted sum's and reduction's trials: (kernel's launcher, the
-# names of its two int arguments)
+# the fp4 weighted sum's, reduction's and lane offsets' trials, each a
+# launcher of an input, out, scratch and two ints: (trial name, launcher)
 _GROUPS_TRIAL = """#define TRIAL(G, T, CL)                                                     \\
   extern "C" int {name}_trial_g2_bls24315_##G##_##T##_##CL(const void* a,   \\
       void* out, void* scratch, int x, int y, void* stream) {{              \\
@@ -196,18 +203,20 @@ _GROUPS_TRIAL = """#define TRIAL(G, T, CL)                                      
   }}
 """
 _GROUPS_TRIALS = {"weighted_sum": ("wsum", "weighted_sum"),
-                  "reduce": ("reduce", "reduce")}
+                  "reduce": ("reduce", "reduce"),
+                  "lane_offsets": ("lanes", "lane_offsets")}
+_GROUPS_SHAPES = {"weighted_sum": WSUM_FP4_SHAPES, "reduce": REDUCE_SHAPES,
+                  "lane_offsets": LANES_FP4_SHAPES}
 
 
 def trial_units(kernel, kind=None):
     """{name: source} of the translation units a sweep builds: one, or
-    for the fp4 ladder, weighted sum and reduction one for each (G,
-    threads) of their shapes."""
+    for the fp4 ladder, weighted sum, reduction and lane offsets one for
+    each (G, threads) of their shapes."""
     if kind and kernel in _GROUPS_TRIALS:
         name, launcher = _GROUPS_TRIALS[kernel]
         units = {}
-        for g, t, cl in (WSUM_FP4_SHAPES if kernel == "weighted_sum"
-                         else REDUCE_SHAPES):
+        for g, t, cl in _GROUPS_SHAPES[kernel]:
             units.setdefault(f"trial_{g}_{t}", _FP4_HEAD + _GROUPS_TRIAL.format(
                 name=name, launcher=launcher))
             units[f"trial_{g}_{t}"] += f"TRIAL({g}, {t}, {cl})\n"
@@ -485,10 +494,11 @@ def fold_cases(libs, rng, device):
 
 
 def _groups_variants(libs, kernel, shapes, args, baseline):
-    """{shape label: fn(out) -> launch} of the fp4 weighted sum's or
-    reduction's trials (and the baseline) on args = (input, its two ints,
-    scratch, clusters a launch: nw or K), and warps(label, SMs): a
-    launch's clusters x CL blocks x T threads, in warps an SM."""
+    """{shape label: fn(out) -> launch} of the fp4 weighted sum's,
+    reduction's or lane offsets' trials (and the baseline) on args =
+    (input, its two ints, scratch, clusters a launch: nw or K), and
+    warps(label, SMs): a launch's clusters x CL blocks x T threads, in
+    warps an SM."""
     a, x, y, scratch, clusters = args
     name = _GROUPS_TRIALS[kernel][0]
     fns = {f"G={g} T={t} CL={cl}": _bind(
@@ -543,6 +553,25 @@ def reduce_cases(libs, rng, device):
         libs, "reduce", REDUCE_SHAPES, (pts, n, K, scratch, K),
         f"gnark_msm_reduce_{kind}")
     yield (f"{kind} n={n} K={K}", {"kind": kind, "n": n, "K": K}, want,
+           variants, warps)
+
+
+def lanes_fp4_cases(libs, rng, device):
+    """The fp4 lane offsets at LANES_FP4_SHAPES, on the 2^16 plan's lane
+    totals (24 windows of 512), made by the plain leaf on the card; the
+    baseline (the template's Brent-Kung scan) is held against the same
+    plain version."""
+    kind = "g2_bls24315"
+    plan, sx, sy, _ = _inputs(kind, N, rng, device)
+    tot = plan.lane_totals(M.leaf_prefix_plain(sx, sy, plan.GC))
+    want = M.lane_offsets_plain(tot, plan.GC)
+    _, nw, R = tot.shape
+    scratch = torch.empty(nw * R * 3 * _cuda._L16[kind] // 2,
+                          dtype=torch.int32, device=device)
+    variants, warps = _groups_variants(
+        libs, "lane_offsets", LANES_FP4_SHAPES, (tot, nw, R, scratch, nw),
+        f"gnark_msm_lane_offsets_{kind}")
+    yield (f"{kind} nw={nw} R={R}", {"kind": kind, "nw": nw, "R": R}, want,
            variants, warps)
 
 
@@ -608,15 +637,13 @@ def main(argv=None):
     ap.add_argument("--baseline", help="a csrc directory whose "
                     "msm_kernels.cu is timed beside the shapes")
     ap.add_argument("--kind", choices=("g2_bls24315",), help="sweep this "
-                    "kind's leaf (SLICED_SHAPES) or weighted sum "
-                    "(WSUM_FP4_SHAPES) instead of BN254's; the ladder, the "
-                    "fold and the reduction take it alone")
+                    "kind's leaf (SLICED_SHAPES), weighted sum "
+                    "(WSUM_FP4_SHAPES) or lane offsets (LANES_FP4_SHAPES) "
+                    "instead of BN254's; the ladder, the fold and the "
+                    "reduction take it alone")
     ap.add_argument("--out", help="write the numbers here as JSON")
     args = ap.parse_args(argv)
     fp4 = args.kernel in ("ladder", "horner_fold", "reduce")
-    if args.kind and args.kernel == "lane_offsets":
-        ap.error("--kind takes the leaf, the weighted sum, the ladder, the "
-                 "fold or the reduction")
     if fp4 and not args.kind:
         ap.error(f"--kernel {args.kernel} sweeps --kind g2_bls24315")
     if not torch.cuda.is_available():
@@ -662,6 +689,8 @@ def main(argv=None):
         cases = functools.partial(leaf_cases, kind=args.kind)
     if args.kind and args.kernel == "weighted_sum":
         cases = wsum_fp4_cases
+    if args.kind and args.kernel == "lane_offsets":
+        cases = lanes_fp4_cases
     for label, case, want, variants, warps in cases(libs, rng, device):
         times = {v: [] for v in variants}
         order = list(variants)

@@ -395,6 +395,22 @@ def test_fp4_weighted_sum_sliced_matches_plain_on_cuda(dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R", [512, 2])
+def test_fp4_lane_offsets_sliced_matches_plain_on_cuda(dev, R):
+    """BLS24-315 G2's lane offsets, lane_offsets_sliced_kernel (each
+    Brent-Kung addition on a group of LANES_GROUP lanes by coefficient),
+    on the 2^16 plan's lane totals (24 windows of 512) and on their first
+    two lanes, launched twice: each launch equals the plain version bit
+    for bit."""
+    GC, tot = _plan_totals("g2_bls24315", dev)
+    tot = tot[..., :R].contiguous()
+    first, again, n = _twice(M.lane_offsets, tot, GC)
+    assert n == 2 and _cuda.shape("g2_bls24315")["leaf_sliced"]
+    assert torch.equal(first, again)
+    assert torch.equal(first, M.lane_offsets_plain(tot, GC))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [4096, 600, 37])
 def test_fp4_reduce_sliced_matches_plain_on_cuda(dev, n):
     """BLS24-315 G2's reduction, reduce_sliced_kernel (a chunk's 256

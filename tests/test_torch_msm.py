@@ -8,9 +8,10 @@
   * the CUDA kernel sources, compiled for the host with g++ and run one
     thread at a time, against their plain versions, bit for bit, and the
     leaf, the lane offsets and the weighted sum at the card's shapes with
-    their lanes on host threads, BLS24-315's fp4 kernels (leaf, ladder,
-    fold, weighted sum, reduction) also at the widths their sweeps try
-    (tests/test_torch_cuda.py runs the kernels themselves on a card).
+    their lanes on host threads, BLS24-315's fp4 kernels (leaf, lane
+    offsets, ladder, fold, weighted sum, reduction) also at the widths
+    their sweeps try (tests/test_torch_cuda.py runs the kernels
+    themselves on a card).
 
 The kinds: BN254's G1 (``g1``) and G2 over fp2 (``g2``), BLS24-315's G1
 (``g1_bls24315``) and G2 over fp4 (``g2_bls24315``).
@@ -244,7 +245,13 @@ template <class Cv> static void grid_leaf(const int64_t* sx, const int64_t* sy,
 template <class Cv> static void grid_lanes(const int64_t* t, int64_t* o, int nw, int R) {
   std::vector<Point<typename Cv::F>> s((long)nw * R);
   blockDim.x = 1; threadIdx.x = 0;
-  for (int w = 0; w < nw; ++w) { blockIdx.x = w; lane_offsets_kernel<Cv, 1, 1, 1>(t, o, s.data(), nw, R); }
+  for (int w = 0; w < nw; ++w) {
+    blockIdx.x = w;
+    if constexpr (FpKTraits<typename Cv::F>::SLICED)   // fp4's shipped scan
+      lane_offsets_sliced_kernel<Cv, 1, 1, 1>(t, o, s.data(), nw, R);
+    else
+      lane_offsets_kernel<Cv, 1, 1, 1>(t, o, s.data(), nw, R);
+  }
 }
 template <class Cv> static void grid_fold(const int64_t* S, int64_t* o, int nw, int c) {
   blockDim.x = 1; threadIdx.x = 0; blockIdx.x = 0;
@@ -589,18 +596,30 @@ extern "C" int host_reduce_sliced_threads(int g, int t, int cl,
   });
 }
 // the lane offsets at their shipped group width, block size and blocks a
-// window, the narrow steps on one block, a window's cluster at a time
-template <class Cv> static int grid_lanes_threads(const int64_t* tot, int64_t* out,
-                                                  int nw, int R) {
-  constexpr int G = Cv::LANES_GROUP, T = Cv::LANES_THREADS, CL = Cv::LANES_CLUSTER;
+// window (or, over fp4, at any of the trial shapes), the narrow steps on
+// one block, a window's cluster at a time
+template <class Cv, int G = Cv::LANES_GROUP, int T = Cv::LANES_THREADS,
+          int CL = Cv::LANES_CLUSTER>
+static int grid_lanes_threads(const int64_t* tot, int64_t* out, int nw,
+                              int R) {
   std::vector<Point<typename Cv::F>> s((long)nw * R);
   Point<typename Cv::F>* scratch = s.data();
   bad_masks = 0;
   for (int w = 0; w < nw; ++w)
     run_cluster((unsigned)(w * CL), CL, T, G, [=] {
-      lane_offsets_kernel<Cv, G, T, CL>(tot, out, scratch, nw, R);
+      if constexpr (FpKTraits<typename Cv::F>::SLICED)   // fp4's shipped scan
+        lane_offsets_sliced_kernel<Cv, G, T, CL>(tot, out, scratch, nw, R);
+      else
+        lane_offsets_kernel<Cv, G, T, CL>(tot, out, scratch, nw, R);
     });
   return bad_masks;
+}
+extern "C" int host_lanes_sliced_threads(int g, int t, int cl,
+                                         const int64_t* tot, int64_t* out,
+                                         int nw, int R) {
+  return fp4_shape(g, t, cl, [=]<int G, int T, int CL>() {
+    return grid_lanes_threads<G2Bls24, G, T, CL>(tot, out, nw, R);
+  });
 }
 #define LANES_SHAPE(NAME, CV)                                                 \
   extern "C" int host_lanes_threads_##NAME(const int64_t* a, int64_t* o,      \
@@ -1114,6 +1133,38 @@ def test_lane_offsets_source_matches_plain_on_host(runs, host_kernels, kind,
     assert torch.equal(out, M.lane_offsets_plain(tot, run.plan.GC))
 
 
+# the fp4 lane offsets' trial shapes in the threaded harness (G, threads a
+# block, blocks a cluster): a lane a coefficient (G = 4), a lane pair (8)
+# and four lanes (16) a coefficient; every one has fewer groups than R =
+# 512's widest step (256 additions) but (4, 128, 8), which has as many
+LANES_HOST_SHAPES = [(4, 128, 8), (8, 128, 8), (8, 256, 4), (16, 256, 8)]
+
+
+@pytest.mark.parametrize("case", LANES_CASES)
+@pytest.mark.parametrize("shape", LANES_HOST_SHAPES,
+                         ids=_shape_ids(LANES_HOST_SHAPES))
+def test_lane_offsets_sliced_matches_plain_on_host_threads(
+        runs, threaded_leaf, shape, case):
+    """The fp4 lane offsets (lane_offsets_sliced_kernel: each Brent-Kung
+    addition on a group of G lanes, a lane's coefficients of the operands
+    from scratch) at the sweep's group widths, blocks and clusters, every
+    lane on a host thread, bit for bit against the plain version: the
+    run's totals (R = 8), R = 1 (the identity) and 2, each on its first 8
+    windows, and two windows of 512 with identities, P + P and P + (-P)
+    among the additions."""
+    run = runs["g2_bls24315"]
+    tot = _lanes_case(run, case)[:, :8].contiguous()
+    _, nw, R = tot.shape
+    want = M.lane_offsets_plain(tot, run.plan.GC)
+    out = torch.empty_like(want)
+    assert threaded_leaf.host_lanes_sliced_threads(
+        *shape, _ptr(tot), _ptr(out), nw, R) == 0   # group masks
+    assert torch.equal(out, want)
+    ship = _shape(threaded_leaf, "g2_bls24315")
+    assert (ship["lanes_group"], ship["lanes_threads"],
+            ship["lanes_cluster"]) in LANES_HOST_SHAPES
+
+
 def test_lane_offsets_need_a_power_of_two():
     """A lane count that is not a power of two raises, in the plan and in
     the plain version."""
@@ -1321,6 +1372,43 @@ def test_ptxas_reports_name_the_fp4_weighted_sum_and_reduction(parser):
     assert not leaf_groups.kernel_registers(PTXAS_FP4_SUMS, "weighted_sum")
 
 
+# ptxas -v lines of the fp4 lane offsets (the sweep's shipped shape,
+# launch bounds of one block an SM; run BJ) and of the template they
+# replace for fp4 (run BI)
+PTXAS_FP4_LANES = """\
+ptxas info    : Compiling entry function '_Z26lane_offsets_sliced_kernelI7G2Bls24Li8ELi256ELi4EEvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii' for 'sm_90a'
+ptxas info    : Function properties for _Z26lane_offsets_sliced_kernelI7G2Bls24Li8ELi256ELi4EEvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 138 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z19lane_offsets_kernelI7G2Bls24Li8ELi128ELi4EEvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii' for 'sm_90a'
+ptxas info    : Function properties for _Z19lane_offsets_kernelI7G2Bls24Li8ELi128ELi4EEvPKlPlP5PointI3FpKI10BLS24315FpLi4ELi13EEEii
+    1840 bytes stack frame, 68 bytes spill stores, 60 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("parser", ["chip_smoke", "leaf_groups"])
+def test_ptxas_reports_name_the_fp4_lane_offsets(parser):
+    """The [ptxas] lines of chip_smoke.py and ops/leaf_groups.py name the
+    coefficient-sliced lane offsets with their shape (G, threads,
+    cluster) and spills, apart from the template lane offsets."""
+    if parser == "chip_smoke":
+        assert _chip_smoke().ptxas_summary(PTXAS_FP4_LANES) == [
+            "lane_offsets_sliced_kernel<G2Bls24, 8, 256, 4>: 138 registers; "
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "lane_offsets_kernel<G2Bls24, 8, 128, 4>: 255 registers; 1840 "
+            "bytes stack frame, 68 bytes spill stores, 60 bytes spill loads"]
+        return
+    from gnark_tpu_torch.ops import leaf_groups
+    lanes = leaf_groups.kernel_registers(PTXAS_FP4_LANES, "lane_offsets_sliced")
+    assert list(lanes) == ["G2Bls24 G=8 T=256 CL=4"]
+    assert "0 bytes spill stores" in lanes["G2Bls24 G=8 T=256 CL=4"]
+    assert "Used 138 registers" in lanes["G2Bls24 G=8 T=256 CL=4"]
+    assert list(leaf_groups.kernel_registers(PTXAS_FP4_LANES,
+                                             "lane_offsets")) == [
+        "G2Bls24 G=8 T=128 CL=4"]
+
+
 def _source_limbs(text, name):
     m = re.search(name + r"\[8\] = \{([^}]*)\}", text)
     return [int(v.strip().rstrip("u"), 16) for v in m.group(1).split(",")]
@@ -1396,23 +1484,24 @@ def test_bls24315_kernel_constants_match_field_spec():
 
 
 def test_bls24315_fp4_sum_shapes_are_swept_and_fit():
-    """G2's weighted sum and reduction shapes (WSUM_*, REDUCE_*) in the
-    source: groups inside a warp, among ops/leaf_groups.py's trial shapes,
-    a block's GroupsShared (b3's 4 columns and a group's 9 + 6 value and
-    product slots of 4, 48 bytes a slot) inside 227 KB, and a portable
-    cluster."""
+    """G2's weighted sum, reduction and lane offsets shapes (WSUM_*,
+    REDUCE_*, LANES_*) in the source: groups inside a warp, among
+    ops/leaf_groups.py's trial shapes, a block's GroupsShared (b3's 4
+    columns and a group's 9 + 6 value and product slots of 4, 48 bytes a
+    slot) inside 227 KB, and a portable cluster."""
     from gnark_tpu_torch.ops import leaf_groups
     kern = open(os.path.join(CSRC, "msm_kernels.cu")).read()
     g2 = kern[kern.index("struct G2Bls24"):]
     g2 = g2[:g2.index("};")]
-    val = {k: int(re.search(k + r" = (\d+)", g2).group(1)) for k in (
-        "WSUM_GROUP", "WSUM_THREADS", "WSUM_CLUSTER", "REDUCE_GROUP",
-        "REDUCE_THREADS", "REDUCE_CLUSTER")}
-    wsum = tuple(val[f"WSUM_{k}"] for k in ("GROUP", "THREADS", "CLUSTER"))
-    red = tuple(val[f"REDUCE_{k}"] for k in ("GROUP", "THREADS", "CLUSTER"))
+    val = {f"{p}_{k}": int(re.search(f"{p}_{k}" + r" = (\d+)", g2).group(1))
+           for p in ("WSUM", "REDUCE", "LANES")
+           for k in ("GROUP", "THREADS", "CLUSTER")}
+    wsum, red, lanes = (tuple(val[f"{p}_{k}"] for k in (
+        "GROUP", "THREADS", "CLUSTER")) for p in ("WSUM", "REDUCE", "LANES"))
     assert wsum in leaf_groups.WSUM_FP4_SHAPES
     assert red in leaf_groups.REDUCE_SHAPES
-    for g, t, cl in (wsum, red):
+    assert lanes in leaf_groups.LANES_FP4_SHAPES
+    for g, t, cl in (wsum, red, lanes):
         assert 32 % g == 0 and t % 32 == 0 and 1 <= cl <= 8
         assert 4 * 48 + t // g * 15 * 4 * 48 <= 227 * 1024
 
