@@ -72,8 +72,9 @@ main paths once, at the sizes the repo has always measured:
      version; then G1's and G2's 2^16 MSM against the host oracle, with
      the milliseconds of each of its steps, as phase 4 prints BN254's;
   9. Groth16 over the other five curves, routed as gnark_tpu routes them:
-     MiMC chains that fill a domain of 2^16 over BLS12-381, BLS12-377
-     (BASELINE config 4's curves) and BLS24-315, a 12-hash chain over
+     MiMC chains that fill a domain of 2^15 over BLS12-381 and BLS12-377
+     (BASELINE config 4's curves, cut from 2^16 to make room for phase
+     14) and of 2^16 over BLS24-315, a 12-hash chain over
      BLS24-315 (its ladder), and chains in a domain of 2^12 over BW6-761
      and BW6-633.  Setup on the card (the key points on the native core
      where fp has 24 or more 16-bit limbs), a cold and a warm prove each:
@@ -112,18 +113,36 @@ main paths once, at the sizes the repo has always measured:
      then proves the chain on the mesh, cold and warm, with rng 7: each
      rank's proof is phase 5's bytes, verified and a wrong public input
      rejected.  A rank that fails, or has not joined within
-     SHARDED_JOIN_S, fails the run.
+     SHARDED_JOIN_S, fails the run;
+ 14. the 2^20 Groth16 prove (BASELINE configs 1 and 4's headline, on
+     BN254), once the earlier phases' keys are released: the four windowed
+     kernels against their plain versions at the plan of its MSMs (2^21
+     points: c = 14, 19 windows, 8,192 buckets, R = 512, C = 4,096), G1
+     and G2, bit for bit (the leaf on two of the windows, its plain
+     version run in 64-step segments seeded by the kernel's rows: one
+     plain run is a 4,096-step torch loop); G1's and G2's 2^21-point MSM on
+     the chunked plan against the host oracle, with its steps, its window
+     chunks and its peak memory; then the 2^20 - 2 squaring chain
+     (1,048,575 constraints) through gnark_tpu_torch/scripts/
+     dev_e2e_2e20.py: compile, setup on the card with its breakdown, the
+     host witness, a cold and two warm proves with per-phase seconds,
+     verify, reject y + 1, and the peak memory of the setup and of a
+     prove.
 
-The launch counts are set to zero just before each of the nine paths (2,
-5, 6, 7, 9, 10, 11, 12 and 13; in 13 in each rank, before each mesh
+The launch counts are set to zero just before each of the ten paths (2,
+5, 6, 7, 9, 10, 11, 12, 13 and 14; in 13 in each rank, before each mesh
 prove and again before each ShardedMSM check, the unsharded comparisons
 left out) and read just after: every kernel of a path must have launched
 in it (each request of 9-12 and each mesh prove of 13 exactly the kernels
-its route names, none on the native route), and no plain version may run
-on the card there.  The kernels line's ``launches`` counts the paths'
-requests and proves; ``launches_sharded`` is phase 13's, split into its
-mesh proves' (``launches_sharded_prove``) and its ShardedMSM checks'
-(``launches_sharded_msm``, the only ladder shards of the phase).
+its route names, none on the native route; in 14 a prove's four G1 MSMs
+and one G2 MSM each launch the Horner fold once and the other windowed
+kernels once a window chunk, the ladder and reduction never), and no
+plain version may run on the card there.  The kernels line's
+``launches`` counts the paths' requests and proves; ``launches_sharded``
+is phase 13's, split into its mesh proves' (``launches_sharded_prove``)
+and its ShardedMSM checks' (``launches_sharded_msm``, the only ladder
+shards of the phase); ``launches_2e20`` is phase 14's, and the rows
+named ``<kernel>_<kind>_2e21`` are the kernels at the 2^21 plan.
 
 ``--profile`` adds a cProfile of one more warm 2^16 Groth16 prove (host
 time by function).  ``--trace`` takes one more warm 2^16 Groth16 prove and
@@ -139,6 +158,7 @@ Exits nonzero, printing no result, when CUDA is not available.
 
 import concurrent.futures
 import contextlib
+import gc
 import io
 import json
 import os
@@ -1010,22 +1030,17 @@ def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
 
 def msm_breakdown(plan, xs, ys, inf, sc):
     """Milliseconds of each step of one kernel-path MSM (synchronised
-    between steps, so the sum exceeds an unsynchronised run)."""
+    between steps, so the sum exceeds an unsynchronised run), the steps of
+    each window chunk summed over the chunks."""
     from gnark_tpu_torch.ops import msm as M
     steps = {}
-    (ptrows, dg, sg), steps["recode"] = wall_ms(
-        lambda: plan._prep_window(xs, ys, inf, sc))
-    (sx, sy, ds), steps["sort_gather"] = wall_ms(
-        lambda: plan._sort_gather(ptrows, dg, sg))
-    rows, steps["leaf_prefix"] = wall_ms(lambda: M.leaf_prefix(sx, sy, plan.GC))
-    offs, steps["lane_offsets"] = wall_ms(
-        lambda: M.lane_offsets(plan.lane_totals(rows), plan.GC))
-    bk, steps["buckets"] = wall_ms(lambda: plan._buckets(rows, offs, ds))
-    S, steps["weighted_sum"] = wall_ms(lambda: M.weighted_sum(bk, plan.GC))
-    P, steps["horner_fold"] = wall_ms(
-        lambda: M.horner_fold(S, plan.c, plan.GC))
-    _, steps["to_jacobian"] = wall_ms(
-        lambda: plan.GC.to_jacobian(M.split_points(P, plan.G.F.L)))
+
+    def timed(name, fn):
+        out, ms = wall_ms(fn)
+        steps[name] = steps.get(name, 0.0) + ms
+        return out
+
+    plan.run(xs, ys, inf, sc, M.WRAPPERS, step=timed)
     return steps
 
 
@@ -1453,14 +1468,16 @@ def phase_bls24_kernels(device, rates):
 
 
 # Groth16 over the other curves: request -> (curve, MiMC hashes, MSM
-# points).  The 2^16 chains fill a domain of 2^16 about as BN254's 178
-# hashes do (BLS12-377's MiMC takes the inverse round: 62 constraints a
-# hash, not 330); BLS24-315's 12-hash chain is its small request (the
-# ladder); the BW6 curves' at 2^12, their host MSMs over 761- and 633-bit
-# fp setting the cut.
+# points).  The chains fill their domain about as BN254's 178 hashes fill
+# 2^16 (BLS12-377's MiMC takes the inverse round: 62 constraints a hash,
+# not 330); BLS12's at 2^15 (29,305 and 29,327 constraints; 2^16 took
+# 176 and 947 hashes), their native-route MSMs on one host thread the
+# time that phase 14 needs; BLS24-315's 12-hash chain is its small
+# request (the ladder); the BW6 curves' at 2^12, their host MSMs over
+# 761- and 633-bit fp setting the cut.
 CURVE_GROTH16 = {
-    "bls12_381 mimc": ("bls12_381", 176, N_MSM),
-    "bls12_377 mimc": ("bls12_377", 947, N_MSM),
+    "bls12_381 mimc": ("bls12_381", 88, N_MSM // 2),
+    "bls12_377 mimc": ("bls12_377", 473, N_MSM // 2),
     "bls24_315 mimc": ("bls24_315", 180, N_MSM),
     "bls24_315 mimc12": ("bls24_315", 12, N_LADDER),
     "bw6_761 mimc": ("bw6_761", 9, N_BW6),
@@ -2184,6 +2201,209 @@ def phase_sharded(device, served):
     return l_prove, l_msm
 
 
+# phase 14: the 2^20 Groth16 prove (gnark_tpu_torch/scripts/dev_e2e_2e20.py)
+# and the plan of its MSMs, 2^21 points: (c, windows, buckets, R, C)
+E2E_LOG = 20
+N_2E21 = 1 << 21
+PLAN_2E21 = (14, 19, 8192, 512, 4096)
+LEAF_WINDOWS_2E21 = 2   # windows the leaf is held on
+LEAF_SEGMENT = 64       # steps a segment of the plain leaf there
+
+
+def gb(nbytes):
+    return f"{nbytes / 1e9:.2f} GB"
+
+
+def oracle_inputs_limbs(G, host, gen, device, rng, n):
+    """oracle_inputs' points and oracle at n points (a multiple of 64),
+    the scalars drawn as 16-bit limbs (the top one below r's, so each
+    scalar is below r) and the expected sum taken from the limbs' column
+    sums: seconds where a Python int a scalar takes tens at 2^21."""
+    import torch
+    from gnark_tpu_torch.curves import BN254
+    r = BN254.fr.modulus
+    base, P = [], gen
+    for _ in range(64):
+        base.append(P)
+        P = host.double(P)
+    xs = G.F.pack([p[0] for p in base], device).repeat(1, n // 64)
+    ys = G.F.pack([p[1] for p in base], device).repeat(1, n // 64)
+    inf = torch.zeros(n, dtype=torch.bool, device=device)
+    limbs = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
+    limbs[15] %= r >> 240
+    # sum_i s_i 2^(i mod 64) = sum_{k, j} 2^(16k + j) sum_{i = j mod 64}
+    # limb k of s_i
+    col = limbs.reshape(16, n // 64, 64).sum(1)
+    total = sum(int(col[k, j]) << (16 * k + j)
+                for k in range(16) for j in range(64)) % r
+    sc = torch.from_numpy(limbs).to(device)
+    return xs, ys, inf, sc, host.scalar_mul(gen, total)
+
+
+def leaf_seeded(seg):
+    """(kernel, plain) for the leaf at a long chain.  The kernel is the
+    leaf's wrapper, keeping the rows of its last launch.  The plain
+    version cuts every chain into segments of ``seg`` steps and runs them
+    all at once through leaf_prefix_plain, segment k started from the row
+    that launch gave after step k seg - 1 (segment 0 from the identity).
+    ``compare`` launches the kernel just before it calls the plain
+    version, so the seeds come from the launch that is compared: its rows
+    equal the plain ones in every segment only if, by induction over the
+    segments, they equal those of one plain run over the whole chain,
+    each segment's seed being the last row of the segment before, itself
+    held against the plain version.  (One plain run is a 4,096-step torch
+    loop, 45-77 s on the card.)"""
+    import torch
+    from gnark_tpu_torch.ops import msm as M
+    last = {}
+
+    def kernel(sx, sy, GC):
+        last["rows"] = M.leaf_prefix(sx, sy, GC)
+        return last["rows"]
+
+    def plain(sx, sy, GC):
+        nw, C, L, R = sx.shape
+        K = C // seg
+        assert K * seg == C, (C, seg)
+        rows = last["rows"]
+        assert rows.shape == (nw, C * R, 3 * L), rows.shape
+        seeds = rows.reshape(nw, C, R, 3 * L)[:, seg - 1::seg][:, :K - 1]
+        ident = torch.cat(GC.inf((nw, 1, R), sx.device)).permute(1, 2, 3, 0)
+        acc = torch.cat([ident, seeds], 1).permute(3, 0, 1, 2)
+        out = M.leaf_prefix_plain(sx.reshape(nw * K, seg, L, R),
+                                  sy.reshape(nw * K, seg, L, R), GC,
+                                  acc=acc.reshape(3 * L, nw * K, R))
+        return out.reshape(nw, C * R, 3 * L)
+    return kernel, plain
+
+
+def cases_2e21(kind, G, xs, ys, inf, sc):
+    """The four windowed kernels' inputs along the 2^21-point plan, chunk by
+    chunk as MSM.run takes them (one kernel-path run, its steps kept): the
+    leaf's sorted points of the first LEAF_WINDOWS_2E21 windows, and every
+    window's lane totals, buckets and sums.  Returns (the plan, its
+    chunks, {name: (args, kernel, plain)})."""
+    import torch
+    from gnark_tpu_torch.ops import msm as M
+    plan = M.MSM(G, N_2E21, 16)
+    assert (plan.c, plan.nwin, plan.nb, plan.R, plan.C) == PLAN_2E21, \
+        (plan.c, plan.nwin, plan.nb, plan.R, plan.C)
+    chunks = plan.chunks(xs.device)
+    GC = plan.GC
+    kept = {name: [] for name in ("sort_gather", "leaf_prefix", "buckets",
+                                  "weighted_sum")}
+
+    def keep(name, fn):
+        out = fn()
+        if name == "recode":
+            assert bool((out[2] != 0).any()), "no negative digit in the inputs"
+        elif name == "sort_gather":
+            if not kept[name]:
+                kept[name].append(tuple(t[:LEAF_WINDOWS_2E21].clone()
+                                        for t in out[:2]))
+        elif name == "leaf_prefix":             # the lane offsets' input
+            kept[name].append(plan.lane_totals(out))
+        elif name in kept:
+            kept[name].append(out)
+        return out
+
+    plan.run(xs, ys, inf, sc, M.WRAPPERS, step=keep)
+    sync()
+    tot, bk, S = (torch.cat(kept[k], 1).contiguous()
+                  for k in ("leaf_prefix", "buckets", "weighted_sum"))
+    log(f"[kernels {kind} 2^21] plan at n={N_2E21}: c={plan.c} "
+        f"nwin={plan.nwin} nb={plan.nb} R={plan.R} C={plan.C}, window "
+        f"chunks {chunks}")
+    leaf, leaf_plain = leaf_seeded(LEAF_SEGMENT)
+    return plan, chunks, {
+        "leaf_prefix": (kept["sort_gather"][0] + (GC,), leaf, leaf_plain),
+        "lane_offsets": ((tot, GC), M.lane_offsets, M.lane_offsets_plain),
+        "weighted_sum": ((bk, GC), M.weighted_sum, M.weighted_sum_plain),
+        "horner_fold": ((S, plan.c, GC), M.horner_fold, M.horner_fold_plain),
+    }
+
+
+def phase_2e20(device, rates):
+    """Phase 14, the 2^20 path.  For G1 and G2 over 2^21 oracle inputs: the
+    four windowed kernels against their plain versions at the plan's shapes
+    (the leaf on LEAF_WINDOWS_2E21 windows, the others on all 19), then the
+    MSM on the chunked plan against the host oracle, with its steps, its
+    chunk count and its peak memory.  Then the main path: the 2^20 - 1
+    constraint squaring chain through dev_e2e_2e20.run (setup on the card,
+    a cold and two warm proves, verify, y + 1 rejected), the launch counts
+    set to zero just before it and read just after: a prove's four G1 MSMs
+    and one G2 MSM each launch the Horner fold once and the leaf, the lane
+    offsets and the weighted sum once a window chunk; the ladder and
+    reduction never; no plain version on the card.  Returns (the kernel
+    rows, the path's launches)."""
+    import torch
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import msm as M
+    from gnark_tpu_torch.ops.ec import points_to_host
+    from gnark_tpu_torch.scripts import dev_e2e_2e20
+    results, nchunks = {}, {}
+    rng = np.random.default_rng(SEED + 2)
+    for kind, (G, host, gen) in groups().items():
+        t0 = time.perf_counter()
+        xs, ys, inf, sc, want = oracle_inputs_limbs(G, host, gen, device,
+                                                    rng, N_2E21)
+        log(f"[kernels {kind} 2^21] oracle inputs "
+            f"{time.perf_counter() - t0:.2f} s")
+        kinf = inf.clone()
+        kinf[::64] = True
+        plan, chunks, cases = cases_2e21(kind, G, xs, ys, kinf, sc)
+        for name, (args, kern, plain) in cases.items():
+            label = (f"{name} 2^21 plan, {LEAF_WINDOWS_2E21} of "
+                     f"{plan.nwin} windows, the plain version in "
+                     f"{plan.C // LEAF_SEGMENT} segments of {LEAF_SEGMENT} "
+                     f"steps a chain seeded by the kernel's rows"
+                     if name == "leaf_prefix" else f"{name} 2^21 plan")
+            results[f"{name}_{kind}"] = compare(kind, label, args, kern,
+                                                plain, rates, work=name)
+        del cases, kinf
+        torch.cuda.empty_cache()
+        plan = M.MSM(G, N_2E21, 16)
+        plan(xs, ys, inf, sc)                       # the warm-up
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        out, ms = wall_ms(lambda: plan(xs, ys, inf, sc))
+        peak = torch.cuda.max_memory_allocated(device)
+        cap = M.memory_cap(
+            torch.cuda.get_device_properties(device).total_memory)
+        assert points_to_host(G, out)[0] == want, f"MSM {kind} 2^21 != oracle"
+        log(f"[msm {kind} 2^21] n={N_2E21} oracle ok: kernel path {ms:.1f} "
+            f"ms ({N_2E21 / ms * 1e3:.0f} points/s), {len(chunks)} window "
+            f"chunk(s) {chunks}, peak memory {gb(peak)} ({gb(base)} before "
+            f"the call; the cap a chunk {gb(cap)}, "
+            f"{gb(M.window_bytes(plan.n_pad, G.F.L))} a window)")
+        steps = msm_breakdown(plan, xs, ys, inf, sc)
+        log(f"[msm {kind} 2^21] steps (ms): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in steps.items()))
+        nchunks[kind] = len(chunks)
+        del xs, ys, inf, sc, out
+        torch.cuda.empty_cache()
+
+    _cuda.reset_launches()
+    for k in M.plain_on_cuda:
+        M.plain_on_cuda[k] = 0
+    res = dev_e2e_2e20.run(E2E_LOG, "bn254", device, log=log)
+    launches = {f"{k}_{kind}": _cuda.launches[f"{k}_{kind}"]
+                for k in _cuda.KERNELS for kind in BN254_KINDS}
+    # a prove's MSMs: four over G1, one over G2; the leaf, lane offsets and
+    # weighted sum launch once a window chunk, the fold once an MSM
+    n = len(res["proves"])
+    want = {f"{k}_{kind}": (n * (4 if kind == "g1" else 1)
+                            * (1 if k == "horner_fold" else nchunks[kind])
+                            if k in _cuda.WINDOW_KERNELS else 0)
+            for k in _cuda.KERNELS for kind in BN254_KINDS}
+    assert launches == want, (launches, want)
+    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert res["pk"].n_pad == N_2E21, res["pk"].n_pad
+    log(f"[groth16 sq2e{E2E_LOG}] launches during the {n} proves: "
+        f"{launches}; no plain version on the card")
+    return results, launches
+
+
 ADD_TYPE = re.compile(r"^(IADD3|IADD|IMAD\.X|IMAD\.IADD|IADD32I|LEA)")
 MUL_TYPE = re.compile(r"^IMAD(\.WIDE|\.HI|\.U32|$)")
 
@@ -2339,6 +2559,13 @@ def main():
     t0 = time.perf_counter()
     l_sharded, l_sharded_msm = phase_sharded(device, groth16_served)
     log(f"[phase] sharded {time.perf_counter() - t0:.1f} s")
+    # the 2^20 path needs the card's memory: the earlier phases' keys go
+    del groth16_served, plonk_served, curves_served, prepared, outer_keys
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kern_2e20, l_2e20 = phase_2e20(device, msm_rates)
+    log(f"[phase] 2^20 groth16 {time.perf_counter() - t0:.1f} s")
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s")
 
     from gnark_tpu_torch.ops import msm as M
@@ -2355,7 +2582,8 @@ def main():
             "source": "gnark_tpu_torch/csrc/msm_kernels.cu",
             "replaces": REPLACES[name],
             "launches": (l_groth16[key] + l_plonk[key] + l_rollup[key]
-                         + l_serial.get(key, 0) + l_sharded.get(key, 0)),
+                         + l_serial.get(key, 0) + l_sharded.get(key, 0)
+                         + l_2e20[key]),
             "launches_groth16": l_groth16[key],
             "launches_plonk": l_plonk[key],
             "launches_rollup": l_rollup[key],
@@ -2363,11 +2591,21 @@ def main():
             "launches_sharded": (l_sharded.get(key, 0)
                                  + l_sharded_msm.get(key, 0)),
             "launches_sharded_prove": l_sharded.get(key, 0),
-            "launches_sharded_msm": l_sharded_msm.get(key, 0), **r})
+            "launches_sharded_msm": l_sharded_msm.get(key, 0),
+            "launches_2e20": l_2e20[key], **r})
         if key in kern_rollup:
             entries[-1]["at_rollup_plan"] = {
                 k: kern_rollup[key][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    for key, r in kern_2e20.items():
+        # the 2^21 plan's rows: launched on the 2^20 path alone
+        entries.append({
+            "name": f"{key}_2e21", "route": "cuda",
+            "source": "gnark_tpu_torch/csrc/msm_kernels.cu",
+            "replaces": REPLACES[key.rsplit("_", 1)[0]],
+            "plan": dict(zip(("c", "windows", "buckets", "R", "C"),
+                             PLAN_2E21)),
+            "launches": l_2e20[key], "launches_2e20": l_2e20[key], **r})
     for key, r in kern_bls24.items():
         name, kind = key.split("_g")[0], "g" + key.split("_g")[1]
         entries.append({

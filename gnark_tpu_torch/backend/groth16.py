@@ -45,7 +45,7 @@ from gnark_tpu_torch.curves import ALL_CURVES
 from gnark_tpu_torch.curves.pairing import pairing_for
 from gnark_tpu_torch.fields.spec import W
 from gnark_tpu_torch.ops.ec import CurveOps, points_to_device
-from gnark_tpu_torch.ops.fixed_base import FixedBaseTable
+from gnark_tpu_torch.ops.fixed_base import FixedBaseTable, window_width
 from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs, limbs_to_ints
 from gnark_tpu_torch.ops.msm import _next_pow2, msm
 from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm
@@ -182,14 +182,32 @@ def _qap_at_tau_native(cs, fr_spec, tau: int, n: int, nat):
     return A, B, C, zt
 
 
-def setup(cs, curve, rng=None, host: bool = False, *, device="cuda"):
+# Columns of one fixed-base slice on the device: the plain-torch product
+# of a batch of m elements makes [L^2, m] int64 and float64 temporaries,
+# and a complete mixed addition over fp2 multiplies 18 base elements a
+# column at once, so 2^18 columns keep a G2 slice's temporaries near 20
+# GB (a 2^21-point batch at once would need eight times that).  A
+# column's point does not depend on its slice.
+SETUP_COLUMNS = 1 << 18
+
+
+def setup(cs, curve, rng=None, host: bool = False, *, device="cuda",
+          timings: dict | None = None):
     """-> (ProvingKey, VerifyingKey).  The key points go to ``device``:
     the card unless the caller names another (raises when there is none);
     on the native core for ``native_route(curve)``, on the device's
-    fixed-base tables otherwise.  ``host=True`` keeps host point lists
-    and touches no device (tiny circuits, protocol tests)."""
+    fixed-base tables otherwise, SETUP_COLUMNS scalars at a time.
+    ``host=True`` keeps host point lists and touches no device (tiny
+    circuits, protocol tests).  ``timings`` (a dict) receives the seconds
+    of each part: ``qap`` (the native QAP at tau and the key scalars),
+    ``tables`` (the fixed-base window tables, on the host), one
+    ``fixed_base_<group>_<name>`` a key batch, ``to_affine`` (the device
+    route's batch inversions) and ``vk`` (the host scalar multiplications
+    and the pairing)."""
     if not host:
         device = _device(device)
+    ph = _Phases(timings, torch.device("cpu") if host else device,
+                 scheme="groth16_setup")
     q = curve.fr.modulus
     rnd = _sampler(rng)
 
@@ -215,6 +233,7 @@ def setup(cs, curve, rng=None, host: bool = False, *, device="cuda"):
     # output feeds the MSM directly
     zs64 = nat.powers(tau, n, start=zt * delta_inv % q)
     zs_brev64 = zs64[np.asarray(bit_reverse_perm(n))]
+    ph.mark("qap")
 
     n_pad = _next_pow2(max(cs.nb_wires, n, 2))
     Ls = curve.fr.L
@@ -252,22 +271,36 @@ def setup(cs, curve, rng=None, host: bool = False, *, device="cuda"):
             return torch.from_numpy(p).to(device)
 
         scalar_bits = curve.fr.L * W
+        c = window_width(n_pad, scalar_bits)
         fb1 = FixedBaseTable(K.g1, curve.host_g1, curve.g1_gen, scalar_bits,
-                             device)
+                             device, c)
         fb2 = FixedBaseTable(K.g2, curve.host_g2, curve.g2_gen, scalar_bits,
-                             device)
+                             device, c)
+        ph.mark("tables")
 
-        def g1_batch(rows64):
-            return K.g1.to_affine(fb1(planes(rows64)))
+        def sliced(fb):
+            def batch(rows64):
+                sc = planes(rows64)
+                return tuple(torch.cat(t, -1) for t in zip(*(
+                    fb(sc[:, j:j + SETUP_COLUMNS])
+                    for j in range(0, n_pad, SETUP_COLUMNS))))
+            return batch
 
-        def g2_batch(rows64):
-            return K.g2.to_affine(fb2(planes(rows64)))
+        g1_batch, g2_batch = sliced(fb1), sliced(fb2)
 
-    A_pts = g1_batch(A64)
-    B1_pts = g1_batch(B64)
-    K_pts = g1_batch(pk_k64)
-    Z_pts = g1_batch(zs_brev64)
-    B2_pts = g2_batch(B64)
+    jacobian = not (host or native_route(curve))     # the device's tables
+    pts = {}
+    for name, G, batch, rows64 in (("g1_A", K.g1, g1_batch, A64),
+                                   ("g1_B1", K.g1, g1_batch, B64),
+                                   ("g1_K", K.g1, g1_batch, pk_k64),
+                                   ("g1_Z", K.g1, g1_batch, zs_brev64),
+                                   ("g2_B2", K.g2, g2_batch, B64)):
+        pts[name] = batch(rows64)
+        ph.mark(f"fixed_base_{name}")
+        if jacobian:
+            pts[name] = G.to_affine(pts[name])
+            ph.mark("to_affine")
+    A_pts, B1_pts, K_pts, Z_pts, B2_pts = pts.values()
 
     host1, host2 = curve.host_g1, curve.host_g2
     g1, g2 = curve.g1_gen, curve.g2_gen
@@ -279,6 +312,7 @@ def setup(cs, curve, rng=None, host: bool = False, *, device="cuda"):
     delta_g2 = host2.scalar_mul(g2, delta)
     vk_k_host = [None if s % q == 0 else host1.scalar_mul(g1, s) for s in vk_k]
     e_ab = pairing_for(curve).pair(alpha_g1, beta_g2)
+    ph.mark("vk")
 
     pk = ProvingKey(
         curve=curve, domain_n=n, n_pad=n_pad,

@@ -14,6 +14,12 @@ import torch
 
 from gnark_tpu_torch.ops.ec_complete import _many
 
+# Columns of to_affine's products at a time: a plain-torch product of m
+# elements makes [L^2, m] int64 and float64 temporaries, many times its
+# operands, so setup's 2^21-point key batches run them in slices (the same
+# width as its fixed-base slices, groth16.SETUP_COLUMNS).
+AFFINE_COLUMNS = 1 << 18
+
 
 class CurveOps:
     """EC group ops bound to a field-ops object F (FieldOps or Fp2Ops)."""
@@ -122,15 +128,22 @@ class CurveOps:
     # -- conversions ------------------------------------------------------------
 
     def to_affine(self, P):
-        """Batch Jacobian [L, n] -> affine via one batch inversion.
+        """Batch Jacobian [L, n] -> affine via one batch inversion, the
+        products after it over AFFINE_COLUMNS columns at a time.
         Returns (x, y, inf_mask); infinity maps to (0, 0, True)."""
         F = self.F
         X, Y, Z = P
         zinv = F.batch_inv(Z) if hasattr(F, "batch_inv") else F.inv(Z)
-        zinv2 = F.sqr(zinv)
-        zinv3 = F.mul(zinv, zinv2)
-        x, y = _many(F.mul, (X, zinv2), (Y, zinv3))
-        return x, y, self.is_inf(P)
+        xs, ys = [], []
+        for j in range(0, Z.shape[-1], AFFINE_COLUMNS):
+            zi = zinv[..., j:j + AFFINE_COLUMNS]
+            zinv2 = F.sqr(zi)
+            zinv3 = F.mul(zi, zinv2)
+            x, y = _many(F.mul, (X[..., j:j + AFFINE_COLUMNS], zinv2),
+                         (Y[..., j:j + AFFINE_COLUMNS], zinv3))
+            xs.append(x)
+            ys.append(y)
+        return torch.cat(xs, -1), torch.cat(ys, -1), self.is_inf(P)
 
 
 def points_to_host(G: CurveOps, P) -> list:

@@ -6,6 +6,11 @@ the device each scalar becomes nwin digit gathers from the table plus an
 nwin-step loop of mixed adds:
 
     result_j = sum_w table[w][digit_w(s_j)],   table[w][d] = d * 2^(cw) * G
+
+The adds are the complete projective ones (ec_complete.py, alg 8: no
+doubling for the P == Q case, no selects), about two thirds of the
+Jacobian mixed addition's products; the sum is returned as a Jacobian
+batch, the same points.
 """
 
 from __future__ import annotations
@@ -13,7 +18,22 @@ from __future__ import annotations
 import torch
 
 from gnark_tpu_torch.ops.ec import CurveOps
-from gnark_tpu_torch.ops.msm import window_digits
+from gnark_tpu_torch.ops.msm import complete_ops, window_digits
+
+
+# A table entry (a host point addition) costs about as much as 60-100
+# columns of a window on the card: BN254's two tables at c = 8 (16,320
+# entries) took 0.69 s on an H100's host, a window 0.24 us a G1 and 0.97
+# us a G2 column at 2^21 points (chip_smoke.py phase 14)
+ENTRY_COLUMNS = 85
+
+
+def window_width(n: int, scalar_bits: int) -> int:
+    """The window width c in 8..13 that makes an n-point batch cheapest:
+    nwin(c) windows of n columns each, and nwin(c) 2^c host table
+    entries.  8 below about 2^17 points, 12 at 2^21."""
+    return min(range(8, 14), key=lambda c: -(-scalar_bits // c) * (
+        n + ENTRY_COLUMNS * (1 << c)))
 
 
 class FixedBaseTable:
@@ -45,12 +65,12 @@ class FixedBaseTable:
 
     def __call__(self, scalars):
         """scalars: [Ls, n] regular-form limb planes -> Jacobian batch."""
-        G = self.G
+        GC = complete_ops(self.G)
         n = scalars.shape[-1]
         digits = window_digits(scalars, self.c)[:self.nwin]   # [nwin, n]
-        acc = G.inf(n, scalars.device)
+        acc = GC.inf(n, scalars.device)
         for w in range(self.nwin):
             d = digits[w]
-            acc = G.add_mixed(acc, (self.tx[w][:, d], self.ty[w][:, d]),
-                              self.tinf[w][d])
-        return acc
+            acc = GC.add_mixed(acc, (self.tx[w][:, d], self.ty[w][:, d]),
+                               self.tinf[w][d])
+        return GC.to_jacobian(acc)

@@ -20,6 +20,10 @@ negation):
      boundaries (searchsorted and row gathers, plain torch);
   5. S_w = sum_b b * bucket_b by a halving fold                 [kernel]
 then a Horner fold over the windows                             [kernel].
+Steps 1-5 run on the windows in chunks (gnark_tpu's window chunking,
+msm.py:248-285): a chunk's sorted points and leaf rows, about
+n_pad x 5L int64 a window, stay under a share of the card's memory, and
+its intermediates are released before the next chunk starts.
 
 Each kernel wrapper runs its plain PyTorch version when given CPU tensors
 and launches the CUDA kernel (ops/_cuda.py) when given CUDA tensors; any
@@ -110,15 +114,17 @@ def _count_plain(t, name):
 
 # ---- kernel 1: leaf prefix ------------------------------------------------
 
-def leaf_prefix_plain(sx, sy, GC: CompleteOps):
+def leaf_prefix_plain(sx, sy, GC: CompleteOps, acc=None):
     """sx, sy: [nw, C, L, R], sorted position r*C + cs at [w, cs, :, r];
     bit 16 of y limb 0 flags infinity, bit 17 a negative digit.
     Returns rows [nw, C*R, 3L]: row cs*R + r is the running sum of lane r
-    after step cs."""
+    after step cs, from ``acc`` ([3L, nw, R] projective; the identity by
+    default)."""
     _count_plain(sx, "leaf_prefix")
     F = GC.F
     nw, C, L, R = sx.shape
-    acc = GC.inf((nw, R), sx.device)
+    acc = (GC.inf((nw, R), sx.device) if acc is None
+           else split_points(acc, L))
     out = []
     for cs in range(C):
         px = sx[:, cs].permute(1, 0, 2)
@@ -377,13 +383,52 @@ def ladder_msm(G: CurveOps, xs, ys, inf_mask, scalars):
 
 # ---- the windowed plan ---------------------------------------------------------
 
+def _call(_name, fn):
+    return fn()
+
+
+def window_bytes(n_pad: int, L: int) -> int:
+    """A window's live bytes in a chunk: its leaf rows [n_pad, 3L] beside
+    its sorted points sx, sy [n_pad, L] each, int64."""
+    return n_pad * 5 * L * 8
+
+
+# The share of the card's memory one chunk's windows may take.  The rest
+# holds what lives beside a chunk: the proving key (3.2 GB at 2^21 BN254
+# points), the plan's padded inputs, point rows and digits (about
+# n_pad x (4L + 2 nwin) int64), the sort's and the bucket additions'
+# temporaries, and blocks the caching allocator keeps from earlier MSMs
+# of other shapes.  Half of an 80 GB card runs a 2^21-point G1 MSM (25.5
+# GB) in one chunk and BN254's G2 (51 GB) in two.
+MEMORY_SHARE = 0.5
+
+
+def memory_cap(total_memory: int) -> int:
+    """Bytes one chunk's windows may take on a card of ``total_memory``."""
+    return int(MEMORY_SHARE * total_memory)
+
+
+def window_chunks(nwin: int, per_window: int, cap: int | None):
+    """[(w0, w1)]: the windows in chunks of at most ``cap`` bytes at
+    ``per_window`` each, balanced as gnark_tpu balances them (msm.py:
+    270-277: 17 + 15 -> 16 + 16), the last chunk the smaller; one chunk
+    when ``cap`` is None."""
+    wmax = nwin if cap is None else max(1, cap // per_window)
+    nchunks = -(-nwin // wmax)
+    wchunk = -(-nwin // nchunks)
+    return [(w0, min(nwin, w0 + wchunk)) for w0 in range(0, nwin, wchunk)]
+
+
 class MSM:
     """A signed windowed MSM plan for a fixed (curve ops, n, c, lanes).
 
-    The plan holds no device: it runs where its inputs live."""
+    The plan holds no device: it runs where its inputs live, its windows
+    in chunks under ``max_bytes`` when given, else under ``memory_cap``
+    of a CUDA input's card (one chunk on the CPU)."""
 
     def __init__(self, G: CurveOps, n: int, scalar_limbs: int,
-                 c: int | None = None, lanes: int | None = None):
+                 c: int | None = None, lanes: int | None = None,
+                 max_bytes: int | None = None):
         self.G = G
         self.GC = complete_ops(G)
         self.n = n
@@ -398,6 +443,16 @@ class MSM:
         self.nb = 1 << (self.c - 1)
         self.C = -(-n // self.R)
         self.n_pad = self.C * self.R
+        self.max_bytes = max_bytes
+
+    def chunks(self, device) -> list:
+        """[(w0, w1)]: the window ranges this plan runs on ``device``."""
+        cap = self.max_bytes
+        if cap is None and torch.device(device).type == "cuda":
+            cap = memory_cap(
+                torch.cuda.get_device_properties(device).total_memory)
+        return window_chunks(self.nwin, window_bytes(self.n_pad, self.G.F.L),
+                             cap)
 
     def __call__(self, xs, ys, inf_mask, scalars):
         """xs, ys: [L, n] affine Montgomery coordinates; inf_mask: [n]
@@ -405,17 +460,37 @@ class MSM:
         point (coordinates [L, 1])."""
         return self.run(xs, ys, inf_mask, scalars, WRAPPERS)
 
-    def run(self, xs, ys, inf_mask, scalars, impl):
+    def run(self, xs, ys, inf_mask, scalars, impl, step=None):
         """The plan with the four steps taken from ``impl`` (WRAPPERS, or
-        PLAIN to time the plain versions on a device)."""
+        PLAIN to time the plain versions on a device): recode once, the
+        windows chunk by chunk (sort and gather, the leaf, the lane
+        offsets, the buckets and the weighted sum, each intermediate
+        released once the next step has read it), then one Horner fold
+        over every window's sum.  A window's sum does not depend on its
+        chunk, so the limbs are the one-chunk plan's.  ``step(name, fn)``,
+        when given, runs each step as ``fn()`` and returns its output (the
+        smoke run times the steps and keeps the kernels' inputs so)."""
+        step = step or _call
         leaf, lanes, wsum, horner = impl
-        ptrows, digits, signs = self._prep_window(xs, ys, inf_mask, scalars)
-        sx, sy, d_sorted = self._sort_gather(ptrows, digits, signs)
-        rows = leaf(sx, sy, self.GC)
-        offs = lanes(self.lane_totals(rows), self.GC)
-        S = wsum(self._buckets(rows, offs, d_sorted), self.GC)
-        P = horner(S, self.c, self.GC)
-        return self.GC.to_jacobian(split_points(P, self.G.F.L))
+        GC = self.GC
+        ptrows, digits, signs = step("recode", lambda: self._prep_window(
+            xs, ys, inf_mask, scalars))
+        S = []
+        for w0, w1 in self.chunks(xs.device):
+            sx, sy, ds = step("sort_gather", lambda: self._sort_gather(
+                ptrows, digits[w0:w1], signs[w0:w1]))
+            rows = step("leaf_prefix", lambda: leaf(sx, sy, GC))
+            del sx, sy
+            offs = step("lane_offsets", lambda: lanes(
+                self.lane_totals(rows), GC))
+            bk = step("buckets", lambda: self._buckets(rows, offs, ds))
+            del rows, offs, ds
+            S.append(step("weighted_sum", lambda: wsum(bk, GC)))
+            del bk
+        S = torch.cat(S, 1)
+        P = step("horner_fold", lambda: horner(S, self.c, GC))
+        return step("to_jacobian", lambda: GC.to_jacobian(
+            split_points(P, self.G.F.L)))
 
     def lane_totals(self, rows):
         """Leaf rows -> [3L, nw, R] lane totals (the rows of step C-1)."""

@@ -171,3 +171,21 @@ def test_fixed_base_matches_host_scalar_mul(kind):
     sc = torch.from_numpy(ints_to_limbs(scalars, BN254.fr.L).astype(np.int64))
     got = points_to_host(G, table(sc))
     assert got == [H.scalar_mul(gen, s) for s in scalars]
+
+
+def test_fixed_base_window_width_and_a_wide_table():
+    """The fixed-base window width is 8 up to 2^17 points (every setup
+    measured before the 2^20 key) and 12 at 2^21; a table of 12-bit
+    windows gives the same points."""
+    from gnark_tpu_torch.ops.fixed_base import window_width
+    assert [window_width(1 << k, 256) for k in (12, 16, 17, 21)] == \
+        [8, 8, 8, 12]
+    F, b, H, gen, zero = _group("g1")
+    G = CurveOps(F, b)
+    r = BN254.fr.modulus
+    scalars = [0, 1, r - 1, (1 << 240) + 12345, 4095, 4096]
+    table = FixedBaseTable(G, H, gen, BN254.fr.L * 16, "cpu", c=12)
+    assert table.nwin == 22
+    sc = torch.from_numpy(ints_to_limbs(scalars, BN254.fr.L).astype(np.int64))
+    assert points_to_host(G, table(sc)) == [H.scalar_mul(gen, s)
+                                            for s in scalars]

@@ -120,6 +120,57 @@ def test_plan_shape_at_2e16():
     assert (plan.c, plan.nwin, plan.nb, plan.R, plan.C) == (11, 24, 1024, 512, 128)
 
 
+# the 2^20 prove's MSMs: 2^21 points (2^20 + 1 wires padded), on an 80 GB
+# card (as 10^9 and as 2^30 bytes)
+N_2E21 = 1 << 21
+CARD_80GB = [80 * 10**9, 80 << 30]
+
+
+@pytest.mark.parametrize("total", CARD_80GB, ids=["80e9", "80GiB"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_plan_shape_and_window_chunks_at_2e21(kind, total):
+    """Pure arithmetic: the 2^21-point plan is c = 14, 19 windows, 8,192
+    buckets, 512 lanes of 4,096 points.  Under half an 80 GB card a window
+    of G1 (1.34 GB) fits all 19 in one chunk, BN254's G2 (2.68 GB) and
+    BLS24-315's fp4 G2 (6.71 GB) need two or more; every chunk's windows
+    stay under the cap and the chunks are balanced (sizes differ by at
+    most one window less in the last)."""
+    G = group(kind)[0]
+    plan = M.MSM(G, N_2E21, 16)
+    assert (plan.c, plan.nwin, plan.nb, plan.R, plan.C, plan.n_pad) == \
+        (14, 19, 8192, 512, 4096, N_2E21)
+    per = M.window_bytes(plan.n_pad, G.F.L)
+    assert per == N_2E21 * 5 * G.F.L * 8
+    cap = M.memory_cap(total)
+    chunks = M.window_chunks(plan.nwin, per, cap)
+    assert chunks[0][0] == 0 and chunks[-1][1] == plan.nwin
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    sizes = [w1 - w0 for w0, w1 in chunks]
+    assert all(s * per <= cap for s in sizes), (sizes, per, cap)
+    assert all(s == sizes[0] for s in sizes[:-1]) and sizes[-1] <= sizes[0]
+    assert len(chunks) == -(-plan.nwin // (cap // per))
+    if kind in ("g2", "g2_bls24315"):
+        assert len(chunks) >= 2, chunks
+    if kind == "g1":
+        assert chunks == [(0, 19)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_2e16_plan_runs_one_chunk(kind):
+    """The 2^16 plan's 24 windows fit one chunk on an 80 GB card, so the
+    path measured so far does not change; with no cap (the CPU) every plan
+    runs one chunk."""
+    G = group(kind)[0]
+    plan = M.MSM(G, 1 << 16, 16)
+    per = M.window_bytes(plan.n_pad, G.F.L)
+    for total in CARD_80GB:
+        assert M.window_chunks(plan.nwin, per, M.memory_cap(total)) == \
+            [(0, 24)]
+    assert plan.chunks("cpu") == [(0, 24)]
+    assert M.window_chunks(19, 10, 10) == [(w, w + 1) for w in range(19)]
+    assert M.window_chunks(32, 1, 31) == [(0, 16), (16, 32)]
+
+
 # ---- the plain pipeline against the oracles --------------------------------
 
 
@@ -971,6 +1022,36 @@ def test_weighted_sum_wavefront_matches_plain_on_host_threads(
         shape["wsum_threads"]
     assert getattr(threaded_leaf, f"host_wsum_cluster_{kind}")() == \
         shape["wsum_cluster"]
+
+
+def _wsum_8192(run):
+    """nb = 8,192 buckets in one window, the 2^21 plan's count: the run's
+    first window's 32 buckets, then eight rounds that each append every
+    bucket plus its neighbour, a third of the result the identity."""
+    GC = run.plan.GC
+    B = M.split_points(run.bk[:, :1].contiguous(), run.G.F.L)
+    while B[0].shape[-1] < 8192:
+        B = tuple(torch.cat([a, s], -1) for a, s in zip(
+            B, GC.add(B, tuple(a.roll(1, -1) for a in B))))
+    gone = torch.arange(8192) % 3 == 1
+    B = [torch.where(gone, i, b) for i, b in zip(GC.inf((1, 8192), "cpu"), B)]
+    return torch.cat(B).contiguous()
+
+
+def test_weighted_sum_wavefront_at_2e21_plan_buckets_on_host_threads(
+        runs, threaded_leaf):
+    """BN254 G1's weighted sum at the 2^21 plan's 8,192 buckets (37 steps
+    of the wavefront; the card's runs so far reached 28 at 1,024), one
+    window, its cluster on host threads at the shipped shape, bit for bit
+    against the plain version."""
+    run = runs["g1"]
+    bk = _wsum_8192(run)
+    assert bk.shape == (48, 1, 8192)
+    want = M.weighted_sum_plain(bk, run.plan.GC)
+    out = torch.empty_like(want)
+    assert threaded_leaf.host_wsum_threads_g1(_ptr(bk), _ptr(out), 1,
+                                              8192) == 0
+    assert torch.equal(out, want)
 
 
 # the fp4 weighted sum's and reduction's trial shapes in the threaded
