@@ -72,9 +72,9 @@ main paths once, at the sizes the repo has always measured:
      version; then G1's and G2's 2^16 MSM against the host oracle, with
      the milliseconds of each of its steps, as phase 4 prints BN254's;
   9. Groth16 over the other five curves, routed as gnark_tpu routes them:
-     MiMC chains that fill a domain of 2^15 over BLS12-381 and BLS12-377
-     (BASELINE config 4's curves, cut from 2^16 to make room for phase
-     14) and of 2^16 over BLS24-315, a 12-hash chain over
+     MiMC chains that fill a domain of 2^14 over BLS12-381 and BLS12-377
+     (BASELINE config 4's curves, cut from 2^16 to make room for phases
+     12 and 14) and of 2^16 over BLS24-315, a 12-hash chain over
      BLS24-315 (its ladder), and chains in a domain of 2^12 over BW6-761
      and BW6-633.  Setup on the card (the key points on the native core
      where fp has 24 or more 16-bit limbs), a cold and a warm prove each:
@@ -87,7 +87,7 @@ main paths once, at the sizes the repo has always measured:
      plan that phase 8 checks), verify, reject a wrong public input;
  11. serialization: the keys that phases 5, 6 and 9 served (the 2^16 MiMC
      Groth16 key and the 2^16 PLONK key over BN254, the 2^16 BLS24-315 and
-     BLS12-381 Groth16 keys) written to files and read back onto the card
+     2^14 BLS12-381 Groth16 keys) written to files and read back onto the card
      (safe=False, then safe=True), each proving the in-memory key's proof
      bytes with its rng, cold and warm; proof and verifying key through
      bytes, verify, reject a wrong public input; each constraint system
@@ -96,11 +96,15 @@ main paths once, at the sizes the repo has always measured:
      (native route) and BLS24-315 (its ladder, reduction and fold, G1 and
      fp4 G2), carried as bytes, satisfy the in-circuit Groth16 verifiers
      over BW6-761 (92,555 constraints) and BW6-633 (177,631), which refuse
-     a wrong inner public input; BW6-761's outer key (native route, domain
-     2^17) proves once, verifies and rejects a wrong input.  The inner
-     keys' setup and the verifiers' compiles run while nvcc builds the
-     kernels, the outer key's setup beside phases 2-11: none needs a
-     kernel;
+     a wrong inner public input; each verifier's outer key (native route:
+     BW6-761 at domain 2^17, BW6-633 at 2^18) proves once, launching no
+     kernel, verifies and rejects a wrong input; the two outer proves run
+     side by side on two host threads while the main thread refuses the
+     wrong inner inputs; the host memory after it.  The inner keys' setup
+     and the verifiers' compiles run while nvcc builds the kernels, the
+     two outer keys' setups, one after the other in one worker thread,
+     beside phases 2-11 (phase 12 prints how long it waited for each):
+     none needs a kernel;
  13. the mesh prover (parallel/): phase 5's 2^16 MiMC key and system go
      through key_io and cs_io to two ranks spawned on the one card
      (gloo: two NCCL ranks on one device are refused, so the collectives
@@ -297,6 +301,17 @@ def ptxas_summary(report):
             out.append(f"{name}: {m.group(1)} registers; {props}")
             name = None
     return out
+
+
+def host_memory():
+    """This process's resident set (VmRSS of /proc/self/status) and its
+    peak (getrusage's ru_maxrss), in GiB."""
+    import resource
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return f"resident {rss / 2**20:.2f} GiB, peak {peak / 2**20:.2f} GiB"
 
 
 def sync():
@@ -1470,14 +1485,15 @@ def phase_bls24_kernels(device, rates):
 # Groth16 over the other curves: request -> (curve, MiMC hashes, MSM
 # points).  The chains fill their domain about as BN254's 178 hashes fill
 # 2^16 (BLS12-377's MiMC takes the inverse round: 62 constraints a hash,
-# not 330); BLS12's at 2^15 (29,305 and 29,327 constraints; 2^16 took
-# 176 and 947 hashes), their native-route MSMs on one host thread the
-# time that phase 14 needs; BLS24-315's 12-hash chain is its small
+# not 330); BLS12's at 2^14 (14,653 and 14,633 constraints; 2^16 took
+# 176 and 947 hashes, 2^15 88 and 473), their native-route MSMs on one
+# host thread the time that phases 12 (the BW6-633 outer proof) and 14
+# need; BLS24-315's 12-hash chain is its small
 # request (the ladder); the BW6 curves' at 2^12, their host MSMs over
 # 761- and 633-bit fp setting the cut.
 CURVE_GROTH16 = {
-    "bls12_381 mimc": ("bls12_381", 88, N_MSM // 2),
-    "bls12_377 mimc": ("bls12_377", 473, N_MSM // 2),
+    "bls12_381 mimc": ("bls12_381", 44, N_MSM // 4),
+    "bls12_377 mimc": ("bls12_377", 236, N_MSM // 4),
     "bls24_315 mimc": ("bls24_315", 180, N_MSM),
     "bls24_315 mimc12": ("bls24_315", 12, N_LADDER),
     "bw6_761 mimc": ("bw6_761", 9, N_BW6),
@@ -1815,9 +1831,9 @@ def phase_serialization(device, keys):
 
 
 # one-layer recursion: inner curve -> (outer curve, constraints of the
-# in-circuit verifier, whether its outer proof is made here)
-RECURSION = {"bls12_377": ("bw6_761", 92555, True),
-             "bls24_315": ("bw6_633", 177631, False)}
+# in-circuit verifier, the outer key's domain)
+RECURSION = {"bls12_377": ("bw6_761", 92555, 1 << 17),
+             "bls24_315": ("bw6_633", 177631, 1 << 18)}
 
 
 def recursion_circuit(vk):
@@ -1886,23 +1902,19 @@ def prepare_recursion(device):
     return prepared
 
 
-def recursion_outer_setup(device, prepared):
-    """The outer Groth16 key of each verifier that RECURSION proves,
-    through the card's entry point (the native route: the QAP and the key
-    points on the native core, single-threaded, out of the GIL; no
-    kernel), with its seconds.  It runs in a thread beside phases 2-11."""
+def recursion_outer_setup(device, prepared, inner):
+    """The outer Groth16 key of ``inner``'s verifier, through the card's
+    entry point (the native route: the QAP and the key points on the
+    native core, single-threaded, out of the GIL; no kernel), with its
+    seconds.  Both keys run in one worker thread beside phases 2-11."""
     from gnark_tpu_torch.backend import groth16
     from gnark_tpu_torch.curves import ALL_CURVES
-    keys = {}
-    for inner, (outer, _, outer_proof) in RECURSION.items():
-        if outer_proof:
-            ocurve = ALL_CURVES[outer]
-            assert groth16.native_route(ocurve)
-            t0 = time.perf_counter()
-            pk, vk = groth16.setup(prepared[inner][3], ocurve,
-                                   rng=random.Random(11), device=device)
-            keys[inner] = (pk, vk, time.perf_counter() - t0)
-    return keys
+    ocurve = ALL_CURVES[RECURSION[inner][0]]
+    assert groth16.native_route(ocurve)
+    t0 = time.perf_counter()
+    pk, vk = groth16.setup(prepared[inner][3], ocurve,
+                           rng=random.Random(11), device=device)
+    return pk, vk, time.perf_counter() - t0
 
 
 def phase_recursion(device, prepared, outer_keys):
@@ -1910,26 +1922,32 @@ def phase_recursion(device, prepared, outer_keys):
     proof made on the card (BLS12-377: the quotient's NTTs on the card,
     MSMs on the native core; BLS24-315: its ladder, reduction and Horner
     fold for G1 and fp4 G2), carried as bytes; the in-circuit verifier of
-    phase 12's prepared system solved with it by the native solver, a
-    wrong inner public input refused; for BLS12-377 the outer BW6-761
-    Groth16 key (``recursion_outer_setup``: native route, domain 2^17)
-    proved once, verified, a wrong public input rejected.  The launch
-    counts are taken over all of it."""
+    phase 12's prepared system solved with it by the native solver; then
+    the outer Groth16 keys (``outer_keys``: the background worker's
+    futures of ``recursion_outer_setup``, on the native route, BW6-761 at
+    domain 2^17, BW6-633 at 2^18) prove with rng 12, as the reference's
+    tests, both at once on two host threads, each MSM on the native
+    core's one thread, while this thread has the solver refuse each wrong
+    inner public input.  The outer proves launch no kernel; each
+    verifies, a wrong public input rejected.  The launch counts are taken
+    over all of it."""
     from gnark_tpu_torch.backend import groth16, serialize, solver
     from gnark_tpu_torch.curves import ALL_CURVES
     from gnark_tpu_torch.ops import _cuda
     from gnark_tpu_torch.ops import msm as M
 
+    tags = {inner: f"[recursion {inner} in {outer}]"
+            for inner, (outer, _, _) in RECURSION.items()}
     seen = []
     orig = watch_compute_h(groth16, seen)
     _cuda.reset_launches()
     for k in M.plain_on_cuda:
         M.plain_on_cuda[k] = 0
+    witnesses, keys = {}, {}
     try:
-        for inner, (outer, _, outer_proof) in RECURSION.items():
+        for inner, tag in tags.items():
             cs_in, pk_in, vk_c, cs = prepared[inner]
             curve = ALL_CURVES[inner]
-            tag = f"[recursion {inner} in {outer}]"
             before = dict(_cuda.launches)
             timings = {}
             t0 = time.perf_counter()
@@ -1947,32 +1965,52 @@ def phase_recursion(device, prepared, outer_keys):
             assert groth16.verify(proof_c, vk_c, [35])
             assert not groth16.verify(proof_c, vk_c, [36])
 
-            w = recursion_witness(proof_c, 35)
+            w = witnesses[inner] = recursion_witness(proof_c, 35)
             t0 = time.perf_counter()
             solver.solve(cs, w)
-            t_solve = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            assert not solver.is_solved(cs, [36] + w[1:]), \
-                f"{tag}: a wrong inner public input is accepted"
             log(f"{tag} the {len(pblob)}-byte inner proof satisfies the "
-                f"verifier: solve {t_solve:.2f} s (native solver); inner "
-                f"public input 36 refused {time.perf_counter() - t0:.2f} s")
-            if not outer_proof:
-                continue
-            pk, vk, t_setup = outer_keys[inner]
-            log(f"{tag} outer setup {t_setup:.2f} s (beside phases 2-11), "
-                f"key points on the native core (domain {pk.domain_n}, "
-                f"n_pad {pk.n_pad})")
+                f"verifier: solve {time.perf_counter() - t0:.2f} s (native "
+                f"solver)")
+
+            t0 = time.perf_counter()
+            pk, vk, t_setup = outer_keys[inner].result()
+            log(f"{tag} outer setup {t_setup:.2f} s (beside phases 2-11; "
+                f"phase 12 waited {time.perf_counter() - t0:.2f} s for "
+                f"it), key points on the native core (domain "
+                f"{pk.domain_n}, n_pad {pk.n_pad})")
             assert pk.device == device
-            assert pk.domain_n == 1 << 17, pk.domain_n
-            before = dict(_cuda.launches)
+            assert pk.domain_n == RECURSION[inner][2], pk.domain_n
+            keys[inner] = pk, vk
+
+        def outer_prove(inner):
             timings = {}
             t0 = time.perf_counter()
-            oproof = groth16.prove(cs, pk, w, rng=random.Random(12),
-                                   timings=timings)
-            log(f"{tag} outer prove {time.perf_counter() - t0:.2f} s: "
+            proof = groth16.prove(prepared[inner][3], keys[inner][0],
+                                  witnesses[inner], rng=random.Random(12),
+                                  timings=timings)
+            return proof, time.perf_counter() - t0, timings
+
+        before = dict(_cuda.launches)
+        t_outer = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(tags)) as pool:
+            futures = {inner: pool.submit(outer_prove, inner)
+                       for inner in tags}
+            for inner, w in witnesses.items():
+                t0 = time.perf_counter()
+                assert not solver.is_solved(prepared[inner][3],
+                                            [36] + w[1:]), \
+                    f"{tags[inner]}: a wrong inner public input is accepted"
+                log(f"{tags[inner]} inner public input 36 refused "
+                    f"{time.perf_counter() - t0:.2f} s (beside the outer "
+                    f"proves)")
+            outs = {inner: f.result() for inner, f in futures.items()}
+        log(f"[recursion] both outer proves and the refusals "
+            f"{time.perf_counter() - t_outer:.2f} s")
+        assert dict(_cuda.launches) == before, "native route launched"
+        for inner, (oproof, total, timings) in outs.items():
+            tag, vk = tags[inner], keys[inner][1]
+            log(f"{tag} outer prove {total:.2f} s (beside the other): "
                 + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
-            assert dict(_cuda.launches) == before, "native route launched"
             t0 = time.perf_counter()
             assert groth16.verify(oproof, vk, [35]), f"{tag}: no verify"
             t_verify = time.perf_counter() - t0
@@ -1982,7 +2020,7 @@ def phase_recursion(device, prepared, outer_keys):
                 f"rejected")
     finally:
         groth16.compute_h = orig
-    assert len(seen) == 3 and all(seen), seen
+    assert len(seen) == 4 and all(seen), seen
     assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
     launches = {k: v for k, v in _cuda.launches.items() if v}
     log(f"[recursion] launches: {launches}; compute_h on CUDA tensors in "
@@ -2497,9 +2535,10 @@ def main():
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     log(f"[env] native solver library: {solver_lib()._name}")
+    log(f"[env] host CPU cores: {os.cpu_count()}")
     t0 = time.perf_counter()
     # phase 12's host side needs no kernel: it runs while nvcc builds them,
-    # and its outer key's setup beside phases 2-11
+    # and its outer keys' setups, one after the other, beside phases 2-11
     pool = concurrent.futures.ThreadPoolExecutor(1)
     build = pool.submit(_cuda.build_all)
     prepared = prepare_recursion(device)
@@ -2507,7 +2546,9 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     build.result()
     log(f"[env] nvcc builds, side by side, {time.perf_counter() - t0:.1f} s")
-    outer_keys = pool.submit(recursion_outer_setup, device, prepared)
+    outer_keys = {inner: pool.submit(recursion_outer_setup, device,
+                                     prepared, inner)
+                  for inner in RECURSION}
     pool.shutdown(wait=False)
     for name, info in _cuda.build_info.items():
         log(f"[env] nvcc {name} {info['seconds']:.1f} s: {info['command']}")
@@ -2554,8 +2595,9 @@ def main():
         groth16_served, plonk_served, curves_served))
     log(f"[phase] serialization {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    l_recursion = phase_recursion(device, prepared, outer_keys.result())
+    l_recursion = phase_recursion(device, prepared, outer_keys)
     log(f"[phase] recursion {time.perf_counter() - t0:.1f} s")
+    log(f"[recursion] host memory after phase 12: {host_memory()}")
     t0 = time.perf_counter()
     l_sharded, l_sharded_msm = phase_sharded(device, groth16_served)
     log(f"[phase] sharded {time.perf_counter() - t0:.1f} s")

@@ -341,7 +341,7 @@ def test_groth16_host_mode_equals_jax(name):
     assert not tg.verify(proof, tvk, [34])
 
 
-@pytest.mark.parametrize("name", ["bls12_381", "bw6_761"])
+@pytest.mark.parametrize("name", ["bls12_381", "bw6_761", "bw6_633"])
 def test_groth16_device_path_on_cpu_equals_jax(name):
     """gnark_tpu's native route (fp.L >= 24): the key points on the
     native core, the quotient on the device, the five MSMs on the native

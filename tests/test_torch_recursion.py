@@ -11,7 +11,9 @@
     docs/PERF.md records);
   * the port's solver and engine accept the inner proof with its public
     input 35 and refuse 36;
-  * both packages' ``register_hints`` give the same uuid set.
+  * both packages' ``register_hints`` give the same uuid set;
+  * under ``-m slow``, the outer BW6-761 Groth16 key and proof at domain
+    2^17 (setup rng 11, prove rng 12) equal gnark_tpu's.
 
 The verifier systems are built once for the module.  Tolerance: none;
 field elements, points and bytes compare exactly.
@@ -32,7 +34,8 @@ import gnark_tpu_torch.std.algebra.sw_bls12377 as torch_sw
 from gnark_tpu_torch.curves import BLS12_377
 from gnark_tpu_torch.std.groth16_bls12377 import _gt_to_tower
 from torch_recursion_cases import (
-    JAX, PORT, assignment, verifier_systems, witness)
+    JAX, PORT, assert_outer_proofs_equal, assignment, verifier_systems,
+    witness)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FP, FR = BLS12_377.fp.modulus, BLS12_377.fr.modulus
@@ -121,6 +124,14 @@ def test_port_engine_accepts_35_and_refuses_36(systems):
     with pytest.raises(Exception):
         PORT.engine.is_solved(cls(), assignment(cls, proof, 36),
                               PORT.curves.BW6_761)
+
+
+@pytest.mark.slow
+def test_outer_proof_equals_jax(systems):
+    """The reference's ``test_outer_proof_end_to_end`` in both packages
+    (setup rng 11, prove rng 12, domain 2^17): the port's outer
+    key and proof equal gnark_tpu's."""
+    assert_outer_proofs_equal(systems)
 
 
 # Both registries are whole-process state (``hints.all_registered()``): a

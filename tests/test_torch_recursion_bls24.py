@@ -10,7 +10,9 @@
     gnark_tpu's inner cubic proof, is the same system, byte for byte
     (``cs_io``'s bytes, held by their SHA-256; 177,631 constraints);
   * the port's solver and engine accept the inner proof with its public
-    input 35 and refuse 36.
+    input 35 and refuse 36;
+  * under ``-m slow``, the outer BW6-633 Groth16 key and proof at domain
+    2^18 (setup rng 11, prove rng 12) equal gnark_tpu's.
 
 The verifier systems are built once for the module.  Tolerance: none;
 field elements, points and bytes compare exactly.
@@ -28,7 +30,8 @@ from gnark_tpu_torch.backend import hints as torch_hints
 from gnark_tpu_torch.curves import BLS24_315
 from gnark_tpu_torch.std.groth16_bls24315 import _gt_to_tower
 from torch_recursion_cases import (
-    JAX, PORT, assignment, verifier_systems, witness)
+    JAX, PORT, assert_outer_proofs_equal, assignment, verifier_systems,
+    witness)
 
 FP, FR = BLS24_315.fp.modulus, BLS24_315.fr.modulus
 SEED = 37
@@ -118,3 +121,14 @@ def test_port_engine_accepts_35_and_refuses_36(systems):
     with pytest.raises(Exception):
         PORT.engine.is_solved(cls(), assignment(cls, proof, 36),
                               PORT.curves.BW6_633)
+
+
+@pytest.mark.slow
+def test_outer_proof_equals_jax(systems):
+    """The reference's ``test_outer_proof_end_to_end`` in both packages
+    (setup rng 11, prove rng 12, domain 2^18): the port's outer key and
+    proof equal gnark_tpu's.  gnark_tpu proves in its host mode: in its
+    device mode the quotient's XLA CPU compile (transforms of 2^18 points
+    of 20 limbs) aborted the process ("LLVM ERROR: Unable to allocate
+    section memory") with most of the host's memory free."""
+    assert_outer_proofs_equal(systems, reference_host=True)

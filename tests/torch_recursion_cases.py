@@ -47,6 +47,8 @@ JAX = _package(jax_schema, jax_compile, jax_curves, jax_groth16, jax_cs_io,
                jax_solver, jax_engine, jax_v12, jax_v24)
 
 OUTER = {"bls12_377": "bw6_761", "bls24_315": "bw6_633"}
+# the outer key's domain (and n_pad) of each verifier
+OUTER_DOMAIN = {"bls12_377": 1 << 17, "bls24_315": 1 << 18}
 
 
 def inner_proof(inner):
@@ -141,3 +143,44 @@ def verifier_systems(inner):
         if P is JAX:
             del cs
     return cls, cs, digests, vk, proof
+
+
+def assert_outer_proofs_equal(systems, reference_host=False):
+    """The outer Groth16 proof of the verifier over gnark_tpu's inner
+    proof, made by each package as the reference's
+    ``test_outer_proof_end_to_end`` makes it: setup over the outer curve
+    with rng 11, prove with rng 12, verify the public input 35, reject 36.
+    The port's goes through its device entry points with the CPU as the
+    device (the native route: key points and MSMs on the native core, the
+    quotient's NTTs on the device); gnark_tpu's from its own compile of
+    the same circuit, on its default device (the JAX CPU), or with
+    ``reference_host`` in its host mode (the quotient on host ints; the
+    same rng draws, so the same key and proof).  The two verifying keys
+    and the two proofs are equal."""
+    cls, cs, _, vk_in, proof_in = systems
+    inner = vk_in.curve.name
+    outer = OUTER[inner]
+    curve = PORT.curves.ALL_CURVES[outer]
+    pk, vk = PORT.groth16.setup(cs, curve, rng=random.Random(11),
+                                device="cpu")
+    assert PORT.groth16.native_route(curve) and not pk.host
+    assert pk.domain_n == pk.n_pad == OUTER_DOMAIN[inner]
+    proof = PORT.groth16.prove(cs, pk, witness(PORT, cls, proof_in, 35),
+                               rng=random.Random(12))
+    assert PORT.groth16.verify(proof, vk, [35])
+    assert not PORT.groth16.verify(proof, vk, [36])
+    del pk
+
+    jcls = recursion_circuit(JAX, vk_in)
+    jcs = JAX.compile(jcls(), JAX.curves.ALL_CURVES[outer])
+    jpk, jvk = JAX.groth16.setup(jcs, JAX.curves.ALL_CURVES[outer],
+                                 rng=random.Random(11), host=reference_host)
+    jproof = JAX.groth16.prove(jcs, jpk, witness(JAX, jcls, proof_in, 35),
+                               rng=random.Random(12))
+    assert JAX.groth16.verify(jproof, jvk, [35])
+    assert not JAX.groth16.verify(jproof, jvk, [36])
+    for f in ("alpha_g1", "beta_g2", "gamma_g2", "delta_g2", "K",
+              "e_alpha_beta"):
+        assert getattr(vk, f) == getattr(jvk, f), f
+    assert (proof.ar, proof.bs, proof.krs) == \
+        (jproof.ar, jproof.bs, jproof.krs)
