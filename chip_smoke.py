@@ -3,9 +3,10 @@
     python3 chip_smoke.py [--profile] [--trace] [--sass[=DIR]]
 
 Builds the CUDA kernels (BN254's MSM library, BLS24-315's G1 and G2
-libraries and the microbenchmark, the four compilers side by side) and the
-native host core from the sources in this checkout, and drives the port's
-main paths once, at the sizes the repo has always measured:
+libraries, the quotient's NTT library and the microbenchmark, the five
+compilers side by side) and the native host core from the sources in this
+checkout, and drives the port's main paths once, at the sizes the repo has
+always measured:
 
   1. environment: the card's name and power limit, torch and CUDA versions,
      the native solver library, the nvcc build times;
@@ -27,7 +28,15 @@ main paths once, at the sizes the repo has always measured:
      the fold of the chunk sums at the 4096 points of the small proof
      below, for G2 also at 2^16 points (the ladder's plain version on
      4096 points spread over all of them), and the G1 leaf also at the
-     PLONK commitment's 2^16 + 3 points.  The Horner fold, a chain of
+     PLONK commitment's 2^16 + 3 points.  Then the quotient's kernels
+     (csrc/ntt_kernels.cu) over each of the six scalar fields: the stage
+     kernel over whole transforms of all eight shapes (forward and
+     inverse, DIF and DIT, plain and coset), one launch a butterfly stage,
+     and the pointwise step (a b - c) d, against the plain versions, bit
+     for bit, p - 1, 0 and 1 among the inputs, with both times and the
+     bound by issue rate and by bytes: BN254's fr at 2^16, the other five
+     at 2^12 (and each at its paths' largest sizes after phase 13, as
+     below).  The Horner fold, a chain of
      point operations, the leaf prefix, a chain of mixed additions a
      thread group, the lane offsets, a Brent-Kung scan of 2K - 1 steps,
      and the weighted sum, a wavefront over the halving fold's dependency
@@ -97,8 +106,9 @@ main paths once, at the sizes the repo has always measured:
      fp4 G2), carried as bytes, satisfy the in-circuit Groth16 verifiers
      over BW6-761 (92,555 constraints) and BW6-633 (177,631), which refuse
      a wrong inner public input; each verifier's outer key (native route:
-     BW6-761 at domain 2^17, BW6-633 at 2^18) proves once, launching no
-     kernel, verifies and rejects a wrong input; the two outer proves run
+     BW6-761 at domain 2^17, BW6-633 at 2^18) proves once, launching its
+     quotient's NTT kernels and no MSM kernel, verifies and rejects a
+     wrong input; the two outer proves run
      side by side on two host threads while the main thread refuses the
      wrong inner inputs; the host memory after it.  The inner keys' setup
      and the verifiers' compiles run while nvcc builds the kernels, the
@@ -117,9 +127,20 @@ main paths once, at the sizes the repo has always measured:
      then proves the chain on the mesh, cold and warm, with rng 7: each
      rank's proof is phase 5's bytes, verified and a wrong public input
      rejected.  A rank that fails, or has not joined within
-     SHARDED_JOIN_S, fails the run;
+     SHARDED_JOIN_S, fails the run.  Then the quotient's kernels at the
+     sizes the paths gave them: every Domain.fft / ifft and pointwise
+     step that phases 5-12 ran on the card is recorded by kind, shape and
+     size (``watch_ntt``), and each kind's shapes are held against the
+     plain versions, bit for bit, at the largest size a path ran them at
+     where phase 3 did not (the BLS12 and BLS24-315 PLONK quotient
+     domains of 2^16, BN254's of 2^18, the BW6 outer proves' 2^17 and
+     2^18); at the end every shape and pointwise step the paths ran must
+     have been held at its largest size (``check_ntt_held``);
  14. the 2^20 Groth16 prove (BASELINE configs 1 and 4's headline, on
-     BN254), once the earlier phases' keys are released: the four windowed
+     BN254), once the earlier phases' keys are released: the quotient's
+     kernels at 2^20 (compute_h's three transform shapes and its
+     pointwise step) against their plain versions, bit for bit; the four
+     windowed
      kernels against their plain versions at the plan of its MSMs (2^21
      points: c = 14, 19 windows, 8,192 buckets, R = 512, C = 4,096), G1
      and G2, bit for bit (the leaf on two of the windows, its plain
@@ -137,16 +158,25 @@ The launch counts are set to zero just before each of the ten paths (2,
 5, 6, 7, 9, 10, 11, 12, 13 and 14; in 13 in each rank, before each mesh
 prove and again before each ShardedMSM check, the unsharded comparisons
 left out) and read just after: every kernel of a path must have launched
-in it (each request of 9-12 and each mesh prove of 13 exactly the kernels
-its route names, none on the native route; in 14 a prove's four G1 MSMs
-and one G2 MSM each launch the Horner fold once and the other windowed
-kernels once a window chunk, the ladder and reduction never), and no
-plain version may run on the card there.  The kernels line's
+in it (each request of 9-12 and each mesh prove of 13 exactly the MSM
+kernels its route names, none on the native route; in 14 a prove's four
+G1 MSMs and one G2 MSM each launch the Horner fold once and the other
+windowed kernels once a window chunk, the ladder and reduction never),
+every prove of 5-14 exactly its quotient's NTT launches (``ntt_launches``:
+one a butterfly stage of each of Groth16's seven transforms and one
+pointwise step, PLONK's five transforms of n and seven of its quotient
+domain; a mesh rank's seven local transforms and its pointwise step),
+and no plain version may
+run on the card there.  The kernels line's
 ``launches`` counts the paths' requests and proves; ``launches_sharded``
 is phase 13's, split into its mesh proves' (``launches_sharded_prove``)
 and its ShardedMSM checks' (``launches_sharded_msm``, the only ladder
 shards of the phase); ``launches_2e20`` is phase 14's, and the rows
-named ``<kernel>_<kind>_2e21`` are the kernels at the 2^21 plan.
+named ``<kernel>_<kind>_2e21`` are the kernels at the 2^21 plan,
+``ntt_fr_bn254_2e20`` and ``fr_pointwise_fr_bn254_2e20`` the quotient's
+at 2^20 (launched on the 2^20 path alone), the other
+``<kernel>_<kind>_2e<k>`` rows the quotient's at the paths' largest
+sizes; an NTT row's ``launches_<path>`` are its launches on each path.
 
 ``--profile`` adds a cProfile of one more warm 2^16 Groth16 prove (host
 time by function).  ``--trace`` takes one more warm 2^16 Groth16 prove and
@@ -288,12 +318,17 @@ def ptxas_summary(report):
     its register count."""
     out, name, props = [], None, ""
     for line in report.splitlines():
-        m = re.search(r"Function properties for _Z\d+(\w+_kernel)I\d+"
-                      r"(G[12](?:Bls24)?)((?:Li\d+E)*)E", line)
+        # _Z<len><name>_kernelI<len><struct>[L{i,b}<value>E...]E...
+        m = re.search(r"Function properties for _Z\d+(\w+?_kernel)I(\d+)"
+                      r"(\w+)", line)
         if "Function properties for" in line:
-            name = (f"{m.group(1)}<" + ", ".join(
-                [m.group(2)] + re.findall(r"Li(\d+)E", m.group(3))) + ">"
-                if m else None)
+            name = None
+            if m:
+                k = int(m.group(2))
+                rest = re.match(r"((?:L[ib]\d+E)*)E", m.group(3)[k:])
+                name = f"{m.group(1)}<" + ", ".join(
+                    [m.group(3)[:k]] + re.findall(r"L[ib](\d+)E",
+                                                  rest.group(1))) + ">"
             props = ""
         elif name and "stack frame" in line:
             props = line.strip()
@@ -1043,6 +1078,294 @@ def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
             "library_ms": None, **b}
 
 
+# ---- the quotient's kernels (csrc/ntt_kernels.cu) --------------------------
+
+NTT_REPLACES = {"ntt": "gnark_tpu/ops/ntt.py:134",
+                "fr_pointwise": "gnark_tpu/backend/groth16.py:543"}
+N_NTT = 1 << 12       # the transforms over the other five fields, phase 3
+# every transform shape (inverse, order, coset), compute_h's three first:
+# the iFFT (DIF), the coset FFT (DIT), the coset iFFT (DIF)
+NTT_SHAPES = ((True, "DIF", False), (False, "DIT", True), (True, "DIF", True),
+              (False, "DIF", False), (False, "DIF", True),
+              (False, "DIT", False), (True, "DIT", False),
+              (True, "DIT", True))
+NTT_ROW_SHAPE = NTT_SHAPES[1]   # the kernels line's row: the coset FFT
+
+
+def stages(n):
+    """A transform's launches: one a butterfly stage, one at n = 1."""
+    return max(1, n.bit_length() - 1)
+
+
+def ntt_launches(curve, scheme, n):
+    """{NTT kernel: launches} of one prove over ``curve`` with domain n:
+    Groth16's quotient runs seven transforms of n and one pointwise step;
+    PLONK's prove five transforms of n (interp_lro, z, the public
+    inputs) and seven of its quotient domain (coset_evals' six,
+    interp_quotient)."""
+    kind = f"fr_{curve.name}"
+    if scheme == "groth16":
+        return {f"ntt_{kind}": 7 * stages(n), f"fr_pointwise_{kind}": 1}
+    from gnark_tpu_torch.backend.plonk import _big_domain_size
+    return {f"ntt_{kind}": 5 * stages(n) + 7 * stages(_big_domain_size(n))}
+
+
+def ntt_part(ran):
+    """The NTT kernels' entries of a launch count."""
+    from gnark_tpu_torch.ops import _cuda
+    return {k: v for k, v in ran.items()
+            if k.split("_fr_")[0] in _cuda.NTT_KERNELS}
+
+
+def check_ntt(ran, curve, scheme, n):
+    want = ntt_launches(curve, scheme, n)
+    assert ntt_part(ran) == want, (ran, want)
+
+
+def check_route(ran, curve, n_msm, n, scheme="groth16"):
+    """A prove's launches against its route: exactly the MSM kernels that
+    expected_launches names (none on the native route) and the NTT
+    kernels' exact counts."""
+    msm_kernels = set(ran) - set(ntt_part(ran))
+    assert msm_kernels == expected_launches(curve, n_msm, scheme), ran
+    check_ntt(ran, curve, scheme, n)
+
+
+def reset_plain():
+    """Set the counts of plain versions run on the card to 0: the MSM
+    kernels' and the quotient's."""
+    from gnark_tpu_torch.ops import msm as M
+    from gnark_tpu_torch.ops import ntt as N
+    for counts in (M.plain_on_cuda, N.plain_on_cuda):
+        for k in counts:
+            counts[k] = 0
+
+
+def plain_runs():
+    """The plain versions run on CUDA tensors since reset_plain."""
+    from gnark_tpu_torch.ops import msm as M
+    from gnark_tpu_torch.ops import ntt as N
+    return {k: v for counts in (M.plain_on_cuda, N.plain_on_cuda)
+            for k, v in counts.items() if v}
+
+
+def fr_spec(kind):
+    from gnark_tpu_torch.curves import ALL_CURVES
+    return ALL_CURVES[kind[3:]].fr
+
+
+def ntt_inputs(spec, n, device, rng):
+    """n seeded elements as Montgomery planes on ``device``: p - 1, 0 and 1
+    first, then uniform 16-bit limbs, the top one below p's."""
+    import torch
+    from gnark_tpu_torch.ops.limbs import field_ops
+    F, L, p = field_ops(spec), spec.L, spec.modulus
+    limbs = rng.integers(0, 1 << 16, (L, n), dtype=np.int64)
+    limbs[-1] = rng.integers(0, p >> (16 * (L - 1)), n)
+    x = F.to_mont(torch.from_numpy(limbs).to(device))
+    x[:, :3] = F.pack([p - 1, 0, 1], device)
+    return x
+
+
+def fr_bounds(spec, products, nbytes, rates):
+    """A quotient kernel's bounds, as msm_bounds gives an MSM kernel's: its
+    products' 32-bit multiplies (2 N^2 + N, N = L / 2 words) over the
+    integer issue peak, or its bytes over the memory rate; both times,
+    and the multiplies at the measured mad.wide.u32 rate."""
+    words = spec.L // 2
+    muls = products * (2 * words * words + words)
+    b_ms, by = bound(muls, rates[0], nbytes)
+    return {"bound_ms": b_ms, "bound_by": by,
+            "bound_ops_ms": muls / rates[0] * 1e3,
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_at_mad_rate": bound(muls, rates[1], nbytes)[0]}
+
+
+def compare_fr(label, spec, kern, plain, work, rates, reps):
+    """A quotient kernel against its plain version on the same CUDA
+    tensors: equal limbs, not faster than its bound; its row."""
+    import torch
+    out_k = kern()
+    sync()
+    out_p, plain_ms = wall_ms(plain)
+    err = int((out_k - out_p).abs().max())
+    assert torch.equal(out_k, out_p), f"{label}: kernel != plain"
+    ms = cuda_ms(kern, reps)
+    products, nbytes = work
+    b = fr_bounds(spec, products, nbytes, rates)
+    assert ms >= b["bound_ms"], (f"{label} beats its bound", ms, b)
+    log(f"[kernels {label}: bit-exact (tolerance 0), kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4g} ms by "
+        f"{b['bound_by']} (issue {b['bound_ops_ms']:.4g} ms for {products} "
+        f"products, bytes {b['bound_bytes_ms']:.4g} ms for {nbytes}; "
+        f"{share(b['bound_ms'] / ms)} of the bound reached; "
+        f"{b['bound_ms_at_mad_rate']:.4g} ms at the measured mad.wide.u32 "
+        f"rate)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **b}
+
+
+def ntt_rows(kind, n, device, rates, rng, shapes=NTT_SHAPES, reps=20,
+             pointwise=True):
+    """One field's transforms at n in each of ``shapes`` and, if
+    ``pointwise``, its pointwise step, each against its plain version:
+    the rows ntt_<kind> (where ``shapes`` is not empty: the coset FFT's
+    numbers where it is among them, else the first shape's; every
+    shape's under ``shapes``) and fr_pointwise_<kind>.  What it held
+    goes into NTT_HELD and PW_HELD."""
+    from gnark_tpu_torch.ops import ntt as N
+    spec = fr_spec(kind)
+    dom = N.Domain(spec, n, device)
+    x = ntt_inputs(spec, n, device, rng)
+    by_shape, row = {}, None
+    for inverse, order, coset in shapes:
+        tw, pre, post = dom.operands(inverse, order, coset)
+        name = (f"{'ifft' if inverse else 'fft'} {order}"
+                f"{' coset' if coset else ''}")
+        k = n.bit_length() - 1
+        products = (n // 2) * k + sum(n for t in (pre, post) if t is not None)
+        elems = 2 * n + n // 2 + sum(t.shape[1] for t in (pre, post)
+                                     if t is not None)
+        by_shape[name] = compare_fr(
+            f"{kind}] ntt {name} n={n}, {stages(n)} launches", spec,
+            lambda: dom.transform_kernel(x, tw, pre, post, order),
+            lambda: dom.transform_plain(x, tw, pre, post, order),
+            (products, 8 * spec.L * elems), rates, reps)
+        if row is None or (inverse, order, coset) == NTT_ROW_SHAPE:
+            row = dict(by_shape[name], shape=name, n=n)
+        NTT_HELD.setdefault((kind, (inverse, order, coset)), set()).add(n)
+    rows = {}
+    if row is not None:
+        row["shapes"] = {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms")}
+                         for k, v in by_shape.items()}
+        rows[f"ntt_{kind}"] = row
+    if not pointwise:
+        return rows
+    a, b, c = (ntt_inputs(spec, n, device, rng) for _ in range(3))
+    q = spec.modulus
+    d = dom.F.pack([pow(pow(dom.coset_gen, n, q) - 1, -1, q)], device)
+    pw = compare_fr(f"{kind}] fr_pointwise n={n}", spec,
+                    lambda: N.fr_pointwise(spec, a, b, c, d),
+                    lambda: N.fr_pointwise_plain(dom.F, a, b, c, d),
+                    (2 * n, 8 * spec.L * (4 * n + 1)), rates, reps)
+    PW_HELD.setdefault(kind, set()).add(n)
+    return dict(rows, **{f"fr_pointwise_{kind}": dict(pw, n=n)})
+
+
+def phase_ntt_kernels(device, rates):
+    """Phase 3's quotient kernels: each field's stage kernel over whole
+    transforms of every shape, and its pointwise kernel, against the
+    plain versions on the same CUDA tensors, bit for bit: BN254's fr at
+    2^16 (the 2^16 requests' domain), the other five at N_NTT."""
+    from gnark_tpu_torch.ops import _cuda
+    rows = {}
+    rng = np.random.default_rng(SEED + 19)
+    for kind in _cuda.FR_KINDS:
+        rows.update(ntt_rows(kind, N_MSM if kind == "fr_bn254" else N_NTT,
+                             device, rates, rng))
+    return rows
+
+
+# (kind, (inverse, order, coset)) -> the transform sizes that the main
+# process's paths ran on CUDA tensors, and kind -> the pointwise step's
+# (watch_ntt); the same, held against the plain version (ntt_rows).  The
+# mesh ranks of phase 13 are not watched: their transforms are BN254's at
+# 2^15 and 2^16, which phase 3 holds in all eight shapes.
+NTT_SEEN, PW_SEEN, NTT_HELD, PW_HELD = {}, {}, {}, {}
+
+
+def watch_ntt():
+    """Wrap Domain.fft / ifft and the fr_pointwise that compute_h and the
+    mesh quotient call so that each call on CUDA tensors records its kind,
+    shape and size in NTT_SEEN / PW_SEEN.  Python's set.add and
+    dict.setdefault are atomic, so the outer proves' host threads may
+    record too."""
+    from gnark_tpu_torch.backend import groth16
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import ntt as N
+    from gnark_tpu_torch.parallel import sharded_ntt
+
+    def watched(inverse, orig):
+        def transform(self, x, order="DIF", coset=False):
+            if x.is_cuda:
+                NTT_SEEN.setdefault((_cuda.fr_kind(self.spec),
+                                     (inverse, order, coset)),
+                                    set()).add(self.n)
+            return orig(self, x, order, coset)
+        return transform
+
+    N.Domain.fft = watched(False, N.Domain.fft)
+    N.Domain.ifft = watched(True, N.Domain.ifft)
+    pointwise = groth16.fr_pointwise
+
+    def watched_pointwise(spec, a, b, c, d):
+        if a.is_cuda:
+            PW_SEEN.setdefault(_cuda.fr_kind(spec), set()).add(a.shape[1])
+        return pointwise(spec, a, b, c, d)
+
+    groth16.fr_pointwise = sharded_ntt.fr_pointwise = watched_pointwise
+
+
+def ntt_not_held():
+    """{(kind, n): (shapes, pointwise)}: the largest size at which the
+    watched paths ran each kind's transform shape and its pointwise step,
+    where no comparison has held them at that size yet."""
+    todo = {}
+    for (kind, shape), sizes in NTT_SEEN.items():
+        n = max(sizes)
+        if n not in NTT_HELD.get((kind, shape), ()):
+            todo.setdefault((kind, n), ([], False))[0].append(shape)
+    for kind, sizes in PW_SEEN.items():
+        n = max(sizes)
+        if n not in PW_HELD.get(kind, ()):
+            shapes, _ = todo.get((kind, n), ([], False))
+            todo[(kind, n)] = (shapes, True)
+    return todo
+
+
+def phase_ntt_path_domains(device, rates):
+    """The quotient's kernels at the sizes the paths of phases 5-12 gave
+    them: each kind's transform shapes at the largest domain the watched
+    paths ran each over (the BLS12 and BLS24-315 PLONK quotient domains,
+    the BW6 outer proves' 2^17 and 2^18, BN254's PLONK quotient domain),
+    and its pointwise step at its largest Groth16 domain, wherever
+    phase 3 did not already hold them there; each against its plain
+    version, bit for bit.  Returns the rows, named <kernel>_<kind>_2e<k>."""
+    rows = {}
+    rng = np.random.default_rng(SEED + 23)
+    todo = ntt_not_held()
+    log("[kernels] the paths' largest transforms and pointwise steps not "
+        "yet held: " + "; ".join(
+            f"{kind} 2^{n.bit_length() - 1}: {len(shapes)} shape(s)"
+            f"{', pointwise' if pw else ''}"
+            for (kind, n), (shapes, pw) in sorted(todo.items())))
+    for (kind, n), (shapes, pw) in sorted(todo.items()):
+        got = ntt_rows(kind, n, device, rates, rng, tuple(shapes), reps=5,
+                       pointwise=pw)
+        rows.update({f"{k}_2e{n.bit_length() - 1}": v
+                     for k, v in got.items()})
+    return rows
+
+
+def check_ntt_held():
+    """Every transform shape and pointwise step that the watched paths
+    ran is held against its plain version at the largest size they ran
+    it at; every kind ran on them."""
+    from gnark_tpu_torch.ops import _cuda
+    assert not ntt_not_held(), ntt_not_held()
+    largest = {}
+    for (kind, _), sizes in NTT_SEEN.items():
+        largest.setdefault(kind, set()).add(max(sizes).bit_length() - 1)
+    assert set(largest) == set(_cuda.FR_KINDS), NTT_SEEN
+    pointwise = {kind: max(sizes).bit_length() - 1
+                 for kind, sizes in PW_SEEN.items()}
+    log("[kernels] every transform shape and pointwise step that the "
+        "paths ran is held bit for bit at the largest size they ran it "
+        "at; log2 of those sizes, transforms / pointwise: " + "; ".join(
+            f"{kind} {sorted(largest[kind])} / {pointwise.get(kind, '-')}"
+            for kind in _cuda.FR_KINDS))
+
+
 def msm_breakdown(plan, xs, ys, inf, sc):
     """Milliseconds of each step of one kernel-path MSM (synchronised
     between steps, so the sum exceeds an unsynchronised run), the steps of
@@ -1168,8 +1491,7 @@ def phase_groth16(device, profile=False, trace=False):
         served[name] = (cs, pk, vk, pre, digest)
 
     _cuda.reset_launches()
-    for k in M.plain_on_cuda:
-        M.plain_on_cuda[k] = 0
+    reset_plain()
     proofs = {}
     for name, (cs, pk, vk, pre, digest) in served.items():
         for label in ("cold", "warm"):
@@ -1185,10 +1507,13 @@ def phase_groth16(device, profile=False, trace=False):
             ran = {k: v - before[k] for k, v in _cuda.launches.items()
                    if v > before[k]}
             log(f"[groth16 {name}] launches in this prove: {ran}")
+            check_route(ran, BN254, pk.n_pad, pk.domain_n)
     launches = {f"{k}_{kind}": _cuda.launches[f"{k}_{kind}"]
                 for k in _cuda.KERNELS for kind in BN254_KINDS}
+    launches.update({f"{k}_fr_bn254": _cuda.launches[f"{k}_fr_bn254"]
+                     for k in _cuda.NTT_KERNELS})
     assert all(v > 0 for v in launches.values()), launches
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
     log(f"[groth16] launches during the four proves: {launches}")
 
     for name, (cs, pk, vk, pre, digest) in served.items():
@@ -1269,8 +1594,7 @@ def phase_plonk(device, trace=False):
     assert len(pk.srs.g1) == N_PLONK + 3 and pk.device == device
 
     _cuda.reset_launches()
-    for k in M.plain_on_cuda:
-        M.plain_on_cuda[k] = 0
+    reset_plain()
     for label in ("cold", "warm", "warm2"):
         before = dict(_cuda.launches)
         timings = {}
@@ -1283,11 +1607,12 @@ def phase_plonk(device, trace=False):
         ran = {k: v - before[k] for k, v in _cuda.launches.items()
                if v > before[k]}
         log(f"[plonk sq16] launches in this prove: {ran}")
+        check_route(ran, BN254, len(pk.srs.g1), pk.n, "plonk")
     launches = dict(_cuda.launches)
     # every commitment has 2^16 or more coefficients: the windowed plan
     for k in _cuda.WINDOW_KERNELS:
         assert launches[f"{k}_g1"] > 0, launches
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
     log(f"[plonk] launches during the three proves: "
         f"{ {k: v for k, v in launches.items() if v} }")
 
@@ -1372,8 +1697,7 @@ def phase_rollup(device):
         served[scheme] = (cs, pk, vk)
 
     _cuda.reset_launches()
-    for k in M.plain_on_cuda:
-        M.plain_on_cuda[k] = 0
+    reset_plain()
     proofs = {}
     for scheme, labels in (("groth16", ("cold", "warm", "warm2")),
                            ("plonk", ("cold", "warm"))):
@@ -1395,8 +1719,9 @@ def phase_rollup(device):
             assert all(ran.get(f"{k}_g1") for k in _cuda.WINDOW_KERNELS), ran
             assert scheme == "plonk" or all(
                 ran.get(f"{k}_g2") for k in _cuda.WINDOW_KERNELS), ran
+            check_ntt(ran, BN254, scheme, ROLLUP_DOMAINS[scheme])
     launches = dict(_cuda.launches)
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
     log(f"[rollup] launches during the five proves: "
         f"{ {k: v for k, v in launches.items() if v} }")
 
@@ -1417,7 +1742,7 @@ def phase_rollup(device):
         else:
             raise AssertionError(f"rollup {scheme}: tampered transfer proved")
     assert dict(_cuda.launches) == launches, "a tampered prove launched"
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
     return launches
 
 
@@ -1503,10 +1828,11 @@ CURVE_PLONK = ("bls12_381", "bls24_315")
 
 
 def expected_launches(curve, n_msm, scheme="groth16"):
-    """The kernels a prove over ``curve`` launches, as gnark_tpu routes it:
-    none on the native route (fp.L >= 24); BN254's or BLS24-315's windowed
-    kernels from 8192 points, their ladder, reduction and fold below (G1
-    alone under PLONK)."""
+    """The MSM kernels a prove over ``curve`` launches, as gnark_tpu routes
+    it: none on the native route (fp.L >= 24); BN254's or BLS24-315's
+    windowed kernels from 8192 points, their ladder, reduction and fold
+    below (G1 alone under PLONK).  (Every route launches the quotient's
+    kernels too: ntt_launches.)"""
     from gnark_tpu_torch.backend.groth16 import native_route
     from gnark_tpu_torch.ops import _cuda
     from gnark_tpu_torch.ops import msm as M
@@ -1562,8 +1888,7 @@ def phase_curves_groth16(device):
     seen = []
     orig = watch_compute_h(groth16, seen)
     _cuda.reset_launches()
-    for k in M.plain_on_cuda:
-        M.plain_on_cuda[k] = 0
+    reset_plain()
     proofs = {}
     try:
         for name, (curve, cs, pk, vk, pre, digest, n_msm) in served.items():
@@ -1580,11 +1905,11 @@ def phase_curves_groth16(device):
                 ran = {k: v - before[k] for k, v in _cuda.launches.items()
                        if v > before[k]}
                 log(f"[groth16 {name}] launches in this prove: {ran}")
-                assert set(ran) == expected_launches(curve, n_msm), ran
+                check_route(ran, curve, n_msm, pk.domain_n)
     finally:
         groth16.compute_h = orig
     assert len(seen) == 2 * len(served) and all(seen), seen
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
     launches = {k: v for k, v in _cuda.launches.items() if v}
     log(f"[groth16 curves] launches during the {2 * len(served)} proves: "
         f"{launches}; compute_h on CUDA tensors in each")
@@ -1633,8 +1958,7 @@ def phase_curves_plonk(device):
         return plan
 
     _cuda.reset_launches()
-    for k in M.plain_on_cuda:
-        M.plain_on_cuda[k] = 0
+    reset_plain()
     proofs = {}
     M._plan = watched_plan
     try:
@@ -1652,14 +1976,13 @@ def phase_curves_plonk(device):
                 ran = {k: v - before[k] for k, v in _cuda.launches.items()
                        if v > before[k]}
                 log(f"[plonk {cname}] launches in this prove: {ran}")
-                assert set(ran) == expected_launches(
-                    curve, len(pk.srs.g1), "plonk"), ran
+                check_route(ran, curve, len(pk.srs.g1), pk.n, "plonk")
     finally:
         M._plan = orig_plan
     log(f"[plonk curves] windowed plans (c, windows, buckets, R, C) of the "
         f"commitments: {sorted(plans)}")
     assert plans == {CURVE_PLONK_PLAN}, plans
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
     launches = {k: v for k, v in _cuda.launches.items() if v}
     log(f"[plonk curves] launches during the four proves: {launches}")
     for cname, (curve, cs, pk, vk, x0, y) in served.items():
@@ -1752,8 +2075,7 @@ def phase_serialization(device, keys):
                 f" s ({second} {t_read[True]:.2f} s)")
 
     _cuda.reset_launches()
-    for k in M.plain_on_cuda:
-        M.plain_on_cuda[k] = 0
+    reset_plain()
     proofs = {}
     for label, (scheme, curve, cs, pk, vk, values, public, proof,
                 n) in keys.items():
@@ -1772,7 +2094,9 @@ def phase_serialization(device, keys):
                 f"{label}: the loaded key proves another proof"
             ran = {k: v - before[k] for k, v in _cuda.launches.items()
                    if v > before[k]}
-            assert set(ran) == expected_launches(curve, n, scheme), ran
+            key = loaded[label, safe]
+            check_route(ran, curve, n, key.domain_n if scheme == "groth16"
+                        else key.n, scheme)
             which = ("first" if not safe else
                      "safe=True" if scheme == "groth16" else "second")
             log(f"[serialization {label}] prove from the loaded key "
@@ -1780,7 +2104,7 @@ def phase_serialization(device, keys):
                 f"proof bytes: " + ", ".join(f"{k} {v:.3f}"
                                              for k, v in timings.items()))
             log(f"[serialization {label}] launches in this prove: {ran}")
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
     launches = {k: v for k, v in _cuda.launches.items() if v}
     log(f"[serialization] launches during the {2 * len(keys)} proves: "
         f"{launches}")
@@ -1928,9 +2252,10 @@ def phase_recursion(device, prepared, outer_keys):
     domain 2^17, BW6-633 at 2^18) prove with rng 12, as the reference's
     tests, both at once on two host threads, each MSM on the native
     core's one thread, while this thread has the solver refuse each wrong
-    inner public input.  The outer proves launch no kernel; each
-    verifies, a wrong public input rejected.  The launch counts are taken
-    over all of it."""
+    inner public input.  The outer proves launch their quotients' NTT
+    kernels, exactly ntt_launches, and no MSM kernel; each verifies, a
+    wrong public input rejected.  The launch counts are taken over all of
+    it."""
     from gnark_tpu_torch.backend import groth16, serialize, solver
     from gnark_tpu_torch.curves import ALL_CURVES
     from gnark_tpu_torch.ops import _cuda
@@ -1941,8 +2266,7 @@ def phase_recursion(device, prepared, outer_keys):
     seen = []
     orig = watch_compute_h(groth16, seen)
     _cuda.reset_launches()
-    for k in M.plain_on_cuda:
-        M.plain_on_cuda[k] = 0
+    reset_plain()
     witnesses, keys = {}, {}
     try:
         for inner, tag in tags.items():
@@ -1959,7 +2283,7 @@ def phase_recursion(device, prepared, outer_keys):
             log(f"{tag} inner prove on the card {total:.2f} s: "
                 + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
             log(f"{tag} launches in the inner prove: {ran}")
-            assert set(ran) == expected_launches(curve, pk_in.n_pad), ran
+            check_route(ran, curve, pk_in.n_pad, pk_in.domain_n)
             pblob = serialize.proof_to_bytes(proof, curve)
             proof_c = serialize.proof_from_bytes(pblob, curve)
             assert groth16.verify(proof_c, vk_c, [35])
@@ -2006,7 +2330,16 @@ def phase_recursion(device, prepared, outer_keys):
             outs = {inner: f.result() for inner, f in futures.items()}
         log(f"[recursion] both outer proves and the refusals "
             f"{time.perf_counter() - t_outer:.2f} s")
-        assert dict(_cuda.launches) == before, "native route launched"
+        # the native route: each outer quotient's NTT kernels, exactly,
+        # and no MSM kernel
+        ran = {k: v - before[k] for k, v in _cuda.launches.items()
+               if v > before[k]}
+        want = {}
+        for inner, (outer, _, domain) in RECURSION.items():
+            assert keys[inner][0].domain_n == domain
+            want.update(ntt_launches(ALL_CURVES[outer], "groth16", domain))
+        assert ran == want, (ran, want)
+        log(f"[recursion] launches in the two outer proves: {ran}")
         for inner, (oproof, total, timings) in outs.items():
             tag, vk = tags[inner], keys[inner][1]
             log(f"{tag} outer prove {total:.2f} s (beside the other): "
@@ -2021,7 +2354,7 @@ def phase_recursion(device, prepared, outer_keys):
     finally:
         groth16.compute_h = orig
     assert len(seen) == 4 and all(seen), seen
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
     launches = {k: v for k, v in _cuda.launches.items() if v}
     log(f"[recursion] launches: {launches}; compute_h on CUDA tensors in "
         f"each of the {len(seen)} proves")
@@ -2041,6 +2374,11 @@ SHARDED_PROVE_ROUTE = {
     for k in ("leaf_prefix", "lane_offsets", "weighted_sum", "horner_fold",
               "reduce")
     for kind in BN254_KINDS}
+# and the quotient's seven four-step transforms, each one local transform
+# of the rank's N_MSM / SHARDED_RANKS columns, and its pointwise step on
+# the rank's block
+SHARDED_PROVE_ROUTE["ntt_fr_bn254"] = 7 * stages(N_MSM // SHARDED_RANKS)
+SHARDED_PROVE_ROUTE["fr_pointwise_fr_bn254"] = 1
 
 
 def sharded_rank(tmp, values, cfg):
@@ -2075,8 +2413,7 @@ def sharded_rank(tmp, values, cfg):
         assert _cuda.build_info["msm"]["command"] == "(cached)", \
             "a rank rebuilt the kernels"
     out = {"rank": dist.get_rank(), "msm": {}, "ntt": {}, "prove": {}}
-    for k in M.plain_on_cuda:
-        M.plain_on_cuda[k] = 0
+    reset_plain()
 
     # 1. the sharded MSM against the host oracle and the unsharded msm;
     # the counts are set to 0 after the unsharded comparison, so they hold
@@ -2158,7 +2495,7 @@ def sharded_rank(tmp, values, cfg):
     out["launches_prove"] = {k: v for k, v in prove_launches.items() if v}
     out["proof"] = serialize.proof_to_bytes(proof, BN254).hex()
     dist.barrier()
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gnark_tpu")]
     assert not bad, f"loaded: {bad}"
@@ -2381,6 +2718,20 @@ def phase_2e20(device, rates):
     from gnark_tpu_torch.scripts import dev_e2e_2e20
     results, nchunks = {}, {}
     rng = np.random.default_rng(SEED + 2)
+    # the 2^20 quotient's kernels: compute_h's three transform shapes and
+    # its pointwise step
+    ntt = ntt_rows("fr_bn254", 1 << E2E_LOG, device, rates, rng,
+                   NTT_SHAPES[:3], reps=5)
+    # and the conversions around it, plain torch: prove's to_mont of a, b
+    # and c and compute_h's from_mont of h
+    from gnark_tpu_torch.ops.limbs import field_ops
+    F = field_ops(fr_spec("fr_bn254"))
+    x = ntt_inputs(fr_spec("fr_bn254"), 1 << E2E_LOG, device, rng)
+    log(f"[kernels fr_bn254] plain torch at n=2^{E2E_LOG}: to_mont "
+        f"{cuda_ms(lambda: F.to_mont(x), 5):.3f} ms, from_mont "
+        f"{cuda_ms(lambda: F.from_mont(x), 5):.3f} ms")
+    del x
+    torch.cuda.empty_cache()
     for kind, (G, host, gen) in groups().items():
         t0 = time.perf_counter()
         xs, ys, inf, sc, want = oracle_inputs_limbs(G, host, gen, device,
@@ -2422,24 +2773,30 @@ def phase_2e20(device, rates):
         torch.cuda.empty_cache()
 
     _cuda.reset_launches()
-    for k in M.plain_on_cuda:
-        M.plain_on_cuda[k] = 0
+    reset_plain()
     res = dev_e2e_2e20.run(E2E_LOG, "bn254", device, log=log)
     launches = {f"{k}_{kind}": _cuda.launches[f"{k}_{kind}"]
                 for k in _cuda.KERNELS for kind in BN254_KINDS}
+    launches.update(ntt_part(_cuda.launches))
     # a prove's MSMs: four over G1, one over G2; the leaf, lane offsets and
-    # weighted sum launch once a window chunk, the fold once an MSM
+    # weighted sum launch once a window chunk, the fold once an MSM; its
+    # quotient seven transforms of 2^20 and one pointwise step
     n = len(res["proves"])
     want = {f"{k}_{kind}": (n * (4 if kind == "g1" else 1)
                             * (1 if k == "horner_fold" else nchunks[kind])
                             if k in _cuda.WINDOW_KERNELS else 0)
             for k in _cuda.KERNELS for kind in BN254_KINDS}
+    want.update(dict.fromkeys(ntt_part(_cuda.launches), 0))
+    want.update({k: n * v for k, v in ntt_launches(
+        res["pk"].curve, "groth16", 1 << E2E_LOG).items()})
     assert launches == want, (launches, want)
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert {k for k, v in _cuda.launches.items() if v} <= set(want), \
+        _cuda.launches
+    assert not plain_runs(), plain_runs()
     assert res["pk"].n_pad == N_2E21, res["pk"].n_pad
     log(f"[groth16 sq2e{E2E_LOG}] launches during the {n} proves: "
         f"{launches}; no plain version on the card")
-    return results, launches
+    return results, launches, {f"{k}_2e20": v for k, v in ntt.items()}
 
 
 ADD_TYPE = re.compile(r"^(IADD3|IADD|IMAD\.X|IMAD\.IADD|IADD32I|LEA)")
@@ -2546,13 +2903,14 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     build.result()
     log(f"[env] nvcc builds, side by side, {time.perf_counter() - t0:.1f} s")
+    watch_ntt()
     outer_keys = {inner: pool.submit(recursion_outer_setup, device,
                                      prepared, inner)
                   for inner in RECURSION}
     pool.shutdown(wait=False)
     for name, info in _cuda.build_info.items():
         log(f"[env] nvcc {name} {info['seconds']:.1f} s: {info['command']}")
-    for lib in ("msm", "msm_g1_bls24315", "msm_g2_bls24315"):
+    for lib in ("msm", "msm_g1_bls24315", "msm_g2_bls24315", "ntt"):
         for line in ptxas_summary(_cuda.build_info[lib]["ptxas"]):
             log(f"[ptxas] {line}")
     for a in args:
@@ -2566,6 +2924,7 @@ def main():
     msm_rates = (peak, rates["mad_wide_u32"]["ops_per_s"],
                  lat["montmul_bn254"], lat["montmul_bls24315"])
     kern = phase_kernels(device, msm_rates)
+    kern_ntt = phase_ntt_kernels(device, msm_rates)
     log(f"[phase] kernels vs plain {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_msm(device)
@@ -2601,20 +2960,25 @@ def main():
     t0 = time.perf_counter()
     l_sharded, l_sharded_msm = phase_sharded(device, groth16_served)
     log(f"[phase] sharded {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kern_ntt_paths = phase_ntt_path_domains(device, msm_rates)
+    log(f"[phase] quotient kernels at the paths' domains "
+        f"{time.perf_counter() - t0:.1f} s")
     # the 2^20 path needs the card's memory: the earlier phases' keys go
     del groth16_served, plonk_served, curves_served, prepared, outer_keys
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    kern_2e20, l_2e20 = phase_2e20(device, msm_rates)
+    kern_2e20, l_2e20, kern_ntt_2e20 = phase_2e20(device, msm_rates)
     log(f"[phase] 2^20 groth16 {time.perf_counter() - t0:.1f} s")
+    check_ntt_held()
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s")
 
     from gnark_tpu_torch.ops import msm as M
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gnark_tpu")]
     assert not bad, f"loaded: {bad}"
-    assert not any(M.plain_on_cuda.values()), M.plain_on_cuda
+    assert not plain_runs(), plain_runs()
 
     entries = []
     for key, r in kern.items():
@@ -2664,6 +3028,37 @@ def main():
             entries[-1]["at_plonk_plan"] = {
                 k: kern_bls24_plonk[key][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    # the quotient's kernels: launched on every path that proves
+    paths = {"groth16": l_groth16, "plonk": l_plonk, "rollup": l_rollup,
+             "curves_groth16": l_curves, "curves_plonk": l_curves_plonk,
+             "serialization": l_serial, "recursion": l_recursion,
+             "sharded_prove": l_sharded, "2e20": l_2e20}
+    for key, r in kern_ntt.items():
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": "gnark_tpu_torch/csrc/ntt_kernels.cu",
+            "replaces": NTT_REPLACES[key.split("_fr_")[0]],
+            "launches": sum(l.get(key, 0) for l in paths.values()),
+            **{f"launches_{p}": l.get(key, 0) for p, l in paths.items()},
+            **r})
+    for key, r in kern_ntt_paths.items():
+        # the rows at the paths' largest domains: launched on every path
+        base = key.rsplit("_2e", 1)[0]
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": "gnark_tpu_torch/csrc/ntt_kernels.cu",
+            "replaces": NTT_REPLACES[base.split("_fr_")[0]],
+            "launches": sum(l.get(base, 0) for l in paths.values()),
+            **{f"launches_{p}": l.get(base, 0) for p, l in paths.items()},
+            **r})
+    for key, r in kern_ntt_2e20.items():
+        # the rows at 2^20: launched on the 2^20 path alone
+        base = key.removesuffix("_2e20")
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": "gnark_tpu_torch/csrc/ntt_kernels.cu",
+            "replaces": NTT_REPLACES[base.split("_fr_")[0]],
+            "launches": l_2e20[base], "launches_2e20": l_2e20[base], **r})
     for key, r in micro.items():
         entries.append({
             "name": key, "route": "cuda",

@@ -48,7 +48,7 @@ from gnark_tpu_torch.ops.ec import CurveOps, points_to_device
 from gnark_tpu_torch.ops.fixed_base import FixedBaseTable, window_width
 from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs, limbs_to_ints
 from gnark_tpu_torch.ops.msm import _next_pow2, msm
-from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm
+from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm, fr_pointwise
 from gnark_tpu_torch.ops.towers import fp2_ops, fpk_ops
 from gnark_tpu_torch.utils import profiling
 
@@ -331,6 +331,34 @@ def setup(cs, curve, rng=None, host: bool = False, *, device="cuda",
 _KEY_POINTS = ("A", "B1", "B2", "K", "Z")
 
 
+def dummy_setup(cs, curve, *, device="cuda") -> ProvingKey:
+    """A fake proving key, every point the generator, for timing the
+    prover without a trusted setup (gnark_tpu's dummy_setup; gnark's
+    DummySetup, internal/backend/bn254/groth16/setup.go:411).  Its proofs
+    do NOT verify.  The points go to ``device`` (the card by default), as
+    numpy planes on the native route."""
+    device = _device(device)
+    K = _Groups(curve)
+    n = _next_pow2(cs.nb_constraints)
+    n_pad = _next_pow2(max(cs.nb_wires, n, 2))
+    native = native_route(curve)
+    g1, g2 = curve.g1_gen, curve.g2_gen
+
+    def batch(G, point, zero):
+        one = points_to_device(G, [point], zero,
+                               "cpu" if native else device)
+        planes = tuple(t.expand(*t.shape[:-1], n_pad).contiguous()
+                       for t in one)
+        return tuple(t.numpy() for t in planes) if native else planes
+
+    g1_pts = batch(K.g1, g1, 0)
+    return ProvingKey(
+        curve=curve, domain_n=n, n_pad=n_pad,
+        alpha_g1=g1, beta_g1=g1, delta_g1=g1, beta_g2=g2, delta_g2=g2,
+        A=g1_pts, B1=g1_pts, B2=batch(K.g2, g2, K.g2_zero), K=g1_pts,
+        Z=g1_pts, device=device)
+
+
 def pk_to_device(pk: ProvingKey, device) -> ProvingKey:
     """A host key (setup(host=True)) -> the same key proved on ``device``
     (gnark_tpu's pk_to_device): its points packed as limb planes there, or
@@ -400,7 +428,9 @@ def compute_h(domain: Domain, a, b, c):
     """Quotient h = (A*B - C)/Z on the device; bit-reversed coefficients.
 
     iFFT (DIF) -> coset FFT (DIT) -> pointwise (ab - c) / (g^n - 1) ->
-    coset iFFT (DIF); Z is the constant g^n - 1 on the coset."""
+    coset iFFT (DIF); Z is the constant g^n - 1 on the coset.  On the
+    card every transform and the pointwise step are kernels
+    (ops/ntt.py)."""
     F, q = domain.F, domain.spec.modulus
     den = pow(pow(domain.coset_gen, domain.n, q) - 1, -1, q)
     den_pl = F.pack([den], domain.device)
@@ -409,7 +439,7 @@ def compute_h(domain: Domain, a, b, c):
         return domain.fft(domain.ifft(x, "DIF"), "DIT", coset=True)
 
     ae, be, ce = coset_evals(a), coset_evals(b), coset_evals(c)
-    h = F.mul(F.sub(F.mul(ae, be), ce), den_pl)
+    h = fr_pointwise(domain.spec, ae, be, ce, den_pl)
     return domain.ifft(h, "DIF", coset=True)
 
 

@@ -88,6 +88,107 @@ struct BLS24315Fp {
   static constexpr uint32_t INV = 0x402fffffu;  // -p^-1 mod 2^32
 };
 
+// The scalar fields fr that the NTT kernels (ntt_kernels.cu) run over.
+// Each fr of 253-255 bits takes the N = 8 carry chains; 2p < 2^256 in
+// each (BLS12-381's 255-bit r too), so add's and the product's
+// pre-subtraction values fit with their carry word (cond_sub_p).  BW6-761's
+// fr is BLS12-377's fp (N = 12, the portable form); BW6-633's fr is
+// BLS24-315's fp, BLS24315Fp above.  tests/test_torch_ntt_kernel.py
+// recomputes p, one and INV of each.
+
+// BN254 scalar field r = 0x30644e72...f0000001
+struct BN254Fr {
+  static constexpr int N = 8;
+  GT_HD static uint32_t p(int i) {
+    constexpr uint32_t v[8] = {0xf0000001u, 0x43e1f593u, 0x79b97091u,
+                               0x2833e848u, 0x8181585du, 0xb85045b6u,
+                               0xe131a029u, 0x30644e72u};
+    return v[i];
+  }
+  GT_HD static uint32_t one(int i) {
+    constexpr uint32_t v[8] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u,
+                               0x36fc7695u, 0x7879462eu, 0x666ea36fu,
+                               0x9a07df2fu, 0x0e0a77c1u};
+    return v[i];
+  }
+  static constexpr uint32_t INV = 0xefffffffu;
+};
+
+// BLS12-381 scalar field r = 0x73eda753...00000001 (255 bits)
+struct BLS12381Fr {
+  static constexpr int N = 8;
+  GT_HD static uint32_t p(int i) {
+    constexpr uint32_t v[8] = {0x00000001u, 0xffffffffu, 0xfffe5bfeu,
+                               0x53bda402u, 0x09a1d805u, 0x3339d808u,
+                               0x299d7d48u, 0x73eda753u};
+    return v[i];
+  }
+  GT_HD static uint32_t one(int i) {
+    constexpr uint32_t v[8] = {0xfffffffeu, 0x00000001u, 0x00034802u,
+                               0x5884b7fau, 0xecbc4ff5u, 0x998c4fefu,
+                               0xacc5056fu, 0x1824b159u};
+    return v[i];
+  }
+  static constexpr uint32_t INV = 0xffffffffu;
+};
+
+// BLS12-377 scalar field r = 0x12ab655e...00000001
+struct BLS12377Fr {
+  static constexpr int N = 8;
+  GT_HD static uint32_t p(int i) {
+    constexpr uint32_t v[8] = {0x00000001u, 0x0a118000u, 0xd0000001u,
+                               0x59aa76feu, 0x5c37b001u, 0x60b44d1eu,
+                               0x9a2ca556u, 0x12ab655eu};
+    return v[i];
+  }
+  GT_HD static uint32_t one(int i) {
+    constexpr uint32_t v[8] = {0xfffffff3u, 0x7d1c7fffu, 0x6ffffff2u,
+                               0x7257f50fu, 0x512c0feeu, 0x16d81575u,
+                               0x2bbb9a9du, 0x0d4bda32u};
+    return v[i];
+  }
+  static constexpr uint32_t INV = 0xffffffffu;
+};
+
+// BLS24-315 scalar field r = 0x196deac2...00c00001
+struct BLS24315Fr {
+  static constexpr int N = 8;
+  GT_HD static uint32_t p(int i) {
+    constexpr uint32_t v[8] = {0x00c00001u, 0x19d0c5fdu, 0xe644e364u,
+                               0xc8c480ecu, 0xcf927a98u, 0x25fc7ec9u,
+                               0x4a9da12bu, 0x196deac2u};
+    return v[i];
+  }
+  GT_HD static uint32_t one(int i) {
+    constexpr uint32_t v[8] = {0xf87ffff6u, 0xfdd8441du, 0x014f1e16u,
+                               0x2852f6bfu, 0xe4473608u, 0x84230c1du,
+                               0x15d7b450u, 0x01b4d469u};
+    return v[i];
+  }
+  static constexpr uint32_t INV = 0x00bfffffu;
+};
+
+// BLS12-377 base field, 377 bits in 12 words: BW6-761's scalar field.
+// N = 12 takes the portable C++ form everywhere.
+struct BLS12377Fp {
+  static constexpr int N = 12;
+  GT_HD static uint32_t p(int i) {
+    constexpr uint32_t v[12] = {0x00000001u, 0x8508c000u, 0x30000000u,
+                                0x170b5d44u, 0xba094800u, 0x1ef3622fu,
+                                0x00f5138fu, 0x1a22d9f3u, 0x6ca1493bu,
+                                0xc63b05c0u, 0x17c510eau, 0x01ae3a46u};
+    return v[i];
+  }
+  GT_HD static uint32_t one(int i) {
+    constexpr uint32_t v[12] = {0xffffff68u, 0x02cdffffu, 0x7fffffb1u,
+                                0x51409f83u, 0x8a7d3ff2u, 0x9f7db3a9u,
+                                0x6e7c6305u, 0x7b4e97b7u, 0x803c84e8u,
+                                0x4cf495bfu, 0xe2fdf49au, 0x008d6661u};
+    return v[i];
+  }
+  static constexpr uint32_t INV = 0xffffffffu;
+};
+
 template <class P>
 struct Fp {
   static constexpr int N = P::N;

@@ -1,19 +1,24 @@
 """Build and bind the CUDA kernels (csrc/msm_kernels.cu,
-csrc/msm_{g1,g2}_bls24315.cu, csrc/microbench.cu).
+csrc/msm_{g1,g2}_bls24315.cu, csrc/ntt_kernels.cu, csrc/microbench.cu).
 
 On first use, nvcc compiles a library's sources in this checkout into a
 shared library with a plain C interface under ``gnark_tpu_torch/_build/``
 (the file name carries a hash of the sources, so an edit rebuilds), and
-ctypes loads it.  The four libraries are separate translation units:
+ctypes loads it.  The five libraries are separate translation units:
 BN254's MSM kernels (kinds ``g1``, ``g2``), BLS24-315's G1 (kind
-``g1_bls24315``, over its fp), its G2 (``g2_bls24315``, over fp4) and the
-microbenchmark; ``build_all`` runs the four compilers at once.  No torch
-headers are compiled in.  Every launcher returns ``cudaGetLastError()``; a nonzero
-code raises.
+``g1_bls24315``, over its fp), its G2 (``g2_bls24315``, over fp4), the
+quotient's NTT stage and pointwise step over the six scalar fields
+(kinds ``fr_bn254`` ... ``fr_bw6_633``, ``FR_KINDS``) and the
+microbenchmark; ``build_all`` runs the five compilers at once.  No torch
+headers are compiled in.  Every MSM and microbenchmark launcher returns
+``cudaGetLastError()``, a nonzero code raising; the NTT library's return
+the number of kernels they launched (a transform's log2 n stages from
+one call), or minus the error, which raises.
 
 ``launches`` counts kernel launches by name (``leaf_prefix_g1``, ...,
-``ladder_g2_bls24315``, ``microbench_mul_u32``, ...); only the wrappers
-here add to it, where they launch.
+``ladder_g2_bls24315``, ``ntt_fr_bn254``, ``fr_pointwise_fr_bw6_761``,
+``microbench_mul_u32``, ...); only the wrappers here add to it, where
+they launch.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ _SOURCES = {
                         "msm_g1_bls24315.cu"),
     "msm_g2_bls24315": ("field.cuh", "ec_complete.cuh", "msm_kernels.cu",
                         "msm_g2_bls24315.cu"),
+    "ntt": ("field.cuh", "ntt_kernels.cu"),
     "microbench": ("field.cuh", "microbench.cu"),
 }
 
@@ -84,7 +90,15 @@ MICROBENCH_OPS = MICROBENCH_U32_OPS + ("fma_f32", "montmul_bn254",
 MONTMUL = {"montmul_bn254": (16, "montmul"),
            "montmul_bls24315": (20, "montmul_bls24315")}
 
+# ntt_kernels.cu's kinds, the scalar field fr of each curve, and their
+# 16-bit limb planes; BW6-761's fr is BLS12-377's fp, BW6-633's
+# BLS24-315's fp
+FR_KINDS = {"fr_bn254": 16, "fr_bls12_381": 16, "fr_bls12_377": 16,
+            "fr_bls24_315": 16, "fr_bw6_761": 24, "fr_bw6_633": 20}
+NTT_KERNELS = ("ntt", "fr_pointwise")
+
 launches = {f"{k}_{kind}": 0 for k in KERNELS for kind in KINDS}
+launches.update({f"{k}_{kind}": 0 for k in NTT_KERNELS for kind in FR_KINDS})
 launches.update({f"microbench_{op}": 0 for op in MICROBENCH_OPS})
 build_info = {}          # library -> seconds, command, ptxas report, path
 _libs = {}
@@ -177,7 +191,18 @@ def _bind_microbench(lib):
         fn.restype = ci
 
 
-_BIND = {"microbench": _bind_microbench,
+def _bind_ntt(lib):
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    for kind in FR_KINDS:
+        for name, args in (
+                ("ntt", [vp, vp, vp, cl, vp, vp, cl, ci, cl, ci, vp]),
+                ("fr_pointwise", [vp, vp, vp, vp, cl, ci, vp, cl, vp])):
+            fn = getattr(lib, f"gnark_{name}_{kind}")
+            fn.argtypes = args
+            fn.restype = ci
+
+
+_BIND = {"microbench": _bind_microbench, "ntt": _bind_ntt,
          **{lib: functools.partial(_bind_msm, library=lib)
             for lib in set(LIBRARY.values())}}
 
@@ -198,6 +223,19 @@ def kind_of(GC) -> str:
             return "g2" + suffix
     raise NotImplementedError("the MSM kernels are built for BN254 and "
                               "BLS24-315 G1/G2 only")
+
+
+def fr_kind(spec) -> str:
+    """The NTT kernels' kind of a scalar field (a FieldSpec): ``fr_<curve>``
+    for the fr of each of the six curves; raises for any other field."""
+    from gnark_tpu_torch.curves import ALL_CURVES
+    for name, curve in ALL_CURVES.items():
+        kind = f"fr_{name}"
+        if kind in FR_KINDS and curve.fr.modulus == spec.modulus \
+                and spec.L == FR_KINDS[kind]:
+            return kind
+    raise NotImplementedError(f"the NTT kernels are built for the six "
+                              f"curves' scalar fields, not {spec.name}")
 
 
 def _check(t: torch.Tensor, shape, name):
@@ -311,6 +349,80 @@ def reduce(pts, kind):
     scratch = _scratch(K * REDUCE_LANES, kind, pts.device)
     _launch("reduce", kind, pts.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             n, K)
+    return out
+
+
+def _planes(t, shapes, name):
+    if t is not None and tuple(t.shape) not in shapes:
+        raise ValueError(f"{name}: want shape " + " or ".join(
+            str(s) for s in shapes) + f", got {tuple(t.shape)}")
+    return 0 if t is None else t.data_ptr()
+
+
+def ntt_args(x, y, tw, pre, post, dit):
+    """The arguments of csrc/ntt_kernels.cu's ``gnark_ntt_<kind>`` but
+    the stream, after the shape checks: x, y [L, n], tw [L, n / 2], pre
+    [L, n] or None, post [L, n], [L, 1] (one value for every element) or
+    None; a DIT transform if ``dit``, else DIF."""
+    L, n = x.shape
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"transform size {n} is not a power of two")
+    _planes(y, [(L, n)], "y")
+    _planes(tw, [(L, n // 2)], "twiddles")
+    return (x.data_ptr(), y.data_ptr(), tw.data_ptr(), n // 2,
+            _planes(pre, [(L, n)], "pre"),
+            _planes(post, [(L, n), (L, 1)], "post"),
+            0 if post is None else post.shape[1],
+            int(post is not None and post.shape[1] == n), n, int(dit))
+
+
+def _launch_fr(name, counter, kind, planes, args):
+    """One call of ntt_kernels.cu's gnark_<name>_<kind> on the current
+    stream, its launches counted as <counter>_<kind>; ``planes`` is its
+    first tensor."""
+    if planes.shape[0] != FR_KINDS[kind]:
+        raise ValueError(f"want {FR_KINDS[kind]} limb planes for {kind}, "
+                         f"got {planes.shape[0]}")
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(_load("ntt"), f"gnark_{name}_{kind}")(*args, stream)
+    if rc < 0:
+        raise RuntimeError(f"{counter}_{kind}: launch failed, cudaError "
+                           f"{-rc}")
+    launches[f"{counter}_{kind}"] += rc
+
+
+def ntt_transform(x, tw, pre, post, dit, kind):
+    """One transform of x (DIT if ``dit``, else DIF) into a new tensor, x
+    left as it was: one C call that launches ntt_stage_kernel once a
+    butterfly stage (once at n = 1), pre's scale fused into the first and
+    post's into the last where given (ntt_args)."""
+    for name, t in (("x", x), ("twiddles", tw), ("pre", pre),
+                    ("post", post)):
+        if t is not None:
+            _check(t, t.shape, name)
+    y = torch.empty_like(x)
+    _launch_fr("ntt", "ntt", kind, x, ntt_args(x, y, tw, pre, post, dit))
+    return y
+
+
+def fr_pointwise_args(a, b, c, d, out):
+    """The arguments of ``gnark_fr_pointwise_<kind>`` but the stream: a,
+    b, c, out [L, n]; d [L, n] or [L, 1] (one value for every element)."""
+    L, n = a.shape
+    for name, t in (("b", b), ("c", c), ("out", out)):
+        _planes(t, [(L, n)], name)
+    return (a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            _planes(d, [(L, n), (L, 1)], "d"), d.shape[1],
+            int(d.shape[1] == n), out.data_ptr(), n)
+
+
+def fr_pointwise(a, b, c, d, kind):
+    """(a b - c) d elementwise: one launch of fr_pointwise_kernel."""
+    for name, t in (("a", a), ("b", b), ("c", c), ("d", d)):
+        _check(t, t.shape, name)
+    out = torch.empty_like(a)
+    _launch_fr("fr_pointwise", "fr_pointwise", kind, a,
+               fr_pointwise_args(a, b, c, d, out))
     return out
 
 

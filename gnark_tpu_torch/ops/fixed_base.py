@@ -74,3 +74,12 @@ class FixedBaseTable:
             acc = GC.add_mixed(acc, (self.tx[w][:, d], self.ty[w][:, d]),
                                self.tinf[w][d])
         return GC.to_jacobian(acc)
+
+
+def batch_scalar_mul(G: CurveOps, host_curve, base, scalars, c: int = 8):
+    """One-shot batch s_j * base (gnark_tpu's batch_scalar_mul): a table of
+    ``c``-bit windows for the scalars' full width, on the scalars'
+    device.  scalars: [Ls, n] regular-form limb planes -> Jacobian batch."""
+    table = FixedBaseTable(G, host_curve, base, scalars.shape[0] * 16,
+                           scalars.device, c)
+    return table(scalars)

@@ -1,10 +1,23 @@
-"""Radix-2 NTT over fr limb planes, in plain PyTorch (counterpart of
-gnark_tpu/ops/ntt.py::Domain, which is XLA there too).
+"""Radix-2 NTT over fr limb planes (counterpart of
+gnark_tpu/ops/ntt.py::Domain, whose ``_dispatch`` jits each whole
+transform, ``_transform``, into one XLA program).
 
 DIF consumes natural order and produces bit-reversed order; DIT consumes
 bit-reversed and produces natural, so the Groth16 quotient chains
-DIF -> DIT without a permutation.  Each butterfly stage is one reshape
-[L, blocks, 2, half] and one vectorized add/sub/mul over the whole array.
+DIF -> DIT without a permutation.
+
+Every transform routes by device, as ops/msm.py's kernels do: on CUDA
+tensors one call of _cuda.ntt_transform, which launches csrc/
+ntt_kernels.cu's ``ntt_stage_kernel`` once a butterfly stage (the coset
+pre-scale fused into the first stage, the n^-1 / inverse-coset
+post-scale into the last, one scaling launch at n = 1), on CPU tensors
+the plain version,
+``Domain.transform_plain``: each stage one reshape [L, blocks, 2, half]
+and one vectorized add/sub/mul over the whole array.  ``fr_pointwise``,
+the Groth16 quotient's (a b - c) d, routes the same way.  Any other device
+raises; nothing on the card falls back to the plain version.
+``plain_on_cuda`` counts plain versions run on CUDA tensors (by a
+comparison, never by a transform).
 """
 
 from __future__ import annotations
@@ -13,7 +26,11 @@ import numpy as np
 import torch
 
 from gnark_tpu_torch.fields.spec import FieldSpec
+from gnark_tpu_torch.ops import _cuda
 from gnark_tpu_torch.ops.limbs import field_ops
+from gnark_tpu_torch.ops.msm import _device_route
+
+plain_on_cuda = dict.fromkeys(_cuda.NTT_KERNELS, 0)
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -82,25 +99,50 @@ class Domain:
         self._tables[name] = t
         return t
 
-    def fft(self, x, order: str = "DIF", coset: bool = False):
-        """Forward NTT.  DIF: natural coeffs -> bit-reversed evals;
-        DIT: bit-reversed coeffs -> natural evals."""
-        pre = None
-        if coset:
-            pre = self.table("coset" if order == "DIF" else "coset_brev")
-        return self._transform(x, self.table("tw"), pre, None, order)
-
-    def ifft(self, x, order: str = "DIF", coset: bool = False):
-        """Inverse NTT (scaled by 1/n).  DIF: natural evals -> bit-reversed
-        coeffs; DIT: bit-reversed evals -> natural coeffs."""
+    def operands(self, inverse: bool, order: str, coset: bool):
+        """(twiddles, pre-scale, post-scale) of one transform: the coset
+        powers before a forward coset transform, n^-1 (times the inverse
+        coset powers) after an inverse one."""
+        if not inverse:
+            pre = None
+            if coset:
+                pre = self.table("coset" if order == "DIF" else "coset_brev")
+            return self.table("tw"), pre, None
         if coset:
             post = self.table(
                 "icoset_ninv_brev" if order == "DIF" else "icoset_ninv")
         else:
             post = self.F.pack([self.n_inv], self.device)
-        return self._transform(x, self.table("itw"), None, post, order)
+        return self.table("itw"), None, post
+
+    def fft(self, x, order: str = "DIF", coset: bool = False):
+        """Forward NTT.  DIF: natural coeffs -> bit-reversed evals;
+        DIT: bit-reversed coeffs -> natural evals."""
+        return self._transform(x, *self.operands(False, order, coset), order)
+
+    def ifft(self, x, order: str = "DIF", coset: bool = False):
+        """Inverse NTT (scaled by 1/n).  DIF: natural evals -> bit-reversed
+        coeffs; DIT: bit-reversed evals -> natural coeffs."""
+        return self._transform(x, *self.operands(True, order, coset), order)
 
     def _transform(self, x, tw, pre, post, order):
+        if _device_route(x, "ntt"):
+            return self.transform_kernel(x, tw, pre, post, order)
+        return self.transform_plain(x, tw, pre, post, order)
+
+    def transform_kernel(self, x, tw, pre, post, order):
+        """The kernel route: one _cuda.ntt_transform call."""
+        assert x.shape == (self.spec.L, self.n), (x.shape, self.n)
+        return _cuda.ntt_transform(
+            x.contiguous(), tw.contiguous(),
+            None if pre is None else pre.contiguous(),
+            None if post is None else post.contiguous(), order == "DIT",
+            _cuda.fr_kind(self.spec))
+
+    def transform_plain(self, x, tw, pre, post, order):
+        """The plain version: the stages as torch ops on the whole array."""
+        if x.is_cuda:
+            plain_on_cuda["ntt"] += 1
         F, k, n, L = self.F, self.log_n, self.n, self.spec.L
         assert x.shape == (L, n), (x.shape, n)
         if pre is not None:
@@ -123,3 +165,21 @@ class Domain:
         if post is not None:
             x = F.mul(x, post)
         return x
+
+
+def fr_pointwise_plain(F, a, b, c, d):
+    """(a b - c) d over limb planes; d may be one value ([L, 1])."""
+    if a.is_cuda:
+        plain_on_cuda["fr_pointwise"] += 1
+    return F.mul(F.sub(F.mul(a, b), c), d)
+
+
+def fr_pointwise(spec: FieldSpec, a, b, c, d):
+    """The Groth16 quotient's pointwise step (a b - c) d over ``spec``: one
+    launch of csrc/ntt_kernels.cu's fr_pointwise_kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if _device_route(a, "fr_pointwise"):
+        return _cuda.fr_pointwise(a.contiguous(), b.contiguous(),
+                                  c.contiguous(), d.contiguous(),
+                                  _cuda.fr_kind(spec))
+    return fr_pointwise_plain(field_ops(spec), a, b, c, d)

@@ -32,7 +32,7 @@ import torch.distributed as dist
 
 from gnark_tpu_torch.fields.spec import FieldSpec
 from gnark_tpu_torch.ops.limbs import field_ops
-from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm
+from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm, fr_pointwise
 
 
 class ShardedDomain:
@@ -191,14 +191,16 @@ class ShardedDomain:
         natural order.  Returns this rank's block of h's coefficients in
         the strided order (the caller gathers them and permutes to the
         order its Z key points use).  Both all_to_all stages of each
-        four-step transform cross the mesh axis."""
+        four-step transform cross the mesh axis.  The pointwise step (a b -
+        c) / Z_H goes through ops/ntt.py's fr_pointwise (its kernel on CUDA
+        tensors), as the unsharded compute_h's does."""
         F = self.F
 
         def coset_evals(x):
             return self.fft_from_strided(F.mul(self.ifft(x), self._gs[False]))
 
         ae, be, ce = coset_evals(a), coset_evals(b), coset_evals(c)
-        he = F.mul(F.sub(F.mul(ae, be), ce), self._den)
+        he = fr_pointwise(self.spec, ae, be, ce, self._den)
         return F.mul(self.ifft(he), self._gs[True])
 
     def strided_to_brev_perm(self) -> np.ndarray:

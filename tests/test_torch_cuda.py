@@ -37,6 +37,10 @@ The file imports no jax, so it runs where the port runs:
     native core; BLS24-315 G2's coefficient-sliced ladder, fold,
     weighted sum and reduction launched twice on the same inputs, each
     launch against the plain version.
+  * the quotient's kernels (csrc/ntt_kernels.cu) over the six scalar
+    fields: every transform shape at n = 1, 2 and 4,096, one stage
+    launch a level, and the pointwise step (a b - c) d, against the plain
+    versions; compute_h on the card against the CPU's, with its launches.
 
 Tolerance: none.  Limbs compare exactly; points compare as Python ints.
 The microbenchmark's ``fma_f32`` alone compares within
@@ -51,7 +55,7 @@ import numpy as np
 import pytest
 import torch
 
-from gnark_tpu_torch.curves import BLS12_381, BLS24_315, BN254
+from gnark_tpu_torch.curves import ALL_CURVES, BLS12_381, BLS24_315, BN254
 from gnark_tpu_torch.frontend.compile import compile_circuit
 from gnark_tpu_torch.frontend.schema import Circuit, Public, Secret
 from gnark_tpu_torch.backend import groth16 as tg
@@ -59,8 +63,10 @@ from gnark_tpu_torch.backend import plonk as tp
 from gnark_tpu_torch.ops import _cuda
 from gnark_tpu_torch.ops import microbench as MB
 from gnark_tpu_torch.ops import msm as M
+from gnark_tpu_torch.ops import ntt as NT
 from gnark_tpu_torch.ops.ec import points_to_host
-from gnark_tpu_torch.ops.limbs import ints_to_limbs
+from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs
+from gnark_tpu_torch.ops.ntt import Domain
 from torch_kinds import KINDS, group, r_mod
 
 R_MOD = BN254.fr.modulus
@@ -528,10 +534,91 @@ def test_other_curves_prove_on_cuda_equal_host_mode(dev, curve):
     want = tg.prove(cs, hpk, [35, 3], rng=random.Random(4))
     assert (proof.ar, proof.bs, proof.krs) == (want.ar, want.bs, want.krs)
     assert tg.verify(proof, vk, [35]) and not tg.verify(proof, vk, [34])
-    ran = {k for k, v in _cuda.launches.items() if v != before[k]}
+    ran = {k: v - before[k] for k, v in _cuda.launches.items()
+           if v != before[k]}
+    kind = f"fr_{curve.name}"
+    # every route: the quotient's seven transforms and pointwise step
+    ntt = {f"ntt_{kind}": 7 * max(1, pk.domain_n.bit_length() - 1),
+           f"fr_pointwise_{kind}": 1}
+    assert {k: v for k, v in ran.items() if k in ntt} == ntt, ran
+    msm_kernels = set(ran) - set(ntt)
     if curve is BLS24_315:
-        assert ran == {f"{k}_{g}_bls24315" for k in ("ladder", "reduce",
-                                                      "horner_fold")
-                       for g in ("g1", "g2")}, ran
+        assert msm_kernels == {f"{k}_{g}_bls24315" for k in (
+            "ladder", "reduce", "horner_fold") for g in ("g1", "g2")}, ran
     else:
-        assert not ran, ran
+        assert not msm_kernels, ran
+
+
+# ---- the quotient's kernels (csrc/ntt_kernels.cu) ---------------------------
+
+NTT_SHAPES = [(inverse, order, coset) for inverse in (False, True)
+              for order in ("DIF", "DIT") for coset in (False, True)]
+
+
+def _fr_values(spec, n, seed):
+    """p - 1, 0 and 1 first, then seeded values below p."""
+    rnd = random.Random(seed)
+    q = spec.modulus
+    return ([q - 1, 0, 1] + [rnd.randrange(q) for _ in range(n)])[:n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4096])
+@pytest.mark.parametrize("kind", list(_cuda.FR_KINDS))
+def test_ntt_kernel_matches_plain_on_cuda(dev, kind, n):
+    """Every transform shape through the stage kernel, one launch a
+    butterfly stage (one at n = 1), against the plain version on the same
+    CUDA tensors; the public fft / ifft take the kernel route."""
+    spec = ALL_CURVES[kind[3:]].fr
+    d = Domain(spec, n, dev)
+    x = d.F.pack(_fr_values(spec, n, n), dev)
+    for inverse, order, coset in NTT_SHAPES:
+        ops = d.operands(inverse, order, coset)
+        before = _cuda.launches[f"ntt_{kind}"]
+        got = d.transform_kernel(x, *ops, order)
+        torch.cuda.synchronize()
+        assert _cuda.launches[f"ntt_{kind}"] == \
+            before + max(1, n.bit_length() - 1)
+        plain = dict(NT.plain_on_cuda)
+        fn = d.ifft if inverse else d.fft
+        assert torch.equal(fn(x, order, coset=coset), got)
+        assert NT.plain_on_cuda == plain, "fft/ifft ran the plain version"
+        assert torch.equal(got, d.transform_plain(x, *ops, order)), \
+            (inverse, order, coset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_cuda.FR_KINDS))
+def test_fr_pointwise_matches_plain_on_cuda(dev, kind):
+    """(a b - c) d, d one broadcast value and a full plane, 4096 + 37
+    elements, against the plain version; CPU tensors refused."""
+    spec = ALL_CURVES[kind[3:]].fr
+    F, n = field_ops(spec), 4096 + 37
+    a, b, c, d = (F.pack(_fr_values(spec, n, s), dev) for s in range(4))
+    for dd in (d, d[:, :1].contiguous()):
+        before = _cuda.launches[f"fr_pointwise_{kind}"]
+        got = NT.fr_pointwise(spec, a, b, c, dd)
+        torch.cuda.synchronize()
+        assert _cuda.launches[f"fr_pointwise_{kind}"] == before + 1
+        assert torch.equal(got, NT.fr_pointwise_plain(F, a, b, c, dd))
+    with pytest.raises(ValueError):
+        _cuda.fr_pointwise(a.cpu(), b.cpu(), c.cpu(), d.cpu(), kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bn254", "bw6_761"])
+def test_compute_h_on_cuda_equals_cpu(dev, name):
+    """The quotient at n = 1,024 on the card (70 stage launches, one
+    pointwise) and on the CPU: the same limbs."""
+    spec = ALL_CURVES[name].fr
+    n = 1024
+    planes = [field_ops(spec).pack(_fr_values(spec, n, s), "cpu")
+              for s in (5, 6, 7)]
+    want = tg.compute_h(Domain(spec, n, "cpu"), *planes)
+    before = dict(_cuda.launches)
+    got = tg.compute_h(Domain(spec, n, dev), *(t.to(dev) for t in planes))
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in _cuda.launches.items()
+           if v != before[k]}
+    assert ran == {f"ntt_fr_{name}": 70, f"fr_pointwise_fr_{name}": 1}, ran
+    assert torch.equal(got.cpu(), want)
