@@ -29,14 +29,18 @@ always measured:
      below, for G2 also at 2^16 points (the ladder's plain version on
      4096 points spread over all of them), and the G1 leaf also at the
      PLONK commitment's 2^16 + 3 points.  Then the quotient's kernels
-     (csrc/ntt_kernels.cu) over each of the six scalar fields: the stage
+     (csrc/ntt_kernels.cu) over each of the six scalar fields: the pass
      kernel over whole transforms of all eight shapes (forward and
-     inverse, DIF and DIT, plain and coset), one launch a butterfly stage,
-     and the pointwise step (a b - c) d, against the plain versions, bit
-     for bit, p - 1, 0 and 1 among the inputs, with both times and the
-     bound by issue rate and by bytes: BN254's fr at 2^16, the other five
-     at 2^12 (and each at its paths' largest sizes after phase 13, as
-     below).  The Horner fold, a chain of
+     inverse, DIF and DIT, plain and coset), one launch a pass over
+     shared-memory tiles (``passes``: one where n fits a tile of 2^11
+     elements, 2^10 for the BW6 fields, two above), and the pointwise
+     step (a b - c) d, against the plain versions, bit for bit, p - 1, 0
+     and 1 among the inputs, with both times and the bound by issue rate
+     and by bytes (the planes, the scale tables and the twiddle entries
+     the passes read, each once): BN254's fr at 2^16 (its transforms at
+     2^12 too), the other five at 2^12 (and each at its paths' largest
+     sizes after phase 13, as below).  The [ptxas] lines give each pass kernel's registers,
+     spills and dynamic shared memory.  The Horner fold, a chain of
      point operations, the leaf prefix, a chain of mixed additions a
      thread group, the lane offsets, a Brent-Kung scan of 2K - 1 steps,
      and the weighted sum, a wavefront over the halving fold's dependency
@@ -163,11 +167,14 @@ kernels its route names, none on the native route; in 14 a prove's four
 G1 MSMs and one G2 MSM each launch the Horner fold once and the other
 windowed kernels once a window chunk, the ladder and reduction never),
 every prove of 5-14 exactly its quotient's NTT launches (``ntt_launches``:
-one a butterfly stage of each of Groth16's seven transforms and one
-pointwise step, PLONK's five transforms of n and seven of its quotient
-domain; a mesh rank's seven local transforms and its pointwise step),
-and no plain version may
-run on the card there.  The kernels line's
+the passes of each of Groth16's seven transforms and one pointwise
+step, PLONK's five transforms of n and seven of its quotient domain; a
+mesh rank's seven local transforms and its pointwise step), and no
+plain version may run on the card there; no single-card Groth16 prove
+of 5, 9 and 14 may run FieldOps.to_mont / from_mont on a CUDA tensor
+(``watch_mont``: its quotient's conversions ride on the first and last
+passes of its transforms), and 14 splits each prove's ``compute_h``
+phase into the quotient call and the host work before it.  The kernels line's
 ``launches`` counts the paths' requests and proves; ``launches_sharded``
 is phase 13's, split into its mesh proves' (``launches_sharded_prove``)
 and its ShardedMSM checks' (``launches_sharded_msm``, the only ladder
@@ -335,6 +342,35 @@ def ptxas_summary(report):
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out.append(f"{name}: {m.group(1)} registers; {props}")
             name = None
+    return out
+
+
+# ntt_kernels.cu's field struct of each kind
+FR_STRUCTS = {"BN254Fr": "fr_bn254", "BLS12381Fr": "fr_bls12_381",
+              "BLS12377Fr": "fr_bls12_377", "BLS24315Fr": "fr_bls24_315",
+              "BLS12377Fp": "fr_bw6_761", "BLS24315Fp": "fr_bw6_633"}
+def ntt_pass_smem(lines, plan=None):
+    """For each pass kernel of ``ptxas_summary``'s lines: its kind, and
+    at its kind's largest tile (a 2^20 transform's, ``plan`` = the
+    library's _cuda.ntt_plan) the dynamic shared memory of a block, which
+    ptxas does not see, and the blocks an SM that CUDA's occupancy allows
+    (registers and shared memory together, 256 threads a block)."""
+    if plan is None:
+        from gnark_tpu_torch.ops import _cuda
+        plan = _cuda.ntt_plan
+    out = []
+    for line in lines:
+        m = re.match(r"ntt_pass_kernel<(\w+), (\d)>", line)
+        if not m:
+            continue
+        kind = FR_STRUCTS[m.group(1)]
+        top = max(plan(kind, 1 << 20, m.group(2) == "1"),
+                  key=lambda p: p.tile_log)
+        out.append(
+            f"ntt_pass_kernel<{m.group(1)}, {m.group(2)}> ({kind}): tiles "
+            f"of 2^{top.tile_log}, {top.smem_bytes} bytes of dynamic shared "
+            f"memory a block, {top.blocks_per_sm} blocks an SM (CUDA's "
+            f"occupancy)")
     return out
 
 
@@ -1083,18 +1119,26 @@ def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
 NTT_REPLACES = {"ntt": "gnark_tpu/ops/ntt.py:134",
                 "fr_pointwise": "gnark_tpu/backend/groth16.py:543"}
 N_NTT = 1 << 12       # the transforms over the other five fields, phase 3
-# every transform shape (inverse, order, coset), compute_h's three first:
-# the iFFT (DIF), the coset FFT (DIT), the coset iFFT (DIF)
-NTT_SHAPES = ((True, "DIF", False), (False, "DIT", True), (True, "DIF", True),
-              (False, "DIF", False), (False, "DIF", True),
-              (False, "DIT", False), (True, "DIT", False),
-              (True, "DIT", True))
+# every transform shape (inverse, order, coset, regular_in, regular_out),
+# compute_h's three first: the iFFT (DIF), the coset FFT (DIT), the coset
+# iFFT (DIF); then prove's quotient, compute_h(regular=True): its iFFT
+# takes regular planes in (R on the first pass's load), its coset iFFT
+# gives them out (R^-1 on the last pass's store)
+NTT_SHAPES = tuple(s + (False, False) for s in (
+    (True, "DIF", False), (False, "DIT", True), (True, "DIF", True),
+    (False, "DIF", False), (False, "DIF", True), (False, "DIT", False),
+    (True, "DIT", False), (True, "DIT", True)))
+QUOTIENT_SHAPES = ((True, "DIF", False, True, False), NTT_SHAPES[1],
+                   (True, "DIF", True, False, True))
 NTT_ROW_SHAPE = NTT_SHAPES[1]   # the kernels line's row: the coset FFT
 
 
-def stages(n):
-    """A transform's launches: one a butterfly stage, one at n = 1."""
-    return max(1, n.bit_length() - 1)
+def passes(n, kind):
+    """A transform's launches: one a pass over shared-memory tiles (one
+    where n fits a tile, two from twice the tile to 2^20 at N = 8 words
+    and to 2^18 at 10 and 12), as the library plans them."""
+    from gnark_tpu_torch.ops import _cuda
+    return len(_cuda.ntt_plan(kind, n))
 
 
 def ntt_launches(curve, scheme, n):
@@ -1105,9 +1149,10 @@ def ntt_launches(curve, scheme, n):
     interp_quotient)."""
     kind = f"fr_{curve.name}"
     if scheme == "groth16":
-        return {f"ntt_{kind}": 7 * stages(n), f"fr_pointwise_{kind}": 1}
+        return {f"ntt_{kind}": 7 * passes(n, kind), f"fr_pointwise_{kind}": 1}
     from gnark_tpu_torch.backend.plonk import _big_domain_size
-    return {f"ntt_{kind}": 5 * stages(n) + 7 * stages(_big_domain_size(n))}
+    return {f"ntt_{kind}": 5 * passes(n, kind)
+            + 7 * passes(_big_domain_size(n), kind)}
 
 
 def ntt_part(ran):
@@ -1205,6 +1250,24 @@ def compare_fr(label, spec, kern, plain, work, rates, reps):
             "library_ms": None, **b}
 
 
+def twiddle_reads(n, kind):
+    """The twiddle-table entries a transform's passes read (each counted
+    once): a pass of m stages reads tw[i 2^(k - m)], i < 2^(m - 1), and a
+    strided pass its columns' roots tw[j 2^s] for each stage s; no pass
+    reads the rest of the [L, n / 2] table."""
+    from gnark_tpu_torch.ops import _cuda
+    k = n.bit_length() - 1
+    read = set()
+    for s0, m, c, *_ in _cuda.ntt_plan(kind, n):
+        if m:
+            read.update(range(0, n // 2, 1 << (k - m)))
+        if c:
+            lo = k - s0 - m
+            for s in range(s0, s0 + m):
+                read.update(range(0, 1 << (lo + s), 1 << s))
+    return len(read)
+
+
 def ntt_rows(kind, n, device, rates, rng, shapes=NTT_SHAPES, reps=20,
              pointwise=True):
     """One field's transforms at n in each of ``shapes`` and, if
@@ -1218,22 +1281,25 @@ def ntt_rows(kind, n, device, rates, rng, shapes=NTT_SHAPES, reps=20,
     dom = N.Domain(spec, n, device)
     x = ntt_inputs(spec, n, device, rng)
     by_shape, row = {}, None
-    for inverse, order, coset in shapes:
-        tw, pre, post = dom.operands(inverse, order, coset)
+    for shape in shapes:
+        inverse, order, coset, regular_in, regular_out = shape
+        tw, pre, post = dom.operands(*shape)
         name = (f"{'ifft' if inverse else 'fft'} {order}"
-                f"{' coset' if coset else ''}")
+                f"{' coset' if coset else ''}"
+                f"{' regular in' if regular_in else ''}"
+                f"{' regular out' if regular_out else ''}")
         k = n.bit_length() - 1
         products = (n // 2) * k + sum(n for t in (pre, post) if t is not None)
-        elems = 2 * n + n // 2 + sum(t.shape[1] for t in (pre, post)
-                                     if t is not None)
+        elems = 2 * n + twiddle_reads(n, kind) + sum(
+            t.shape[1] for t in (pre, post) if t is not None)
         by_shape[name] = compare_fr(
-            f"{kind}] ntt {name} n={n}, {stages(n)} launches", spec,
+            f"{kind}] ntt {name} n={n}, {passes(n, kind)} launches", spec,
             lambda: dom.transform_kernel(x, tw, pre, post, order),
             lambda: dom.transform_plain(x, tw, pre, post, order),
             (products, 8 * spec.L * elems), rates, reps)
-        if row is None or (inverse, order, coset) == NTT_ROW_SHAPE:
+        if row is None or shape == NTT_ROW_SHAPE:
             row = dict(by_shape[name], shape=name, n=n)
-        NTT_HELD.setdefault((kind, (inverse, order, coset)), set()).add(n)
+        NTT_HELD.setdefault((kind, shape), set()).add(n)
     rows = {}
     if row is not None:
         row["shapes"] = {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms")}
@@ -1253,20 +1319,24 @@ def ntt_rows(kind, n, device, rates, rng, shapes=NTT_SHAPES, reps=20,
 
 
 def phase_ntt_kernels(device, rates):
-    """Phase 3's quotient kernels: each field's stage kernel over whole
+    """Phase 3's quotient kernels: each field's pass kernel over whole
     transforms of every shape, and its pointwise kernel, against the
     plain versions on the same CUDA tensors, bit for bit: BN254's fr at
-    2^16 (the 2^16 requests' domain), the other five at N_NTT."""
+    2^16 (the 2^16 requests' domain) and its transforms at N_NTT too (rows
+    <kernel>_fr_bn254_2e12), the other five at N_NTT."""
     from gnark_tpu_torch.ops import _cuda
     rows = {}
     rng = np.random.default_rng(SEED + 19)
     for kind in _cuda.FR_KINDS:
         rows.update(ntt_rows(kind, N_MSM if kind == "fr_bn254" else N_NTT,
                              device, rates, rng))
+    rows.update({f"{k}_2e{N_NTT.bit_length() - 1}": v for k, v in ntt_rows(
+        "fr_bn254", N_NTT, device, rates, rng, pointwise=False).items()})
     return rows
 
 
-# (kind, (inverse, order, coset)) -> the transform sizes that the main
+# (kind, (inverse, order, coset, regular_in, regular_out)) -> the
+# transform sizes that the main
 # process's paths ran on CUDA tensors, and kind -> the pointwise step's
 # (watch_ntt); the same, held against the plain version (ntt_rows).  The
 # mesh ranks of phase 13 are not watched: their transforms are BN254's at
@@ -1286,12 +1356,12 @@ def watch_ntt():
     from gnark_tpu_torch.parallel import sharded_ntt
 
     def watched(inverse, orig):
-        def transform(self, x, order="DIF", coset=False):
+        def transform(self, x, order="DIF", coset=False, **forms):
             if x.is_cuda:
-                NTT_SEEN.setdefault((_cuda.fr_kind(self.spec),
-                                     (inverse, order, coset)),
-                                    set()).add(self.n)
-            return orig(self, x, order, coset)
+                NTT_SEEN.setdefault((_cuda.fr_kind(self.spec), (
+                    inverse, order, coset, forms.get("regular_in", False),
+                    forms.get("regular_out", False))), set()).add(self.n)
+            return orig(self, x, order, coset, **forms)
         return transform
 
     N.Domain.fft = watched(False, N.Domain.fft)
@@ -1304,6 +1374,43 @@ def watch_ntt():
         return pointwise(spec, a, b, c, d)
 
     groth16.fr_pointwise = sharded_ntt.fr_pointwise = watched_pointwise
+
+
+# FieldOps.to_mont / from_mont calls on CUDA tensors made by the main
+# thread (watch_mont): a single-card Groth16 prove makes none, its
+# quotient's conversions riding on its transforms' first and last passes
+MONT_ON_CUDA = {"to_mont": 0, "from_mont": 0}
+
+
+def watch_mont():
+    """Count FieldOps.to_mont / from_mont calls on CUDA tensors from the
+    main thread (the outer setups' worker thread is not counted)."""
+    import threading
+    from gnark_tpu_torch.ops.limbs import FieldOps
+
+    def counted(name, orig):
+        def conversion(self, a):
+            if a.is_cuda and threading.current_thread() is \
+                    threading.main_thread():
+                MONT_ON_CUDA[name] += 1
+            return orig(self, a)
+        return conversion
+
+    for name in MONT_ON_CUDA:
+        setattr(FieldOps, name, counted(name, getattr(FieldOps, name)))
+
+
+def check_no_mont(tag):
+    """No to_mont / from_mont ran on CUDA tensors since the counts were
+    last set to 0."""
+    assert not any(MONT_ON_CUDA.values()), (tag, MONT_ON_CUDA)
+    log(f"{tag} FieldOps.to_mont / from_mont calls on CUDA tensors: "
+        f"{MONT_ON_CUDA}")
+
+
+def reset_mont():
+    for name in MONT_ON_CUDA:
+        MONT_ON_CUDA[name] = 0
 
 
 def ntt_not_held():
@@ -1492,6 +1599,7 @@ def phase_groth16(device, profile=False, trace=False):
 
     _cuda.reset_launches()
     reset_plain()
+    reset_mont()
     proofs = {}
     for name, (cs, pk, vk, pre, digest) in served.items():
         for label in ("cold", "warm"):
@@ -1515,6 +1623,7 @@ def phase_groth16(device, profile=False, trace=False):
     assert all(v > 0 for v in launches.values()), launches
     assert not plain_runs(), plain_runs()
     log(f"[groth16] launches during the four proves: {launches}")
+    check_no_mont("[groth16] the four proves:")
 
     for name, (cs, pk, vk, pre, digest) in served.items():
         t0 = time.perf_counter()
@@ -1850,9 +1959,9 @@ def watch_compute_h(groth16, seen):
     inputs are CUDA tensors; returns the original."""
     orig = groth16.compute_h
 
-    def watched(domain, a, b, c):
+    def watched(domain, a, b, c, **kw):
         seen.append(all(t.is_cuda for t in (a, b, c)))
-        return orig(domain, a, b, c)
+        return orig(domain, a, b, c, **kw)
 
     groth16.compute_h = watched
     return orig
@@ -1889,6 +1998,7 @@ def phase_curves_groth16(device):
     orig = watch_compute_h(groth16, seen)
     _cuda.reset_launches()
     reset_plain()
+    reset_mont()
     proofs = {}
     try:
         for name, (curve, cs, pk, vk, pre, digest, n_msm) in served.items():
@@ -1913,6 +2023,7 @@ def phase_curves_groth16(device):
     launches = {k: v for k, v in _cuda.launches.items() if v}
     log(f"[groth16 curves] launches during the {2 * len(served)} proves: "
         f"{launches}; compute_h on CUDA tensors in each")
+    check_no_mont(f"[groth16 curves] the {2 * len(served)} proves:")
 
     for name, (curve, cs, pk, vk, pre, digest, _) in served.items():
         t0 = time.perf_counter()
@@ -2366,19 +2477,22 @@ SHARDED_RANKS = 2
 SHARDED_SIZES = (N_MSM, N_LADDER)   # 2^15 a rank (windowed), 2,048 (ladder)
 SHARDED_GROUP_S = 240               # a collective waits at most this long
 SHARDED_JOIN_S = 420                # and the ranks together at most this
-# a rank's launches in one mesh prove of the chain: each of the five MSMs
-# (four G1, one G2) runs the windowed plan on the rank's 2^15 points, and
-# reduce folds the ranks' partials
-SHARDED_PROVE_ROUTE = {
-    f"{k}_{kind}": 4 if kind == "g1" else 1
-    for k in ("leaf_prefix", "lane_offsets", "weighted_sum", "horner_fold",
-              "reduce")
-    for kind in BN254_KINDS}
-# and the quotient's seven four-step transforms, each one local transform
-# of the rank's N_MSM / SHARDED_RANKS columns, and its pointwise step on
-# the rank's block
-SHARDED_PROVE_ROUTE["ntt_fr_bn254"] = 7 * stages(N_MSM // SHARDED_RANKS)
-SHARDED_PROVE_ROUTE["fr_pointwise_fr_bn254"] = 1
+
+
+def sharded_prove_route():
+    """A rank's launches in one mesh prove of the chain: each of the five
+    MSMs (four G1, one G2) runs the windowed plan on the rank's 2^15
+    points, and reduce folds the ranks' partials; the quotient's seven
+    four-step transforms, each one local transform of the rank's N_MSM /
+    SHARDED_RANKS columns (its passes from the library's plan), and its
+    pointwise step on the rank's block."""
+    route = {f"{k}_{kind}": 4 if kind == "g1" else 1
+             for k in ("leaf_prefix", "lane_offsets", "weighted_sum",
+                       "horner_fold", "reduce")
+             for kind in BN254_KINDS}
+    route["ntt_fr_bn254"] = 7 * passes(N_MSM // SHARDED_RANKS, "fr_bn254")
+    route["fr_pointwise_fr_bn254"] = 1
+    return route
 
 
 def sharded_rank(tmp, values, cfg):
@@ -2487,7 +2601,7 @@ def sharded_rank(tmp, values, cfg):
         total = time.perf_counter() - t0
         ran = {k: v for k, v in _cuda.launches.items() if v}
         if device.type == "cuda":
-            assert ran == SHARDED_PROVE_ROUTE, \
+            assert ran == sharded_prove_route(), \
                 f"the {label} mesh prove launched {ran}, not its route"
         for k, v in ran.items():
             prove_launches[k] += v
@@ -2512,7 +2626,7 @@ def phase_sharded(device, served):
     transforms and quotient at 2^16 against the unsharded Domain and
     compute_h, then prove the chain on the mesh, cold and warm, with rng
     7: phase 5's proof bytes, verified here and a wrong public input
-    rejected.  Each prove launches exactly SHARDED_PROVE_ROUTE in each
+    rejected.  Each prove launches exactly sharded_prove_route() in each
     rank.  Returns the launches summed over the ranks: the mesh proves'
     and the ShardedMSM checks', apart (the unsharded comparisons left
     out)."""
@@ -2712,25 +2826,26 @@ def phase_2e20(device, rates):
     reduction never; no plain version on the card.  Returns (the kernel
     rows, the path's launches)."""
     import torch
+    from gnark_tpu_torch.backend import groth16
     from gnark_tpu_torch.ops import _cuda
     from gnark_tpu_torch.ops import msm as M
     from gnark_tpu_torch.ops.ec import points_to_host
     from gnark_tpu_torch.scripts import dev_e2e_2e20
     results, nchunks = {}, {}
     rng = np.random.default_rng(SEED + 2)
-    # the 2^20 quotient's kernels: compute_h's three transform shapes and
-    # its pointwise step
+    # the 2^20 quotient's kernels: prove's three transform shapes
+    # (compute_h in regular form) and its pointwise step
     ntt = ntt_rows("fr_bn254", 1 << E2E_LOG, device, rates, rng,
-                   NTT_SHAPES[:3], reps=5)
-    # and the conversions around it, plain torch: prove's to_mont of a, b
-    # and c and compute_h's from_mont of h
-    from gnark_tpu_torch.ops.limbs import field_ops
-    F = field_ops(fr_spec("fr_bn254"))
+                   QUOTIENT_SHAPES, reps=5)
+    # what streaming the planes once costs: a torch copy (a read and a
+    # write of [16, 2^20] int64; the transform's two passes do each twice)
     x = ntt_inputs(fr_spec("fr_bn254"), 1 << E2E_LOG, device, rng)
-    log(f"[kernels fr_bn254] plain torch at n=2^{E2E_LOG}: to_mont "
-        f"{cuda_ms(lambda: F.to_mont(x), 5):.3f} ms, from_mont "
-        f"{cuda_ms(lambda: F.from_mont(x), 5):.3f} ms")
-    del x
+    y = torch.empty_like(x)
+    log(f"[kernels fr_bn254] n=2^{E2E_LOG}: one torch copy of the planes "
+        f"{cuda_ms(lambda: y.copy_(x), 5):.4f} ms (a read and a write, "
+        f"{2 * x.numel() * 8} bytes); the transform's passes read and "
+        f"write them {passes(1 << E2E_LOG, 'fr_bn254')} times")
+    del x, y
     torch.cuda.empty_cache()
     for kind, (G, host, gen) in groups().items():
         t0 = time.perf_counter()
@@ -2772,9 +2887,28 @@ def phase_2e20(device, rates):
         del xs, ys, inf, sc, out
         torch.cuda.empty_cache()
 
+    # the quotient call of each prove, timed with a synchronize on each
+    # side: its compute_h phase less it is limb_planes' host work and
+    # upload
+    calls = []
+    compute_h = groth16.compute_h
+
+    def timed(domain, a, b, c, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = compute_h(domain, a, b, c, **kw)
+        sync()
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    groth16.compute_h = timed
     _cuda.reset_launches()
     reset_plain()
-    res = dev_e2e_2e20.run(E2E_LOG, "bn254", device, log=log)
+    reset_mont()
+    try:
+        res = dev_e2e_2e20.run(E2E_LOG, "bn254", device, log=log)
+    finally:
+        groth16.compute_h = compute_h
     launches = {f"{k}_{kind}": _cuda.launches[f"{k}_{kind}"]
                 for k in _cuda.KERNELS for kind in BN254_KINDS}
     launches.update(ntt_part(_cuda.launches))
@@ -2796,6 +2930,14 @@ def phase_2e20(device, rates):
     assert res["pk"].n_pad == N_2E21, res["pk"].n_pad
     log(f"[groth16 sq2e{E2E_LOG}] launches during the {n} proves: "
         f"{launches}; no plain version on the card")
+    check_no_mont(f"[groth16 sq2e{E2E_LOG}] the {n} proves' quotients:")
+    assert len(calls) == n, calls
+    for (label, (_, phases)), call in zip(res["proves"].items(), calls):
+        log(f"[groth16 sq2e{E2E_LOG}] compute_h {label} "
+            f"{phases['compute_h']:.4f} s: the quotient call {call:.4f} s "
+            f"(synchronised), the rest {phases['compute_h'] - call:.4f} s "
+            f"(limb_planes: the solver's limbs padded on the host and "
+            f"uploaded)")
     return results, launches, {f"{k}_2e20": v for k, v in ntt.items()}
 
 
@@ -2904,6 +3046,7 @@ def main():
     build.result()
     log(f"[env] nvcc builds, side by side, {time.perf_counter() - t0:.1f} s")
     watch_ntt()
+    watch_mont()
     outer_keys = {inner: pool.submit(recursion_outer_setup, device,
                                      prepared, inner)
                   for inner in RECURSION}
@@ -2911,7 +3054,8 @@ def main():
     for name, info in _cuda.build_info.items():
         log(f"[env] nvcc {name} {info['seconds']:.1f} s: {info['command']}")
     for lib in ("msm", "msm_g1_bls24315", "msm_g2_bls24315", "ntt"):
-        for line in ptxas_summary(_cuda.build_info[lib]["ptxas"]):
+        lines = ptxas_summary(_cuda.build_info[lib]["ptxas"])
+        for line in lines + ntt_pass_smem(lines):
             log(f"[ptxas] {line}")
     for a in args:
         if a.split("=")[0] == "--sass":
@@ -3033,16 +3177,9 @@ def main():
              "curves_groth16": l_curves, "curves_plonk": l_curves_plonk,
              "serialization": l_serial, "recursion": l_recursion,
              "sharded_prove": l_sharded, "2e20": l_2e20}
-    for key, r in kern_ntt.items():
-        entries.append({
-            "name": key, "route": "cuda",
-            "source": "gnark_tpu_torch/csrc/ntt_kernels.cu",
-            "replaces": NTT_REPLACES[key.split("_fr_")[0]],
-            "launches": sum(l.get(key, 0) for l in paths.values()),
-            **{f"launches_{p}": l.get(key, 0) for p, l in paths.items()},
-            **r})
-    for key, r in kern_ntt_paths.items():
-        # the rows at the paths' largest domains: launched on every path
+    for key, r in {**kern_ntt, **kern_ntt_paths}.items():
+        # the rows at phase 3's sizes and at other sizes (<kernel>_<kind>
+        # _2e<k>): the kernel's launches on every path
         base = key.rsplit("_2e", 1)[0]
         entries.append({
             "name": key, "route": "cuda",

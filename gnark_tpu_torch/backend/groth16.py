@@ -424,23 +424,27 @@ def key_planes(arrays, device, native=False) -> tuple:
 # ---- prove ----------------------------------------------------------------------
 
 
-def compute_h(domain: Domain, a, b, c):
+def compute_h(domain: Domain, a, b, c, regular: bool = False):
     """Quotient h = (A*B - C)/Z on the device; bit-reversed coefficients.
 
     iFFT (DIF) -> coset FFT (DIT) -> pointwise (ab - c) / (g^n - 1) ->
     coset iFFT (DIF); Z is the constant g^n - 1 on the coset.  On the
     card every transform and the pointwise step are kernels
-    (ops/ntt.py)."""
-    F, q = domain.F, domain.spec.modulus
-    den = pow(pow(domain.coset_gen, domain.n, q) - 1, -1, q)
-    den_pl = F.pack([den], domain.device)
+    (ops/ntt.py).  Montgomery planes in and out, as gnark_tpu's
+    _compute_h; ``regular`` (prove's form): a, b and c in regular form
+    and h returned in it, the to_mont of each input folded into its iFFT's
+    pre-scale and h's from_mont into the coset iFFT's post-scale, the
+    same limbs as from_mont(compute_h(to_mont(a), ...))."""
+    q = domain.spec.modulus
+    den_pl = domain.scalar(pow(pow(domain.coset_gen, domain.n, q) - 1, -1, q))
 
     def coset_evals(x):
-        return domain.fft(domain.ifft(x, "DIF"), "DIT", coset=True)
+        return domain.fft(domain.ifft(x, "DIF", regular_in=regular), "DIT",
+                          coset=True)
 
     ae, be, ce = coset_evals(a), coset_evals(b), coset_evals(c)
     h = fr_pointwise(domain.spec, ae, be, ce, den_pl)
-    return domain.ifft(h, "DIF", coset=True)
+    return domain.ifft(h, "DIF", coset=True, regular_out=regular)
 
 
 def _host_ntt(vals, omega, q, inverse=False):
@@ -555,22 +559,21 @@ def prove(cs, pk: ProvingKey, witness_values, rng=None, check: bool = True,
         arr = np.pad(arr, ((0, 0), (0, k - arr.shape[1])))
         return torch.from_numpy(arr).to(device)
 
-    am = K.fr.to_mont(limb_planes("a", 0, n))
-    bm = K.fr.to_mont(limb_planes("b", 0, n))
-    cm = K.fr.to_mont(limb_planes("c", 0, n))
+    abc = [limb_planes(name, 0, n) for name in ("a", "b", "c")]
     n_dev = 0 if mesh is None else mesh.get_group(mesh_axis).size()
     if mesh is not None and n % n_dev == 0 and (n // n_dev) % n_dev == 0:
         # the four-step NTT chain: both all_to_all stages of every
         # transform cross the mesh axis; the strided output is gathered
         # and permuted to the bit-reversed order the Z key points use
         sd = _sharded_domain_cache(curve.fr, n, mesh, mesh_axis, device)
-        h_strided = sd.gather(sd.compute_h(sd.block(am), sd.block(bm),
-                                           sd.block(cm)))
+        h_strided = sd.gather(sd.compute_h(
+            *(sd.block(K.fr.to_mont(t)) for t in abc)))
         perm = torch.from_numpy(sd.strided_to_brev_perm().astype(np.int64))
         h = K.fr.from_mont(h_strided[:, perm.to(device)])
     else:
-        h = K.fr.from_mont(compute_h(_domain(curve.fr, n, device), am, bm,
-                                     cm))
+        # regular form in and out: the conversions ride on the first and
+        # last passes of the quotient's transforms
+        h = compute_h(_domain(curve.fr, n, device), *abc, regular=True)
     h = torch.cat([h, h.new_zeros(Ls, n_pad - n)], 1)
     ph.mark("compute_h")
 

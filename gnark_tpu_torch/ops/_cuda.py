@@ -7,13 +7,13 @@ shared library with a plain C interface under ``gnark_tpu_torch/_build/``
 ctypes loads it.  The five libraries are separate translation units:
 BN254's MSM kernels (kinds ``g1``, ``g2``), BLS24-315's G1 (kind
 ``g1_bls24315``, over its fp), its G2 (``g2_bls24315``, over fp4), the
-quotient's NTT stage and pointwise step over the six scalar fields
+quotient's NTT passes and pointwise step over the six scalar fields
 (kinds ``fr_bn254`` ... ``fr_bw6_633``, ``FR_KINDS``) and the
 microbenchmark; ``build_all`` runs the five compilers at once.  No torch
 headers are compiled in.  Every MSM and microbenchmark launcher returns
 ``cudaGetLastError()``, a nonzero code raising; the NTT library's return
-the number of kernels they launched (a transform's log2 n stages from
-one call), or minus the error, which raises.
+the number of kernels they launched (a transform's passes from one
+call, ``ntt_plan``), or minus the error, which raises.
 
 ``launches`` counts kernel launches by name (``leaf_prefix_g1``, ...,
 ``ladder_g2_bls24315``, ``ntt_fr_bn254``, ``fr_pointwise_fr_bw6_761``,
@@ -23,6 +23,7 @@ they launch.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -195,7 +196,9 @@ def _bind_ntt(lib):
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     for kind in FR_KINDS:
         for name, args in (
-                ("ntt", [vp, vp, vp, cl, vp, vp, cl, ci, cl, ci, vp]),
+                ("ntt", [vp, vp, vp, cl, vp, cl, ci, vp, cl, ci, cl, ci,
+                         vp]),
+                ("ntt_plan", [cl, ci, vp]),
                 ("fr_pointwise", [vp, vp, vp, vp, cl, ci, vp, cl, vp])):
             fn = getattr(lib, f"gnark_{name}_{kind}")
             fn.argtypes = args
@@ -359,21 +362,43 @@ def _planes(t, shapes, name):
     return 0 if t is None else t.data_ptr()
 
 
+NttPass = collections.namedtuple(
+    "NttPass", "s0 m c tile_log smem_bytes blocks_per_sm")
+
+
+def ntt_plan(kind, n, dit=False):
+    """The passes that ``ntt_transform`` launches for an n-point transform
+    of ``kind``, in their order, as the library plans them
+    (csrc/ntt_kernels.cu's ntt_plan, gnark_ntt_plan_<kind>): each pass's
+    first stage s0, its m stages over 2^c adjacent columns (c = 0: a
+    contiguous pass), its tile 2^tile_log, its block's dynamic shared
+    memory and the blocks an SM that CUDA's occupancy allows on the
+    current device."""
+    out = (ctypes.c_int * (6 * 64))()
+    plan = getattr(_load("ntt"), f"gnark_ntt_plan_{kind}")
+    count = plan(n, int(dit), out)
+    if count < 0:
+        raise RuntimeError(f"ntt_plan_{kind}: cudaError {-count}")
+    return [NttPass(*out[6 * i:6 * i + 6]) for i in range(count)]
+
+
 def ntt_args(x, y, tw, pre, post, dit):
     """The arguments of csrc/ntt_kernels.cu's ``gnark_ntt_<kind>`` but
-    the stream, after the shape checks: x, y [L, n], tw [L, n / 2], pre
-    [L, n] or None, post [L, n], [L, 1] (one value for every element) or
-    None; a DIT transform if ``dit``, else DIF."""
+    the stream, after the shape checks: x, y [L, n], tw [L, n / 2]; pre
+    and post [L, n], [L, 1] (one value for every element) or None; a DIT
+    transform if ``dit``, else DIF."""
     L, n = x.shape
     if n < 1 or n & (n - 1):
         raise ValueError(f"transform size {n} is not a power of two")
     _planes(y, [(L, n)], "y")
     _planes(tw, [(L, n // 2)], "twiddles")
-    return (x.data_ptr(), y.data_ptr(), tw.data_ptr(), n // 2,
-            _planes(pre, [(L, n)], "pre"),
-            _planes(post, [(L, n), (L, 1)], "post"),
-            0 if post is None else post.shape[1],
-            int(post is not None and post.shape[1] == n), n, int(dit))
+    scales = []
+    for name, t in (("pre", pre), ("post", post)):
+        scales += [_planes(t, [(L, n), (L, 1)], name),
+                   0 if t is None else t.shape[1],
+                   int(t is not None and t.shape[1] == n)]
+    return (x.data_ptr(), y.data_ptr(), tw.data_ptr(), n // 2, *scales, n,
+            int(dit))
 
 
 def _launch_fr(name, counter, kind, planes, args):
@@ -393,9 +418,9 @@ def _launch_fr(name, counter, kind, planes, args):
 
 def ntt_transform(x, tw, pre, post, dit, kind):
     """One transform of x (DIT if ``dit``, else DIF) into a new tensor, x
-    left as it was: one C call that launches ntt_stage_kernel once a
-    butterfly stage (once at n = 1), pre's scale fused into the first and
-    post's into the last where given (ntt_args)."""
+    left as it was: one C call that launches ntt_pass_kernel once a pass
+    (``ntt_plan``), pre's scale on the first pass's load and post's on
+    the last's store where given (ntt_args)."""
     for name, t in (("x", x), ("twiddles", tw), ("pre", pre),
                     ("post", post)):
         if t is not None:

@@ -8,16 +8,21 @@ DIF -> DIT without a permutation.
 
 Every transform routes by device, as ops/msm.py's kernels do: on CUDA
 tensors one call of _cuda.ntt_transform, which launches csrc/
-ntt_kernels.cu's ``ntt_stage_kernel`` once a butterfly stage (the coset
-pre-scale fused into the first stage, the n^-1 / inverse-coset
-post-scale into the last, one scaling launch at n = 1), on CPU tensors
-the plain version,
-``Domain.transform_plain``: each stage one reshape [L, blocks, 2, half]
-and one vectorized add/sub/mul over the whole array.  ``fr_pointwise``,
-the Groth16 quotient's (a b - c) d, routes the same way.  Any other device
-raises; nothing on the card falls back to the plain version.
-``plain_on_cuda`` counts plain versions run on CUDA tensors (by a
-comparison, never by a transform).
+ntt_kernels.cu's ``ntt_pass_kernel`` once a pass over shared-memory
+tiles (one pass where n fits a tile, two for every larger transform
+that the port runs; the pre-scale on the first pass's load, the
+post-scale on the last pass's store), on CPU tensors the plain version,
+``Domain.transform_plain``: the pre-scale, then each stage one reshape
+[L, blocks, 2, half] and one vectorized add/sub/mul over the whole array,
+then the post-scale.  ``fr_pointwise``, the Groth16 quotient's (a b - c)
+d, routes the same way.  Any other device raises; nothing on the card
+falls back to the plain version.  ``plain_on_cuda`` counts plain
+versions run on CUDA tensors (by a comparison, never by a transform).
+
+An inverse transform may also convert between regular and Montgomery
+form on its way (``ifft``'s ``regular_in`` / ``regular_out``, the
+Groth16 quotient's): the conversion's product by a constant joins the
+pre- or post-scale, so it costs no pass of its own.
 """
 
 from __future__ import annotations
@@ -75,55 +80,84 @@ class Domain:
             k *= 2
         return out[:, :n]
 
-    def table(self, name: str):
-        if name in self._tables:
-            return self._tables[name]
+    def table(self, name: str, scale: int = 1):
+        """A table by name, each entry times ``scale`` (a field element:
+        R^-1 folds from_mont into an inverse coset transform's
+        post-scale), cached; the tables it is made from are not kept."""
+        key = (name, scale % self.spec.modulus)
+        if key not in self._tables:
+            t = self._build(name)
+            if key[1] != 1:
+                t = self.F.mul(t, self.scalar(scale))
+            self._tables[key] = t
+        return self._tables[key]
+
+    def _build(self, name: str):
         brev = torch.from_numpy(
             bit_reverse_perm(self.n).astype(np.int64)).to(self.device)
         if name == "tw":
-            t = self._powers(self.omega, self.n // 2)
-        elif name == "itw":
-            t = self._powers(self.omega_inv, self.n // 2)
-        elif name == "coset":
-            t = self._powers(self.coset_gen, self.n)
-        elif name == "coset_brev":
-            t = self.table("coset")[:, brev]
-        elif name == "icoset_ninv":
+            return self._powers(self.omega, self.n // 2)
+        if name == "itw":
+            return self._powers(self.omega_inv, self.n // 2)
+        if name == "coset":
+            return self._powers(self.coset_gen, self.n)
+        if name == "coset_brev":
+            return self._build("coset")[:, brev]
+        if name == "icoset_ninv":
             # g^-j * n^-1: fused post-scale of the inverse coset transform
-            t = self.F.mul(self._powers(self.coset_gen_inv, self.n),
-                           self.F.pack([self.n_inv], self.device))
-        elif name == "icoset_ninv_brev":
-            t = self.table("icoset_ninv")[:, brev]
-        else:
-            raise KeyError(name)
-        self._tables[name] = t
-        return t
+            return self.F.mul(self._powers(self.coset_gen_inv, self.n),
+                              self.F.pack([self.n_inv], self.device))
+        if name == "icoset_ninv_brev":
+            return self._build("icoset_ninv")[:, brev]
+        raise KeyError(name)
 
-    def operands(self, inverse: bool, order: str, coset: bool):
+    def scalar(self, v: int):
+        """[L, 1] Montgomery planes of one field element, cached."""
+        key = ("scalar", v % self.spec.modulus)
+        if key not in self._tables:
+            self._tables[key] = self.F.pack([v], self.device)
+        return self._tables[key]
+
+    def operands(self, inverse: bool, order: str, coset: bool,
+                 regular_in: bool = False, regular_out: bool = False):
         """(twiddles, pre-scale, post-scale) of one transform: the coset
         powers before a forward coset transform, n^-1 (times the inverse
-        coset powers) after an inverse one."""
+        coset powers) after an inverse one.  An inverse transform's
+        ``regular_in``: x holds regular-form values, and the pre-scale is
+        R (to_mont); its ``regular_out``: the result in regular form, the
+        post-scale times R^-1 (from_mont).  Each is one product by a
+        constant, which the Montgomery product makes exact, so the limbs
+        equal to_mont before and from_mont after."""
         if not inverse:
             pre = None
             if coset:
                 pre = self.table("coset" if order == "DIF" else "coset_brev")
             return self.table("tw"), pre, None
+        p = self.spec.modulus
+        r = self.spec.R % p
+        out = pow(r, -1, p) if regular_out else 1
+        pre = self.scalar(r) if regular_in else None
         if coset:
             post = self.table(
-                "icoset_ninv_brev" if order == "DIF" else "icoset_ninv")
+                "icoset_ninv_brev" if order == "DIF" else "icoset_ninv", out)
         else:
-            post = self.F.pack([self.n_inv], self.device)
-        return self.table("itw"), None, post
+            post = self.scalar(self.n_inv * out)
+        return self.table("itw"), pre, post
 
     def fft(self, x, order: str = "DIF", coset: bool = False):
         """Forward NTT.  DIF: natural coeffs -> bit-reversed evals;
-        DIT: bit-reversed coeffs -> natural evals."""
+        DIT: bit-reversed coeffs -> natural evals.  Montgomery planes in
+        and out."""
         return self._transform(x, *self.operands(False, order, coset), order)
 
-    def ifft(self, x, order: str = "DIF", coset: bool = False):
+    def ifft(self, x, order: str = "DIF", coset: bool = False,
+             regular_in: bool = False, regular_out: bool = False):
         """Inverse NTT (scaled by 1/n).  DIF: natural evals -> bit-reversed
-        coeffs; DIT: bit-reversed evals -> natural coeffs."""
-        return self._transform(x, *self.operands(True, order, coset), order)
+        coeffs; DIT: bit-reversed evals -> natural coeffs.  Montgomery
+        planes in and out, or regular ones where ``regular_in`` /
+        ``regular_out`` (``operands``)."""
+        return self._transform(x, *self.operands(
+            True, order, coset, regular_in, regular_out), order)
 
     def _transform(self, x, tw, pre, post, order):
         if _device_route(x, "ntt"):
@@ -140,7 +174,8 @@ class Domain:
             _cuda.fr_kind(self.spec))
 
     def transform_plain(self, x, tw, pre, post, order):
-        """The plain version: the stages as torch ops on the whole array."""
+        """The plain version: the pre-scale, the stages as torch ops on the
+        whole array, the post-scale (each scale a table or one value)."""
         if x.is_cuda:
             plain_on_cuda["ntt"] += 1
         F, k, n, L = self.F, self.log_n, self.n, self.spec.L

@@ -38,9 +38,11 @@ The file imports no jax, so it runs where the port runs:
     weighted sum and reduction launched twice on the same inputs, each
     launch against the plain version.
   * the quotient's kernels (csrc/ntt_kernels.cu) over the six scalar
-    fields: every transform shape at n = 1, 2 and 4,096, one stage
-    launch a level, and the pointwise step (a b - c) d, against the plain
-    versions; compute_h on the card against the CPU's, with its launches.
+    fields: every transform shape at n = 1, 2, 4,096, twice the largest
+    tile and 2^16, one launch a pass (``_cuda.ntt_plan``), compute_h's
+    two regular-form transforms too, and the pointwise step (a b - c) d,
+    against the plain versions; compute_h on the card against the CPU's,
+    with its launches, in both forms.
 
 Tolerance: none.  Limbs compare exactly; points compare as Python ints.
 The microbenchmark's ``fma_f32`` alone compares within
@@ -538,8 +540,8 @@ def test_other_curves_prove_on_cuda_equal_host_mode(dev, curve):
            if v != before[k]}
     kind = f"fr_{curve.name}"
     # every route: the quotient's seven transforms and pointwise step
-    ntt = {f"ntt_{kind}": 7 * max(1, pk.domain_n.bit_length() - 1),
-           f"fr_pointwise_{kind}": 1}
+    passes = len(_cuda.ntt_plan(kind, pk.domain_n))
+    ntt = {f"ntt_{kind}": 7 * passes, f"fr_pointwise_{kind}": 1}
     assert {k: v for k, v in ran.items() if k in ntt} == ntt, ran
     msm_kernels = set(ran) - set(ntt)
     if curve is BLS24_315:
@@ -563,28 +565,56 @@ def _fr_values(spec, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 4096])
+@pytest.mark.parametrize("n", [1, 2, 4096, "2T", 1 << 16])
 @pytest.mark.parametrize("kind", list(_cuda.FR_KINDS))
 def test_ntt_kernel_matches_plain_on_cuda(dev, kind, n):
-    """Every transform shape through the stage kernel, one launch a
-    butterfly stage (one at n = 1), against the plain version on the same
-    CUDA tensors; the public fft / ifft take the kernel route."""
+    """Every transform shape through the pass kernel, one launch a pass
+    (``_cuda.ntt_plan``: one at n <= T, the largest tile, two from 2T to
+    2^16), against the plain version on the same CUDA tensors; the public
+    fft / ifft take the kernel route."""
+    tmax = max(p.tile_log for p in _cuda.ntt_plan(kind, 1 << 20))
+    if n == "2T":
+        n = 2 << tmax
     spec = ALL_CURVES[kind[3:]].fr
     d = Domain(spec, n, dev)
     x = d.F.pack(_fr_values(spec, n, n), dev)
+    launches = len(_cuda.ntt_plan(kind, n))
+    assert launches == (1 if n <= 1 << tmax else 2)
     for inverse, order, coset in NTT_SHAPES:
         ops = d.operands(inverse, order, coset)
         before = _cuda.launches[f"ntt_{kind}"]
         got = d.transform_kernel(x, *ops, order)
         torch.cuda.synchronize()
-        assert _cuda.launches[f"ntt_{kind}"] == \
-            before + max(1, n.bit_length() - 1)
+        assert _cuda.launches[f"ntt_{kind}"] == before + launches
         plain = dict(NT.plain_on_cuda)
         fn = d.ifft if inverse else d.fft
         assert torch.equal(fn(x, order, coset=coset), got)
         assert NT.plain_on_cuda == plain, "fft/ifft ran the plain version"
         assert torch.equal(got, d.transform_plain(x, *ops, order)), \
             (inverse, order, coset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_cuda.FR_KINDS))
+def test_ntt_kernel_regular_forms_match_plain_on_cuda(dev, kind):
+    """compute_h's two regular-form transforms (the iFFT with R as its
+    broadcast pre-scale on the first pass's load, the coset iFFT with
+    R^-1 folded into its post table on the last pass's store) at n =
+    4,096 against the plain version: the limbs of to_mont before and
+    from_mont after."""
+    spec = ALL_CURVES[kind[3:]].fr
+    n = 4096
+    d = Domain(spec, n, dev)
+    F = d.F
+    x = F.pack(_fr_values(spec, n, 3), dev)
+    for coset, regular in ((False, (True, False)), (True, (False, True))):
+        ops = d.operands(True, "DIF", coset, *regular)
+        got = d.transform_kernel(x, *ops, "DIF")
+        assert torch.equal(got, d.transform_plain(x, *ops, "DIF"))
+        want = d.transform_plain(F.to_mont(x) if regular[0] else x,
+                                 *d.operands(True, "DIF", coset), "DIF")
+        assert torch.equal(got, F.from_mont(want) if regular[1] else want), \
+            coset
 
 
 @pytest.mark.cuda
@@ -608,17 +638,23 @@ def test_fr_pointwise_matches_plain_on_cuda(dev, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bn254", "bw6_761"])
 def test_compute_h_on_cuda_equals_cpu(dev, name):
-    """The quotient at n = 1,024 on the card (70 stage launches, one
-    pointwise) and on the CPU: the same limbs."""
+    """The quotient at n = 1,024 on the card (seven transforms of one
+    pass each, one pointwise launch) and on the CPU: the same limbs; in
+    prove's regular form too, the limbs of from_mont(compute_h(to_mont))
+    with no conversion of its own on the card."""
     spec = ALL_CURVES[name].fr
+    F = field_ops(spec)
     n = 1024
-    planes = [field_ops(spec).pack(_fr_values(spec, n, s), "cpu")
-              for s in (5, 6, 7)]
+    planes = [F.pack(_fr_values(spec, n, s), "cpu") for s in (5, 6, 7)]
     want = tg.compute_h(Domain(spec, n, "cpu"), *planes)
     before = dict(_cuda.launches)
-    got = tg.compute_h(Domain(spec, n, dev), *(t.to(dev) for t in planes))
+    dom = Domain(spec, n, dev)
+    got = tg.compute_h(dom, *(t.to(dev) for t in planes))
     torch.cuda.synchronize()
     ran = {k: v - before[k] for k, v in _cuda.launches.items()
            if v != before[k]}
-    assert ran == {f"ntt_fr_{name}": 70, f"fr_pointwise_fr_{name}": 1}, ran
+    assert ran == {f"ntt_fr_{name}": 7, f"fr_pointwise_fr_{name}": 1}, ran
     assert torch.equal(got.cpu(), want)
+    regular = [F.from_mont(t) for t in planes]
+    got = tg.compute_h(dom, *(t.to(dev) for t in regular), regular=True)
+    assert torch.equal(got.cpu(), F.from_mont(want))

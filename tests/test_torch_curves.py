@@ -363,9 +363,9 @@ def test_groth16_device_path_on_cpu_equals_jax(name):
     seen = []
     orig = tg.compute_h
 
-    def watched(domain, a, b, c):
+    def watched(domain, a, b, c, **kw):
         seen.append(domain.device)
-        return orig(domain, a, b, c)
+        return orig(domain, a, b, c, **kw)
 
     tg.compute_h = watched
     try:

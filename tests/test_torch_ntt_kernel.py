@@ -2,15 +2,21 @@
 and the two functions of gnark_tpu that the port lacked until them.
 
   * the kernel source compiled for the host with g++ (field.cuh's portable
-    product, a launch run as one thread), a transform driven through the
-    source's own ``ntt_stages`` (the card's sequence of stage launches)
-    with ``_cuda.ntt_args``' arguments, for all six scalar fields: DIF
-    and DIT, plain
-    and coset, forward and inverse, at n = 1, 2, 64 and 1,024, against the
-    plain version and against gnark_tpu.backend.groth16._host_ntt (the JAX
-    package's own host chain); the values p - 1, 0 and 1 through the
-    butterflies; the pointwise step (a b - c) d against the plain field
-    ops;
+    product; a launch run as host threads, a block's threads sharing a
+    std::barrier as __syncthreads and a buffer as its shared memory), a
+    transform driven through the source's own ``ntt_passes`` (the card's
+    sequence of pass launches) with ``_cuda.ntt_args``' arguments, for all
+    six scalar fields: DIF and DIT, plain and coset, forward and inverse,
+    at n = 1, 2, 32, 64 and 1,024 with tiles of 16 (so the strided and
+    contiguous passes both run: one strided pass of one stage at 32, of
+    two at 64, three at 1,024), as one thread and as 2 blocks of 3
+    threads, and at n = 8,192 with the shipped tile, against the plain
+    version and against gnark_tpu.backend.groth16._host_ntt (the JAX
+    package's own host chain); the source's pass plan (ntt_plan, the
+    library's alone) at largest tiles of 2^3 to 2^12 and at each field's
+    shipped one; the values p - 1, 0 and 1 through every pass boundary;
+    the broadcast pre-scale and compute_h's two regular-form transforms;
+    the pointwise step (a b - c) d against the plain field ops;
   * the traits structs' constants (p, R mod p, -p^-1 mod 2^32) against
     the field specs;
   * the routing: CPU tensors run the plain version, any other device
@@ -18,6 +24,9 @@ and the two functions of gnark_tpu that the port lacked until them.
     with no kernels;
   * ``groth16.dummy_setup`` and ``fixed_base.batch_scalar_mul`` against
     gnark_tpu's;
+  * ``compute_h(..., regular=True)``, prove's form, against from_mont of
+    ``compute_h`` of to_mont's, bit for bit, over BN254's fr at n = 64
+    and 1,024 and BW6-761's at 64;
   * under ``-m slow``: the port's Domain and compute_h against gnark_tpu's
     Domain and _compute_h through XLA on the CPU, over BW6-761's fr.
 
@@ -61,6 +70,11 @@ STRUCTS = {"fr_bn254": "BN254Fr", "fr_bls12_381": "BLS12381Fr",
            "fr_bw6_761": "BLS12377Fp", "fr_bw6_633": "BLS24315Fp"}
 SHAPES = [(inverse, order, coset) for inverse in (False, True)
           for order in ("DIF", "DIT") for coset in (False, True)]
+# compute_h's regular-form transforms, (shape, (regular_in, regular_out)):
+# its iFFT takes regular planes in, its coset iFFT gives h out in regular
+# form
+REGULAR_SHAPES = [((True, "DIF", False), (True, False)),
+                  ((True, "DIF", True), (False, True))]
 
 
 def spec_of(kind):
@@ -68,46 +82,100 @@ def spec_of(kind):
 
 
 HARNESS = r"""
+#include <barrier>
 #include <cstdint>
+#include <memory>
+#include <thread>
+#include <vector>
 struct Dim { unsigned x; };
-static Dim blockIdx, threadIdx, blockDim, gridDim;
+static thread_local Dim blockIdx, threadIdx;
+static Dim blockDim, gridDim;
+static thread_local std::barrier<>* block_barrier;
 #define __global__
+#define __syncthreads() block_barrier->arrive_and_wait()
 #include "ntt_kernels.cu"
 
-// a launch as one thread: the kernels loop over their work with a grid
-// stride
-static void one_thread() {
-  blockIdx.x = threadIdx.x = 0;
-  blockDim.x = gridDim.x = 1;
+// a launch of `blocks` blocks of `threads` threads, each a host thread;
+// a block's threads share its barrier (__syncthreads) and its buffer of
+// `words` words (shared memory)
+template <class Body>
+static void launch(int blocks, int threads, long words, Body body) {
+  blockDim.x = threads;
+  gridDim.x = blocks;
+  std::vector<std::vector<uint32_t>> smem(blocks,
+                                          std::vector<uint32_t>(words));
+  std::vector<std::unique_ptr<std::barrier<>>> bars;
+  for (int b = 0; b < blocks; ++b)
+    bars.emplace_back(std::make_unique<std::barrier<>>(threads));
+  std::vector<std::thread> pool;
+  for (int b = 0; b < blocks; ++b)
+    for (int t = 0; t < threads; ++t)
+      pool.emplace_back([&, b, t] {
+        blockIdx.x = b;
+        threadIdx.x = t;
+        block_barrier = bars[b].get();
+        body(smem[b].data());
+      });
+  for (auto& th : pool) th.join();
 }
 template <class P, bool DIT>
 static int host_ntt(const int64_t* x, int64_t* y, const int64_t* tw,
-                    long tw_stride, const int64_t* pre, const int64_t* post,
-                    long post_stride, int post_step, long n) {
-  return ntt_stages(x, y, pre, post, n, DIT,
+                    long tw_stride, const int64_t* pre, long pre_stride,
+                    int pre_step, const int64_t* post, long post_stride,
+                    int post_step, long n, int tlog, int blocks,
+                    int threads) {
+  int k = 0;
+  while ((1L << k) < n) ++k;
+  return ntt_passes(x, y, pre, post, n, DIT, tlog,
                     [&](const int64_t* src, const int64_t* pr,
-                        const int64_t* po, int s) {
-                      one_thread();
-                      ntt_stage_kernel<P, DIT>(src, y, tw, tw_stride, pr, po,
-                                               post_stride, post_step, n, s);
+                        const int64_t* po, int s0, int m, int c, int t) {
+                      launch(blocks, threads, ntt_smem_words<P>(t),
+                             [&](uint32_t* sm) {
+                               ntt_pass<P, DIT>(src, y, tw, tw_stride, pr,
+                                                pre_stride, pre_step, po,
+                                                post_stride, post_step, k,
+                                                s0, m, c, t, sm);
+                             });
+                      return 0;
+                    });
+}
+extern "C" int host_ntt_tiles_log() { return NTT_TILES_LOG; }
+// the passes (s0, m, c, t) in the order ntt_passes runs them, into out
+extern "C" int host_ntt_plan(long n, int dit, int tlog, int* out) {
+  int i = 0;
+  return ntt_passes(nullptr, nullptr, nullptr, nullptr, n, dit, tlog,
+                    [&](const int64_t*, const int64_t*, const int64_t*,
+                        int s0, int m, int c, int t) {
+                      out[i++] = s0;
+                      out[i++] = m;
+                      out[i++] = c;
+                      out[i++] = t;
                       return 0;
                     });
 }
 #define HOST(NAME, FIELD)                                                     \
   extern "C" int host_ntt_##NAME(                                             \
       const int64_t* x, int64_t* y, const int64_t* tw, long tw_stride,        \
-      const int64_t* pre, const int64_t* post, long post_stride,              \
-      int post_step, long n, int dit) {                                       \
-    return dit ? host_ntt<FIELD, true>(x, y, tw, tw_stride, pre, post,        \
-                                       post_stride, post_step, n)             \
-               : host_ntt<FIELD, false>(x, y, tw, tw_stride, pre, post,       \
-                                        post_stride, post_step, n);           \
+      const int64_t* pre, long pre_stride, int pre_step, const int64_t* post, \
+      long post_stride, int post_step, long n, int dit, int tlog,             \
+      int blocks, int threads) {                                              \
+    return dit ? host_ntt<FIELD, true>(x, y, tw, tw_stride, pre, pre_stride,  \
+                                       pre_step, post, post_stride,           \
+                                       post_step, n, tlog, blocks, threads)   \
+               : host_ntt<FIELD, false>(x, y, tw, tw_stride, pre, pre_stride, \
+                                        pre_step, post, post_stride,          \
+                                        post_step, n, tlog, blocks, threads); \
   }                                                                           \
+  extern "C" long host_ntt_smem_words_##NAME(int tlog) {                      \
+    return ntt_smem_words<FIELD>(tlog);                                       \
+  }                                                                           \
+  extern "C" int host_ntt_tile_max_##NAME() { return NTT_TILE_MAX<FIELD>; }   \
   extern "C" void host_fr_pointwise_##NAME(                                   \
       const int64_t* a, const int64_t* b, const int64_t* c, const int64_t* d, \
       long d_stride, int d_step, int64_t* out, long n) {                      \
-    one_thread();                                                             \
-    fr_pointwise_kernel<FIELD>(a, b, c, d, d_stride, d_step, out, n);         \
+    launch(1, 1, 0, [&](uint32_t*) {                                          \
+      fr_pointwise_kernel<FIELD>(a, b, c, d, d_stride, d_step, out, n);       \
+    });                                                                       \
   }
 HOST(fr_bn254, BN254Fr)
 HOST(fr_bls12_381, BLS12381Fr)
@@ -116,6 +184,7 @@ HOST(fr_bls24_315, BLS24315Fr)
 HOST(fr_bw6_761, BLS12377Fp)
 HOST(fr_bw6_633, BLS24315Fp)
 """
+SMALL_TILE = 4      # tiles of 16 elements in the host harness
 
 
 @pytest.fixture(scope="module")
@@ -126,27 +195,47 @@ def host_lib(tmp_path_factory):
     src = d / "harness.cpp"
     src.write_text(HARNESS)
     lib = d / "libntt_host.so"
-    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC",
-                    f"-I{CSRC}", "-o", str(lib), str(src)], check=True)
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", f"-I{CSRC}", "-o", str(lib), str(src)],
+                   check=True)
     lib = ctypes.CDLL(str(lib))
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     for kind in KINDS:
         fn = getattr(lib, f"host_ntt_{kind}")
-        fn.argtypes = [vp, vp, vp, cl, vp, vp, cl, ci, cl, ci]
+        fn.argtypes = [vp, vp, vp, cl, vp, cl, ci, vp, cl, ci, cl, ci, ci,
+                       ci, ci]
         fn.restype = ci
+        fn = getattr(lib, f"host_ntt_smem_words_{kind}")
+        fn.argtypes = [ci]
+        fn.restype = cl
+        getattr(lib, f"host_ntt_tile_max_{kind}").restype = ci
         fn = getattr(lib, f"host_fr_pointwise_{kind}")
         fn.argtypes = [vp, vp, vp, vp, cl, ci, vp, cl]
+    lib.host_ntt_plan.argtypes = [cl, ci, ci, vp]
+    lib.host_ntt_plan.restype = ci
+    lib.host_ntt_tiles_log.restype = ci
     return lib
 
 
-def host_transform(lib, kind, d, x, inverse, order, coset):
+def host_plan(lib, n, tlog, dit=False):
+    """The source's passes (s0, m, c, t) of an n-point transform whose
+    largest tile is 2^tlog, in the order ntt_passes runs them."""
+    out = (ctypes.c_int * 256)()
+    count = lib.host_ntt_plan(n, int(dit), tlog, out)
+    return [tuple(out[4 * i:4 * i + 4]) for i in range(count)]
+
+
+def host_transform(lib, kind, d, x, inverse, order, coset, tlog=SMALL_TILE,
+                   launch=(1, 1), regular=(False, False)):
     """The kernel route's transform over the host build: one call, its
-    log2 n stages (one at n = 1) in the source's own order."""
-    tw, pre, post = d.operands(inverse, order, coset)
+    passes (``host_plan`` at tiles of 2^tlog) in the source's own order,
+    each a launch of ``launch`` = (blocks, threads)."""
+    tw, pre, post = d.operands(inverse, order, coset, *regular)
     y = torch.empty_like(x)
     ran = getattr(lib, f"host_ntt_{kind}")(
-        *_cuda.ntt_args(x, y, tw.contiguous(), pre, post, order == "DIT"))
-    assert ran == max(1, d.log_n), (ran, d.n)
+        *_cuda.ntt_args(x, y, tw.contiguous(), pre, post, order == "DIT"),
+        tlog, *launch)
+    assert ran == len(host_plan(lib, d.n, tlog)), (ran, d.n, tlog)
     return y
 
 
@@ -176,13 +265,16 @@ def values(q, n, seed):
     return ([q - 1, 0, 1] + rnd)[:n]
 
 
-@pytest.mark.parametrize("n", [1, 2, 64, 1024])
+@pytest.mark.parametrize("n", [1, 2, 32, 64, 1024])
 @pytest.mark.parametrize("kind", KINDS)
 def test_stage_kernel_source_matches_plain_and_host_ntt(host_lib, kind, n):
-    """Every transform shape through the kernel source's ntt_stages, the
-    kernel route's order of stages (the pre-scale fused into the first,
-    the post-scale into the last, one scaling launch at n = 1), against
-    the plain version's limbs and _host_ntt's values."""
+    """Every transform shape through the kernel source's ntt_passes at
+    tiles of 16, the kernel route's order of passes (the pre-scale on the
+    first pass's load, the post-scale on the last's store; one pass at n
+    <= 16, a strided pass of kA = 1 stage over 8 of 16 columns at n = 2T
+    = 32, three strided passes at 1,024), run as one thread and as 2
+    blocks of 3 threads, against the plain version's limbs and
+    _host_ntt's values."""
     spec = spec_of(kind)
     d = N.Domain(spec, n, "cpu")
     vals = values(spec.modulus, n, n + len(kind))
@@ -193,16 +285,43 @@ def test_stage_kernel_source_matches_plain_and_host_ntt(host_lib, kind, n):
         want = d.transform_plain(x, *d.operands(inverse, order, coset),
                                  order)
         assert torch.equal(got, want), (kind, n, inverse, order, coset)
+        assert torch.equal(host_transform(host_lib, kind, d, x, inverse,
+                                          order, coset, launch=(2, 3)),
+                           want), (kind, n, inverse, order, coset)
         assert d.F.unpack(got) == host_chain(vals, d, inverse, order,
                                              coset), (inverse, order, coset)
     assert torch.equal(x, before), "the kernel route wrote its input"
 
 
+@pytest.mark.parametrize("n", [2048, 8192])
+@pytest.mark.parametrize("kind", KINDS)
+def test_pass_kernel_source_at_the_shipped_tile(host_lib, kind, n):
+    """n = 2,048 and 8,192 with the card's largest tile (the source's
+    NTT_TILE_MAX): 2,048 one pass over the whole tile of 2^11 at N = 8
+    words, two at 10 and 12; 8,192 a strided pass of 5 stages then a
+    contiguous one of 8 (tiles of 2^8, the smallest that takes two
+    passes), every shape, as 3 blocks of 4 threads, against the plain
+    version."""
+    spec = spec_of(kind)
+    tlog = getattr(host_lib, f"host_ntt_tile_max_{kind}")()
+    assert tlog == (11 if spec.L == 16 else 10), tlog
+    assert len(host_plan(host_lib, n, tlog)) == (1 if n <= 1 << tlog else 2)
+    d = N.Domain(spec, n, "cpu")
+    x = d.F.pack(values(spec.modulus, n, 29), "cpu")
+    for inverse, order, coset in SHAPES:
+        got = host_transform(host_lib, kind, d, x, inverse, order, coset,
+                             tlog=tlog, launch=(3, 4))
+        want = d.transform_plain(x, *d.operands(inverse, order, coset),
+                                 order)
+        assert torch.equal(got, want), (kind, inverse, order, coset)
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_stage_kernel_source_on_edge_values(host_lib, kind):
-    """p - 1, 0 and 1 through every butterfly: all p - 1, p - 1 against 0,
-    and 1 against p - 1, at n = 64 (every stage's twiddles), each shape
-    against the plain version."""
+    """p - 1, 0 and 1 through every butterfly and every pass boundary:
+    all p - 1, p - 1 against 0, and 1 against p - 1, at n = 64 (every
+    stage's twiddles; a strided pass of two stages, then a contiguous
+    one of four at tiles of 16), each shape against the plain version."""
     spec = spec_of(kind)
     q, n = spec.modulus, 64
     d = N.Domain(spec, n, "cpu")
@@ -214,6 +333,104 @@ def test_stage_kernel_source_on_edge_values(host_lib, kind):
             want = d.transform_plain(x, *d.operands(inverse, order, coset),
                                      order)
             assert torch.equal(got, want), (vals[:2], inverse, order, coset)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_pass_kernel_source_takes_broadcast_pre_and_regular_forms(host_lib,
+                                                                  kind):
+    """A broadcast pre-scale ([L, 1]: one value, p - 1 and a seeded one)
+    on the first pass's load, and compute_h's two regular-form transforms
+    (REGULAR_SHAPES: R as the iFFT's broadcast pre-scale, R^-1 folded into
+    the coset iFFT's post table), at n = 64 on tiles of 16, against the
+    plain version; their limbs equal to_mont before the transform and
+    from_mont after it."""
+    spec = spec_of(kind)
+    q, n = spec.modulus, 64
+    d = N.Domain(spec, n, "cpu")
+    F = d.F
+    x = F.pack(values(q, n, 31), "cpu")
+    for v in (q - 1, values(q, 4, 37)[3]):
+        for order in ("DIF", "DIT"):
+            tw, _, post = d.operands(True, order, False)
+            pre = F.pack([v], "cpu")
+            y = torch.empty_like(x)
+            ran = getattr(host_lib, f"host_ntt_{kind}")(
+                *_cuda.ntt_args(x, y, tw, pre, post, order == "DIT"),
+                SMALL_TILE, 2, 3)
+            assert ran == len(host_plan(host_lib, n, SMALL_TILE)) == 2
+            assert torch.equal(y, d.transform_plain(x, tw, pre, post, order))
+    for (inverse, order, coset), regular in REGULAR_SHAPES:
+        got = host_transform(host_lib, kind, d, x, inverse, order, coset,
+                             regular=regular)
+        ops = d.operands(inverse, order, coset, *regular)
+        assert torch.equal(got, d.transform_plain(x, *ops, order))
+        want = d.transform_plain(F.to_mont(x) if regular[0] else x,
+                                 *d.operands(inverse, order, coset), order)
+        assert torch.equal(got, F.from_mont(want) if regular[1] else want), \
+            (regular, coset)
+
+
+def test_pass_plan_matches_ntt_plan(host_lib):
+    """The source's ntt_plan, as ntt_passes runs it (DIT in reverse),
+    with largest tiles of 2^3 to 2^12 and n = 1 to 2^22: one pass where n
+    fits the largest tile; else the fewest passes that tile allows, every
+    strided pass of at most t - 2 stages over 2^(t - m) >= 4 columns, the
+    stages 0 .. k - 1 each once, at the tile t that ntt_tile_log picks
+    (the largest that takes no more passes and leaves 2^NTT_TILES_LOG
+    tiles, else the smallest that takes no more passes); at each field's
+    largest tile (NTT_TILE_MAX) two passes from 2T to 2^20 (N = 8) or
+    2^18 (N = 10, 12), the largest transforms each field runs, in shared
+    memory that an H100 block may take."""
+    tiles_log = host_lib.host_ntt_tiles_log()
+
+    def count(k, t):
+        return 1 + -(-max(k - t, 0) // (t - 2))
+    for tlog in range(3, 13):
+        for k in range(23):
+            n = 1 << k
+            plan = host_plan(host_lib, n, tlog)
+            assert host_plan(host_lib, n, tlog, dit=True) == plan[::-1]
+            t = plan[0][3]
+            assert all(p[3] == t for p in plan), plan
+            assert [s0 for s0, _, _, _ in plan] == list(np.cumsum(
+                [0] + [m for _, m, _, _ in plan[:-1]])), plan
+            assert sum(m for _, m, _, _ in plan) == k
+            assert all(1 <= m <= t - 2 and c == t - m
+                       for _, m, c, _ in plan[:-1]), plan
+            assert plan[-1][:3] == (k - min(k, t), min(k, t), 0)
+            assert len(plan) == count(k, t) == count(k, tlog), (tlog, k)
+            assert 3 <= t <= max(tlog, 3)
+            if k <= tlog:
+                assert len(plan) == 1 and t == max(k, 3)
+            else:
+                assert t == 3 or count(k, t - 1) > len(plan) \
+                    or k - t >= tiles_log, (tlog, k, t)
+                assert t == tlog or k - t - 1 < tiles_log
+    for kind in KINDS:
+        tlog = getattr(host_lib, f"host_ntt_tile_max_{kind}")()
+        top = 20 if _cuda.FR_KINDS[kind] == 16 else 18
+        assert [len(host_plan(host_lib, 1 << k, tlog))
+                for k in range(top + 1)] \
+            == [1] * (tlog + 1) + [2] * (top - tlog), kind
+        words = getattr(host_lib, f"host_ntt_smem_words_{kind}")(tlog)
+        assert 4 * words <= 227 * 1024, kind
+
+
+@pytest.mark.parametrize("name,n", [("bn254", 64), ("bn254", 1024),
+                                    ("bw6_761", 64)])
+def test_compute_h_regular_form_equals_conversions_around_it(name, n):
+    """compute_h(..., regular=True), prove's form (regular planes in, h
+    out in regular form, the conversions on the first and last passes),
+    equals from_mont(compute_h(to_mont(a), to_mont(b), to_mont(c))) bit
+    for bit on the CPU route, p - 1, 0 and 1 among the inputs."""
+    spec = ALL_CURVES[name].fr
+    d = N.Domain(spec, n, "cpu")
+    F = d.F
+    abc = [torch.from_numpy(ints_to_limbs(values(spec.modulus, n, s),
+                                          spec.L).astype(np.int64))
+           for s in (41, 42, 43)]
+    want = F.from_mont(tg.compute_h(d, *(F.to_mont(t) for t in abc)))
+    assert torch.equal(tg.compute_h(d, *abc, regular=True), want)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -384,25 +601,42 @@ def test_domain_and_compute_h_equal_jax_over_bw6_761_fr(n):
 
 # ptxas -v lines of two of the library's kernels, as nvcc prints them
 PTXAS_NTT = """\
-ptxas info    : Function properties for _Z16ntt_stage_kernelI7BN254FrLb1EEvPKlPlS2_lS2_S2_lili
+ptxas info    : Function properties for _Z15ntt_pass_kernelI7BN254FrLb1EEvPKlPlS2_lS2_liS2_liiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 56 registers, used 0 barriers
+ptxas info    : Used 72 registers, used 1 barriers
 ptxas info    : Function properties for _Z19fr_pointwise_kernelI10BLS12377FpEvPKlS2_S2_S2_liPll
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 60 registers, used 0 barriers
 """
 
 
-def test_ptxas_report_names_the_ntt_kernels():
-    """chip_smoke.py's [ptxas] lines name the stage kernel with its field
-    and order (DIT = 1) and the pointwise kernel with its field."""
+def test_ptxas_report_names_the_ntt_kernels(host_lib):
+    """chip_smoke.py's [ptxas] lines name the pass kernel with its field
+    and order (DIT = 1) and the pointwise kernel with its field, and give
+    the pass kernel's dynamic shared memory (which ptxas does not see) at
+    its kind's largest tile, with the blocks an SM, from the library's
+    plan (here the host build's, with 2 blocks an SM standing in for
+    CUDA's occupancy)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    assert mod.ptxas_summary(PTXAS_NTT) == [
-        "ntt_stage_kernel<BN254Fr, 1>: 56 registers; 0 bytes stack frame, "
+    lines = mod.ptxas_summary(PTXAS_NTT)
+    assert lines == [
+        "ntt_pass_kernel<BN254Fr, 1>: 72 registers; 0 bytes stack frame, "
         "0 bytes spill stores, 0 bytes spill loads",
         "fr_pointwise_kernel<BLS12377Fp>: 60 registers; 0 bytes stack "
         "frame, 0 bytes spill stores, 0 bytes spill loads"]
+
+    def plan(kind, n, dit):
+        tmax = getattr(host_lib, f"host_ntt_tile_max_{kind}")()
+        words = getattr(host_lib, f"host_ntt_smem_words_{kind}")
+        return [_cuda.NttPass(*p, 4 * words(p[3]), 2)
+                for p in host_plan(host_lib, n, tmax, dit)]
+    assert mod.ntt_pass_smem(lines, plan) == [
+        "ntt_pass_kernel<BN254Fr, 1> (fr_bn254): tiles of 2^11, 109824 "
+        "bytes of dynamic shared memory a block, 2 blocks an SM (CUDA's "
+        "occupancy)"]
+    assert set(mod.FR_STRUCTS.values()) == set(_cuda.FR_KINDS)
+    assert {v: k for k, v in mod.FR_STRUCTS.items()} == STRUCTS
