@@ -16,16 +16,19 @@ always measured:
      point, which prints operations per second for each op.  Each op's
      bound is its issue slots over the card's 32-bit integer issue peak
      (SMs x 64 lanes x the SM clock);
-  3. each of the six MSM kernels against its plain PyTorch version, for
+  3. each of the seven MSM kernels against its plain PyTorch version, for
      G1 (fp) and G2 (fp2), on the same CUDA tensors (bit for bit), with
      both times, the warps a launch gives each SM, and the bound (the
      least time the card could take: the 32-bit multiplies of the fewest
      point operations that give the output for this run's inputs, over
      the same integer issue peak, or its bytes over the memory rate;
      beside it the same count over the mad.wide.u32 rate that the
-     microbenchmark measured): the four windowed kernels at the 2^16
-     plan's shapes, the ladder, the per-chunk reduction of its output and
-     the fold of the chunk sums at the 4096 points of the small proof
+     microbenchmark measured): the five windowed kernels at the 2^16
+     plan's shapes (the bucket step's prefixes and bucket differences
+     among them; the Horner fold in the Jacobian form the MSM returns),
+     the ladder, the per-chunk
+     reduction of its output and the fold of the chunk sums at the 4096
+     points of the small proof
      below, for G2 also at 2^16 points (the ladder's plain version on
      4096 points spread over all of them), and the G1 leaf also at the
      PLONK commitment's 2^16 + 3 points.  Then the quotient's kernels
@@ -72,15 +75,16 @@ always measured:
      dispatch, verify (and reject a wrong root_after), and a tampered
      transfer (amount + 1) refused by the solver before any launch;
   8. BLS24-315's kernels (msm_g1_bls24315.cu over its 10-word fp,
-     msm_g2_bls24315.cu over fp4): each of the six against its plain
-     version, bit for bit, with its bound, the windowed four at the 2^16
+     msm_g2_bls24315.cu over fp4): each of the seven against its plain
+     version, bit for bit, with its bound, the windowed five at the 2^16
      plan, the ladder, its reduction and the fold of the chunk sums at
-     4096 points; G1's windowed four also at the plan of phase 10's
+     4096 points; G1's windowed five also at the plan of phase 10's
      commitments (2^14 + 3 points: c = 10, 512 buckets, C = 33); the fp4
-     leaf, lane offsets, weighted sum, ladder, reduction and both folds
-     (leaf_sliced_kernel, lane_offsets_sliced_kernel,
-     weighted_sum_sliced_kernel, ladder_sliced_kernel,
-     reduce_sliced_kernel, horner_fold_sliced_kernel) launched twice each
+     leaf, lane offsets, bucket step, weighted sum, ladder, reduction and
+     both folds (leaf_sliced_kernel, lane_offsets_sliced_kernel,
+     buckets_sliced_kernel, weighted_sum_sliced_kernel,
+     ladder_sliced_kernel, reduce_sliced_kernel,
+     horner_fold_sliced_kernel) launched twice each
      (the leaf on two seeds' inputs), against each other and the plain
      version; then G1's and G2's 2^16 MSM against the host oracle, with
      the milliseconds of each of its steps, as phase 4 prints BN254's;
@@ -143,13 +147,15 @@ always measured:
  14. the 2^20 Groth16 prove (BASELINE configs 1 and 4's headline, on
      BN254), once the earlier phases' keys are released: the quotient's
      kernels at 2^20 (compute_h's three transform shapes and its
-     pointwise step) against their plain versions, bit for bit; the four
+     pointwise step) against their plain versions, bit for bit; the five
      windowed
      kernels against their plain versions at the plan of its MSMs (2^21
      points: c = 14, 19 windows, 8,192 buckets, R = 512, C = 4,096), G1
      and G2, bit for bit (the leaf on two of the windows, its plain
      version run in 64-step segments seeded by the kernel's rows: one
-     plain run is a 4,096-step torch loop); G1's and G2's 2^21-point MSM on
+     plain run is a 4,096-step torch loop; the bucket step inside each
+     window chunk of a kernel-path run, where its rows live); G1's and
+     G2's 2^21-point MSM on
      the chunked plan against the host oracle, with its steps, its window
      chunks and its peak memory; then the 2^20 - 2 squaring chain
      (1,048,575 constraints) through gnark_tpu_torch/scripts/
@@ -165,7 +171,8 @@ left out) and read just after: every kernel of a path must have launched
 in it (each request of 9-12 and each mesh prove of 13 exactly the MSM
 kernels its route names, none on the native route; in 14 a prove's four
 G1 MSMs and one G2 MSM each launch the Horner fold once and the other
-windowed kernels once a window chunk, the ladder and reduction never),
+windowed kernels, the bucket step among them, once a window chunk, the
+ladder and reduction never),
 every prove of 5-14 exactly its quotient's NTT launches (``ntt_launches``:
 the passes of each of Groth16's seven transforms and one pointwise
 step, PLONK's five transforms of n and seven of its quotient domain; a
@@ -301,6 +308,7 @@ LATENCY_STEPS = 1024            # montmul products a chain, one element
 REPLACES = {
     "leaf_prefix": "gnark_tpu/ops/msm.py:496",
     "lane_offsets": "gnark_tpu/ops/msm.py:564",
+    "buckets": "gnark_tpu/ops/msm.py:887",
     "weighted_sum": "gnark_tpu/ops/msm.py:623",
     "horner_fold": "gnark_tpu/ops/msm.py:725",
     "ladder": "gnark_tpu/ops/msm.py:319",
@@ -606,6 +614,40 @@ def kernel_work(name, kind, args):
         # log2 R, in 2 log2 R - 1 steps)
         _, nw, R = tensors[0].shape
         return nw * (R - 1) * cost["padd"], 2 * nbytes
+    if name == "buckets":
+        # bucket b = PE(E_b+1) - PE(E_b), PE(E) = row[E] + offset[E // C]
+        # (lane E // C; lane 0's offset is the identity), counted on this
+        # run's boundaries E_b: an empty bucket (E_b+1 = E_b) needs
+        # nothing; one whose boundaries lie in one lane is the difference
+        # of two rows, one addition; one from E_b = -1 is PE(E_b+1), a row
+        # in lane 0 and one addition above; one across lanes two at least
+        # (from lane l to l + 1, row[E_b+1] plus lane l's total less
+        # row[E_b]).  The bytes: each distinct row and lane offset at the
+        # windows' boundaries, the digits a binary search a boundary
+        # reads, and the buckets written
+        rows, offs, d = tensors
+        C, R, nb = args[3:6]
+        nw, n = d.shape
+        bvals = torch.arange(nb + 1, device=d.device).expand(
+            nw, nb + 1).contiguous()
+        ends = torch.searchsorted(d, bvals, right=True) - 1
+        lo, hi = ends[:, :-1], ends[:, 1:]
+        live = hi != lo
+        one_lane = live & (lo >= 0) & (lo // C == hi // C)
+        across = live & (lo >= 0) & (lo // C != hi // C)
+        from_none = live & (lo < 0) & (hi >= C)
+        adds = (int(one_lane.sum()) + 2 * int(across.sum())
+                + int(from_none.sum()))
+        first = torch.ones_like(ends[:, :1], dtype=torch.bool)
+        new = torch.cat([first, hi != lo], 1)
+        lanes = ends.clamp(min=0) // C
+        new_lane = torch.cat([first, lanes[:, 1:] != lanes[:, :-1]], 1)
+        nrows = int((new & (ends >= 0)).sum())
+        nlanes = int(new_lane.sum())
+        probes = min(n, (nb + 1) * n.bit_length())
+        nbytes = (nrows + nlanes) * L3 * 8 + nw * probes * 8 \
+            + nw * nb * L3 * 8
+        return adds * cost["padd"], nbytes
     if name == "weighted_sum":
         # sum of (j + 1) B_j over a window's buckets that are not the
         # identity, by the cheaper of two ways: running sums from the
@@ -629,9 +671,11 @@ def kernel_work(name, kind, args):
         return products, nbytes + nw * L3 * 8
     if name == "horner_fold":
         # c doublings and an addition a window below the highest that is
-        # not the identity
-        return (fold_top(tensors[0]) * (args[1] * cost["pdbl"] + cost["padd"]),
-                nbytes + L3 * 8)
+        # not the identity, then the Jacobian form's X Z, Z^2 and Y Z^2
+        k = _cuda.shape(kind)["degree"]
+        jac = 3 * 3 ** (k.bit_length() - 1)
+        return (fold_top(tensors[0]) * (args[1] * cost["pdbl"] + cost["padd"])
+                + jac, nbytes + L3 * 8)
     if name == "ladder":
         # its function: per point i and chunk j, d_ij P_i.  The fewer of
         # two counts a point: double-and-add on each chunk (a doubling a
@@ -734,6 +778,10 @@ def warps_per_sm(name, kind, args):
     elif name == "lane_offsets":
         threads = (t[0].shape[1] * _cuda.shape(kind)["lanes_threads"]
                    * _cuda.shape(kind)["lanes_cluster"])
+    elif name == "buckets":
+        shape = _cuda.shape(kind)
+        threads = (t[2].shape[0] * -(-args[5] // shape["buckets_run"])
+                   * shape["buckets_threads"])
     elif name == "weighted_sum":
         threads = (t[0].shape[1] * _cuda.shape(kind)["wsum_threads"]
                    * _cuda.shape(kind)["wsum_cluster"])
@@ -856,9 +904,10 @@ def lanes_critical_path(kind, tot, latency_ms):
 
 def fold_critical_path(kind, S, c, latency_ms):
     """(products on the Horner fold's longest dependent chain, that chain
-    in ms at the measured latency of one dependent product)."""
+    in ms at the measured latency of one dependent product); the Jacobian
+    form adds its two levels."""
     chain = fold_top(S) * (c * len(fold_products(kind, "pdbl"))
-                           + len(fold_products(kind, "padd")))
+                           + len(fold_products(kind, "padd"))) + 2
     return chain, chain * latency_ms
 
 
@@ -896,7 +945,7 @@ def msm_bounds(products, nbytes, rates, kind):
 
 
 def windowed_cases(kind, n, device, rng):
-    """The four windowed kernels' inputs along the plan of an n-point MSM
+    """The five windowed kernels' inputs along the plan of an n-point MSM
     over oracle inputs (1 point in 64 infinite): (the plan, {name: (args,
     kernel, plain version)})."""
     from gnark_tpu_torch.ops import msm as M
@@ -920,8 +969,11 @@ def windowed_cases(kind, n, device, rng):
     return plan, {
         "leaf_prefix": ((sx, sy, GC), M.leaf_prefix, M.leaf_prefix_plain),
         "lane_offsets": ((tot, GC), M.lane_offsets, M.lane_offsets_plain),
+        "buckets": ((rows, offs, d_sorted, plan.C, plan.R, plan.nb, GC),
+                    M.buckets, M.buckets_plain),
         "weighted_sum": ((bk, GC), M.weighted_sum, M.weighted_sum_plain),
-        "horner_fold": ((S, plan.c, GC), M.horner_fold, M.horner_fold_plain),
+        "horner_fold": ((S, plan.c, GC), M.horner_fold,
+                        M.horner_fold_jacobian_plain),
     }
 
 
@@ -955,9 +1007,9 @@ def phase_kernels(device, rates):
                                                 rates)
         # the fold of the ladder's chunk sums, as ladder_msm runs it
         T = M.reduce(lout, GC)
-        r = compare(kind, f"horner_fold chunks nw={K} c={B}", (T, B, GC),
-                    M.horner_fold, M.horner_fold_plain, rates,
-                    work="horner_fold")
+        r = compare(kind, f"horner_fold chunks nw={K} c={B}",
+                    (T, B, GC), M.horner_fold, M.horner_fold_jacobian_plain,
+                    rates, work="horner_fold")
         lr = results[f"ladder_{kind}"]["ms"] + results[f"reduce_{kind}"]["ms"]
         log(f"[kernels {kind}] ladder MSM at n={N_LADDER}: ladder + reduce "
             f"{lr:.3f} ms, + fold {lr + r['ms']:.3f} ms")
@@ -1051,7 +1103,13 @@ def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
         extra = (f"; critical path {chain} dependent products x "
                  f"{lat * 1e6:.1f} ns = {b['critical_path_ms']:.4g} ms "
                  f"({share(b['critical_path_ms'] / ms)} of it reached); "
-                 f"{shape['fold_group']} threads{tag}")
+                 f"{shape['fold_group']} threads{tag}; Jacobian form")
+    elif work == "buckets":
+        extra = (f"; two additions deep a bucket, each a round of levels "
+                 f"on a group of {shape['buckets_group']} threads; "
+                 f"{shape['buckets_run']} buckets a block of "
+                 f"{shape['buckets_threads']} threads, its prefixes in "
+                 f"shared memory{tag}")
     elif work == "ladder":
         extra = (f"; {shape['ladder_group']} thread(s) a (point, chunk) "
                  f"chain in blocks of {shape['ladder_threads']}{tag}")
@@ -1169,10 +1227,14 @@ def check_ntt(ran, curve, scheme, n):
 
 def check_route(ran, curve, n_msm, n, scheme="groth16"):
     """A prove's launches against its route: exactly the MSM kernels that
-    expected_launches names (none on the native route) and the NTT
+    expected_launches names (none on the native route), the bucket step
+    as often as the weighted sum (once a window chunk), and the NTT
     kernels' exact counts."""
     msm_kernels = set(ran) - set(ntt_part(ran))
     assert msm_kernels == expected_launches(curve, n_msm, scheme), ran
+    for k in msm_kernels:
+        if k.startswith("buckets_"):
+            assert ran[k] == ran["weighted_sum_" + k[8:]], ran
     check_ntt(ran, curve, scheme, n)
 
 
@@ -1828,6 +1890,8 @@ def phase_rollup(device):
             assert all(ran.get(f"{k}_g1") for k in _cuda.WINDOW_KERNELS), ran
             assert scheme == "plonk" or all(
                 ran.get(f"{k}_g2") for k in _cuda.WINDOW_KERNELS), ran
+            assert all(ran.get(f"buckets_{g}") == ran.get(f"weighted_sum_{g}")
+                       for g in BN254_KINDS), ran
             check_ntt(ran, BN254, scheme, ROLLUP_DOMAINS[scheme])
     launches = dict(_cuda.launches)
     assert not plain_runs(), plain_runs()
@@ -1894,14 +1958,11 @@ def phase_bls24_kernels(device, rates):
         cases["reduce"] = ((lout, GC), M.reduce, M.reduce_plain)
         for name, (args, kern, plain) in cases.items():
             results[f"{name}_{kind}"] = compare(
-                kind, name, args, kern, plain, rates,
-                twice=sliced and name in ("leaf_prefix", "lane_offsets",
-                                          "ladder", "horner_fold",
-                                          "weighted_sum", "reduce"))
+                kind, name, args, kern, plain, rates, twice=sliced)
         T = M.reduce(lout, GC)
         compare(kind, f"horner_fold chunks nw={M.LADDER_CHUNKS} c={B}",
-                (T, B, GC), M.horner_fold, M.horner_fold_plain, rates,
-                work="horner_fold", twice=sliced)
+                (T, B, GC), M.horner_fold, M.horner_fold_jacobian_plain,
+                rates, work="horner_fold", twice=sliced)
     for kind in BLS24_KINDS:
         G, host, gen = groups(BLS24_KINDS)[kind]
         msm_steps(kind, G, *oracle_inputs(G, host, gen, device, rng, N_MSM,
@@ -2487,8 +2548,8 @@ def sharded_prove_route():
     SHARDED_RANKS columns (its passes from the library's plan), and its
     pointwise step on the rank's block."""
     route = {f"{k}_{kind}": 4 if kind == "g1" else 1
-             for k in ("leaf_prefix", "lane_offsets", "weighted_sum",
-                       "horner_fold", "reduce")
+             for k in ("leaf_prefix", "lane_offsets", "buckets",
+                       "weighted_sum", "horner_fold", "reduce")
              for kind in BN254_KINDS}
     route["ntt_fr_bn254"] = 7 * passes(N_MSM // SHARDED_RANKS, "fr_bn254")
     route["fr_pointwise_fr_bn254"] = 1
@@ -2766,12 +2827,27 @@ def leaf_seeded(seg):
     return kernel, plain
 
 
-def cases_2e21(kind, G, xs, ys, inf, sc):
-    """The four windowed kernels' inputs along the 2^21-point plan, chunk by
+def merged_rows(rows):
+    """One kernels-line row of a kernel compared on several calls (the
+    bucket step, a window chunk each): times and bounds summed, the error
+    the largest."""
+    out = dict(rows[0])
+    for r in rows[1:]:
+        for k in ("ms", "plain_ms", "bound_ms", "bound_ms_at_mad_rate"):
+            out[k] += r[k]
+        out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+    out["calls"] = len(rows)
+    return out
+
+
+def cases_2e21(kind, G, xs, ys, inf, sc, rates):
+    """The five windowed kernels' inputs along the 2^21-point plan, chunk by
     chunk as MSM.run takes them (one kernel-path run, its steps kept): the
     leaf's sorted points of the first LEAF_WINDOWS_2E21 windows, and every
-    window's lane totals, buckets and sums.  Returns (the plan, its
-    chunks, {name: (args, kernel, plain)})."""
+    window's lane totals, buckets and sums.  The bucket step is compared
+    inside that run, on each window chunk while its leaf rows live (all
+    19 windows' rows would not fit beside the chunk).  Returns (the plan,
+    its chunks, {name: (args, kernel, plain)}, the bucket step's row)."""
     import torch
     from gnark_tpu_torch.ops import msm as M
     plan = M.MSM(G, N_2E21, 16)
@@ -2781,6 +2857,7 @@ def cases_2e21(kind, G, xs, ys, inf, sc):
     GC = plan.GC
     kept = {name: [] for name in ("sort_gather", "leaf_prefix", "buckets",
                                   "weighted_sum")}
+    compared = []
 
     def keep(name, fn):
         out = fn()
@@ -2796,7 +2873,15 @@ def cases_2e21(kind, G, xs, ys, inf, sc):
             kept[name].append(out)
         return out
 
-    plan.run(xs, ys, inf, sc, M.WRAPPERS, step=keep)
+    def buckets(*args):
+        w0, w1 = chunks[len(compared)]
+        compared.append(compare(
+            kind, f"buckets 2^21 plan, windows {w0}-{w1 - 1}", args,
+            M.buckets, M.buckets_plain, rates, work="buckets"))
+        return M.buckets(*args)
+
+    impl = M.WRAPPERS[:2] + (buckets,) + M.WRAPPERS[3:]
+    plan.run(xs, ys, inf, sc, impl, step=keep)
     sync()
     tot, bk, S = (torch.cat(kept[k], 1).contiguous()
                   for k in ("leaf_prefix", "buckets", "weighted_sum"))
@@ -2808,21 +2893,24 @@ def cases_2e21(kind, G, xs, ys, inf, sc):
         "leaf_prefix": (kept["sort_gather"][0] + (GC,), leaf, leaf_plain),
         "lane_offsets": ((tot, GC), M.lane_offsets, M.lane_offsets_plain),
         "weighted_sum": ((bk, GC), M.weighted_sum, M.weighted_sum_plain),
-        "horner_fold": ((S, plan.c, GC), M.horner_fold, M.horner_fold_plain),
-    }
+        "horner_fold": ((S, plan.c, GC), M.horner_fold,
+                        M.horner_fold_jacobian_plain),
+    }, merged_rows(compared)
 
 
 def phase_2e20(device, rates):
     """Phase 14, the 2^20 path.  For G1 and G2 over 2^21 oracle inputs: the
-    four windowed kernels against their plain versions at the plan's shapes
-    (the leaf on LEAF_WINDOWS_2E21 windows, the others on all 19), then the
+    five windowed kernels against their plain versions at the plan's shapes
+    (the leaf on LEAF_WINDOWS_2E21 windows, the others on all 19, the
+    bucket step a window chunk at a time), then the
     MSM on the chunked plan against the host oracle, with its steps, its
     chunk count and its peak memory.  Then the main path: the 2^20 - 1
     constraint squaring chain through dev_e2e_2e20.run (setup on the card,
     a cold and two warm proves, verify, y + 1 rejected), the launch counts
     set to zero just before it and read just after: a prove's four G1 MSMs
     and one G2 MSM each launch the Horner fold once and the leaf, the lane
-    offsets and the weighted sum once a window chunk; the ladder and
+    offsets, the bucket step and the weighted sum once a window chunk; the
+    ladder and
     reduction never; no plain version on the card.  Returns (the kernel
     rows, the path's launches)."""
     import torch
@@ -2855,7 +2943,8 @@ def phase_2e20(device, rates):
             f"{time.perf_counter() - t0:.2f} s")
         kinf = inf.clone()
         kinf[::64] = True
-        plan, chunks, cases = cases_2e21(kind, G, xs, ys, kinf, sc)
+        plan, chunks, cases, results[f"buckets_{kind}"] = cases_2e21(
+            kind, G, xs, ys, kinf, sc, rates)
         for name, (args, kern, plain) in cases.items():
             label = (f"{name} 2^21 plan, {LEAF_WINDOWS_2E21} of "
                      f"{plan.nwin} windows, the plain version in "
@@ -2912,8 +3001,9 @@ def phase_2e20(device, rates):
     launches = {f"{k}_{kind}": _cuda.launches[f"{k}_{kind}"]
                 for k in _cuda.KERNELS for kind in BN254_KINDS}
     launches.update(ntt_part(_cuda.launches))
-    # a prove's MSMs: four over G1, one over G2; the leaf, lane offsets and
-    # weighted sum launch once a window chunk, the fold once an MSM; its
+    # a prove's MSMs: four over G1, one over G2; the leaf, lane offsets,
+    # bucket step and weighted sum launch once a window chunk, the fold
+    # once an MSM; its
     # quotient seven transforms of 2^20 and one pointwise step
     n = len(res["proves"])
     want = {f"{k}_{kind}": (n * (4 if kind == "g1" else 1)

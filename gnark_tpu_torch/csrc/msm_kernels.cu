@@ -1,6 +1,6 @@
 // The kernels of the MSM, for BN254 G1 (over Fp) and G2 (over Fp2), and
 // BLS24-315 G1 (over its 10-word Fp) and G2 (over FpK<.., 4, 13>): the
-// four of the signed windowed Pippenger plan, and the double-and-add
+// five of the signed windowed Pippenger plan, and the double-and-add
 // ladder that serves small MSMs with the reduction of its output, built
 // with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -13,6 +13,8 @@
 // Kernel              replaces (gnark_tpu/ops/msm.py)
 //   leaf_prefix       MSM._leaf_prefix_pallas   (msm.py:496)
 //   lane_offsets      MSM._lane_offsets_pallas  (msm.py:564)
+//   buckets           MSM._window_chunk's boundaries, global prefixes and
+//                     bucket differences (msm.py:887-909, XLA)
 //   weighted_sum      MSM._weighted_sum_pallas  (msm.py:623)
 //   horner_fold       MSM._horner_fold_pallas   (msm.py:725)
 //   ladder            MSM._run_ladder_pallas    (msm.py:319)
@@ -55,6 +57,14 @@
 //     barriers between (0-4 % faster than on the whole cluster).  Over
 //     fp4 each addition runs on a group by coefficient instead
 //     (lane_offsets_sliced_kernel).
+//   * buckets: per window, the nb + 1 digit boundaries E_b (a binary
+//     search over the sorted digits), the global prefix at each (a leaf
+//     row plus its lane's offset: one complete addition) and bucket b =
+//     PE_(b+1) - PE_b (one more).  A block takes a run of consecutive
+//     buckets, its groups of BUCKETS_GROUP threads adding the run's
+//     prefixes into shared memory and then its buckets, each addition as
+//     levels of products over the group (fold_add); over fp4 by
+//     coefficient (buckets_sliced_kernel).
 //   * weighted_sum: the plain version's halving fold is a chain of about
 //     110 point operations if each level waits for the last, but its
 //     dependency graph is 3K - 2 operations deep at nb = 2^K buckets (28
@@ -97,7 +107,8 @@
 // The complete formulas (ec_complete.cuh) take the identity, P + P and
 // P + (-P) without a branch, so every lane of a warp runs the same code.
 // None uses wgmma or TMA; the lane offsets and the weighted sum use
-// clusters.
+// clusters.  The Horner fold can leave its sum in the Jacobian form the
+// MSM returns (X Z, Y Z^2, Z): two more levels of products.
 //
 // This file instantiates BN254's kernels (kinds g1, g2).  BLS24-315's
 // G1 and G2 (g1_bls24315, g2_bls24315) are libraries of their own,
@@ -107,16 +118,17 @@
 // a point 120, so where lane 0 holds the point its registers spill, and
 // the FoldShared slot (16 base products a product) is 11.5 KB.  So each
 // G2 kernel was redesigned for fp4 (leaf_sliced_kernel,
-// lane_offsets_sliced_kernel, weighted_sum_sliced_kernel,
-// ladder_sliced_kernel, reduce_sliced_kernel, horner_fold_sliced_kernel,
-// picked by FpKTraits): a point's coefficients split over its group's
-// lanes, so no lane holds a whole point and nothing waits on a serial
-// lane 0.  The leaf runs each product through Sliced's exchange; the
-// others run SlicedPoint's complete addition and doubling, each formula's
-// independent products as one level (one write of the operands, one
-// sync, each lane's columns, one sync), the lane offsets, the weighted
-// sum and the reduction each operation on one group, its operands by
-// coefficient through scratch.  The templates at fp4 are built only by
+// lane_offsets_sliced_kernel, buckets_sliced_kernel,
+// weighted_sum_sliced_kernel, ladder_sliced_kernel, reduce_sliced_kernel,
+// horner_fold_sliced_kernel, picked by FpKTraits): a point's coefficients
+// split over its group's lanes, so no lane holds a whole point and
+// nothing waits on a serial lane 0.  The leaf runs each product through
+// Sliced's exchange; the others run SlicedPoint's complete addition and
+// doubling, each formula's independent products as one level (one write
+// of the operands, one sync, each lane's columns, one sync), the lane
+// offsets, the weighted sum, the bucket step and the reduction each
+// operation on one group, its operands by coefficient through scratch or
+// shared memory.  The templates at fp4 are built only by
 // ops/inline_check.py and the tests' sanitizer harness.
 //
 // Without __CUDACC__ the kernels compile as host C++ (the launchers drop
@@ -125,10 +137,10 @@
 // can run a grid one block at a time with blockDim.x = 1: every loop over
 // a block's work steps by blockDim.x, and every loop over a leaf group's
 // by G, so leaf_prefix_kernel<Curve, 1>, lane_offsets_kernel<Curve, 1, 1,
-// 1> and weighted_sum_kernel<Curve, 1, 1, 1> (groups of one; over fp4
-// their sliced kernels at G = 1) and the other kernels run on one thread
-// that does it all, in order.  On the host the cluster kernels' slots are
-// a static array.
+// 1>, buckets_kernel<Curve, 1, 1> and weighted_sum_kernel<Curve, 1, 1, 1>
+// (groups of one; over fp4 their sliced kernels at G = 1) and the other
+// kernels run on one thread that does it all, in order.  On the host the
+// cluster kernels' slots are a static array.
 
 #ifdef __CUDACC__
 #include <cooperative_groups.h>
@@ -153,6 +165,8 @@ struct G1 {
   static constexpr int WSUM_GROUP = 4, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
   // the same for a lane-offsets addition
   static constexpr int LANES_GROUP = 8, LANES_THREADS = 128, LANES_CLUSTER = 4;
+  // threads a bucket-step addition, threads a block
+  static constexpr int BUCKETS_GROUP = 4, BUCKETS_THREADS = 256;
   // resident ladder blocks an SM: caps G1's registers at 128 (ptxas takes
   // 164 otherwise, and 12 warps an SM stay resident, not 16)
   static constexpr int LADDER_BLOCKS = 4;
@@ -167,6 +181,7 @@ struct G2 {
   static constexpr int LEAF_GROUP = 4;
   static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
   static constexpr int LANES_GROUP = 8, LANES_THREADS = 256, LANES_CLUSTER = 4;
+  static constexpr int BUCKETS_GROUP = 8, BUCKETS_THREADS = 256;
   static constexpr int LADDER_BLOCKS = 2;
   static constexpr int LADDER_POINTS = 8;
   // b' = 3 / (9 + u); b3 = 3b' in Montgomery form
@@ -195,6 +210,7 @@ struct G1Bls24 {
   static constexpr int LEAF_GROUP = 4;
   static constexpr int WSUM_GROUP = 4, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
   static constexpr int LANES_GROUP = 8, LANES_THREADS = 128, LANES_CLUSTER = 4;
+  static constexpr int BUCKETS_GROUP = 4, BUCKETS_THREADS = 256;
   static constexpr int LADDER_BLOCKS = 2;
   static constexpr int LADDER_POINTS = 8;
   GT_HD static F mul_b3(const F& a) { return add(dbl(a), a); }
@@ -240,6 +256,7 @@ struct G2Bls24 {
   static constexpr int LEAF_THREADS = 128, LEAF_BLOCKS = 3;
   static constexpr int WSUM_GROUP = 8, WSUM_THREADS = 256, WSUM_CLUSTER = 4;
   static constexpr int LANES_GROUP = 8, LANES_THREADS = 256, LANES_CLUSTER = 4;
+  static constexpr int BUCKETS_GROUP = 8, BUCKETS_THREADS = 256;
   static constexpr int REDUCE_GROUP = 8, REDUCE_THREADS = 128,
                        REDUCE_CLUSTER = 8;
   static constexpr int LADDER_GROUP = 4, LADDER_THREADS = 128;
@@ -326,8 +343,9 @@ struct Prod<FpK<P, K, C>> {
 // point's bytes, the leaf's threads a block, whether the leaf (and the
 // ladder and the fold) are the coefficient-sliced kernels, and the
 // shipped ladder's threads a chain, threads a block and blocks an SM and
-// the fold's threads a chain (LadderShape).  Host code too, so that the
-// tests' g++ harness reads it.
+// the fold's threads a chain (LadderShape), and the bucket step's threads
+// an addition, threads a block and buckets a block (buckets_run).  Host
+// code too, so that the tests' g++ harness reads it.
 #define GNARK_MSM_SHAPE(NAME, CURVE)                                          \
   extern "C" void gnark_msm_shape_##NAME(int* out) {                          \
     using F = CURVE::F;                                                       \
@@ -342,7 +360,10 @@ struct Prod<FpK<P, K, C>> {
                      leaf_threads<CURVE>(), (int)FpKTraits<F>::SLICED,        \
                      LS::GROUP, LS::THREADS, LS::BLOCKS, LS::FOLD,            \
                      LS::REDUCE_GROUP, LS::REDUCE_THREADS,                    \
-                     LS::REDUCE_CLUSTER};                                     \
+                     LS::REDUCE_CLUSTER, CURVE::BUCKETS_GROUP,                \
+                     CURVE::BUCKETS_THREADS,                                  \
+                     buckets_run(CURVE::BUCKETS_THREADS /                     \
+                                 CURVE::BUCKETS_GROUP)};                      \
     for (int i = 0; i < (int)(sizeof v / sizeof v[0]); ++i) out[i] = v[i];    \
   }
 
@@ -523,10 +544,35 @@ GT_INLINE void fold_add_mixed(Point<typename Curve::F>& P,
          add(PR::get(s.R, 4), PR::get(s.R, 5))};
 }
 
+// P = (X Z, Y Z^2, Z), ec_complete.py's to_jacobian, in two levels: X Z
+// and Z^2, then Y Z^2.  P is lane 0's.
+template <class Curve, class Sync>
+GT_BLOCK void fold_jacobian(Point<typename Curve::F>& P,
+                            FoldShared<typename Curve::F>& s, int tid, int nt,
+                            Sync sync) {
+  using F = typename Curve::F;
+  using PR = Prod<F>;
+  const bool lead = tid == 0;
+  if (lead) {
+    PR::put(s.A, s.B, 0, P.X, P.Z);
+    PR::put(s.A, s.B, 1, P.Z, P.Z);
+  }
+  fold_products(s.A, s.B, s.R, 2 * PR::S, tid, nt, sync);
+  F xz;
+  if (lead) {
+    xz = PR::get(s.R, 0);
+    PR::put(s.A, s.B, 0, P.Y, PR::get(s.R, 1));
+  }
+  fold_products(s.A, s.B, s.R, PR::S, tid, nt, sync);
+  if (lead) P = {xz, PR::get(s.R, 0), P.Z};
+}
+
 // S: [3*L16, nw]; out: [3*L16, 1] = sum_w 2^(c w) S_w, most significant
 // window first: c doublings, then one add per window.  The fold starts at
 // the highest window that is not the identity (Z != 0), or at window 0
-// when all are: the identities above it would only be doubled.  One block.
+// when all are: the identities above it would only be doubled.  The sum
+// leaves as (X Z, Y Z^2, Z), the MSM's Jacobian output (fold_jacobian).
+// One block.
 template <class Curve>
 __global__ void __launch_bounds__(FOLD_THREADS)
     horner_fold_kernel(const int64_t* S, int64_t* out, int nw, int c) {
@@ -542,6 +588,7 @@ __global__ void __launch_bounds__(FOLD_THREADS)
     if (tid == 0) q = load_point<Curve>(S + w, nw);
     fold_add<Curve>(acc, q, sh, tid, nt, BlockSync{});
   }
+  fold_jacobian<Curve>(acc, sh, tid, nt, BlockSync{});
   if (tid == 0) store_point<Curve>(acc, out, 1);
 }
 
@@ -581,6 +628,21 @@ GT_INLINE FoldShared<F>* group_slots(int rank) {
 #else
   __shared__ FoldShared<F> slots[CLUSTER][THREADS / G];
   return slots[rank];
+#endif
+}
+
+// A block's shared memory as one struct S (the sliced kernels', the bucket
+// step's): dynamic on the card (above 48 KB it needs the attribute,
+// launch_clusters), a static object on the host, one for each block of a
+// cluster (rank).
+template <class S, int CLUSTER = 1>
+GT_INLINE S& sliced_shared(int rank = 0) {
+#ifdef __CUDACC__
+  extern __shared__ __align__(16) unsigned char sliced_bytes[];
+  return *reinterpret_cast<S*>(sliced_bytes);
+#else
+  __shared__ S s[CLUSTER];
+  return s[rank];
 #endif
 }
 
@@ -761,6 +823,103 @@ __global__ void __launch_bounds__(THREADS)
   for (int r = rank * nt + tid; r < R; r += CLUSTER * nt)
     store_point<Curve>(r ? A[r - 1] : identity<Curve>(),
                        out + (long)w * R + r, stride);
+}
+
+// ---- the bucket step: global prefixes at the digit boundaries -------------
+
+// E_b: the last index of a window's sorted digits d[0, n) that is at most
+// b, or -1 where there is none (searchsorted(d, b, right) - 1).
+GT_HD long last_at_most(const int64_t* d, long n, long b) {
+  long lo = 0, hi = n;
+  while (lo < hi) {
+    const long mid = (lo + hi) / 2;
+    if (d[mid] <= b)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo - 1;
+}
+
+// Buckets a block of the bucket step takes: one fewer than its groups, so
+// that its RUN + 1 prefixes take one round of the groups (one with a
+// group of one).
+GT_HD constexpr int buckets_run(int groups) { return groups > 1 ? groups - 1 : 1; }
+
+// A block of the bucket step: RUN + 1 boundaries, their E_b and global
+// prefixes, beside its groups' slots.
+template <class Slot, class Pt, int GROUPS>
+struct BucketsBlock {
+  static constexpr int RUN = buckets_run(GROUPS);
+  Slot slots[GROUPS];
+  Pt pe[RUN + 1];
+  long ends[RUN + 1];
+};
+
+// rows: [nw, C*R, 3*L16] leaf rows (row cs*R + r: lane r after step cs,
+// X|Y|Z), offs: [3*L16, nw, R] lane offsets, d: [nw, n = C*R] each
+// window's sorted digits; out: [3*L16, nw, nb].  The plain version's
+// bucket step (ops/msm.py::buckets_plain; gnark_tpu's _window_chunk,
+// msm.py:887-909, jitted through XLA): for b = 0 .. nb, E_b (binary
+// search), the global prefix PE_b = rows[(E % C) R + E / C] + offs[E / C]
+// (E clamped at 0; X = Z = 0 where E_b < 0, the identity class, with that
+// addition's Y), then bucket b = PE_(b+1) + (-PE_b): the same complete
+// additions of the same operands, so the same limbs.  A block takes a run
+// of RUN consecutive buckets of one window: its threads search the RUN +
+// 1 boundaries, its groups of G threads add the prefixes (fold_add, lane
+// 0 loading the row and the offset) into shared memory, a barrier, then
+// the buckets, lane 0 storing each.  A prefix on a block's edge is added
+// by both blocks that need it: one addition more a block, no barrier
+// between blocks.  What bounds it: the two additions' products (two
+// levels of 6 and G2's b3 level each, a round of ceil(6 S / G) a level);
+// the rows it reads are nb + 1 a window, scattered.
+template <class Curve, int G, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+    buckets_kernel(const int64_t* rows, const int64_t* offs,
+                   const int64_t* d_sorted, int64_t* out, int nw, int C,
+                   int R, int nb) {
+  using F = typename Curve::F;
+  using P = Point<F>;
+  using Sh = BucketsBlock<FoldShared<F>, P, THREADS / G>;
+  constexpr int GROUPS = THREADS / G, RUN = Sh::RUN;
+  static_assert(G < 32 && 32 % G == 0 && THREADS % G == 0,
+                "a group lies inside one warp");
+  Sh& sh = sliced_shared<Sh>();
+  const int per = (nb + RUN - 1) / RUN;  // blocks a window
+  const int w = blockIdx.x / per, b0 = blockIdx.x % per * RUN;
+  const int cnt = nb - b0 < RUN ? nb - b0 : RUN;
+  const int tid = threadIdx.x, lane = tid % G, group = tid / G;
+  const long n = (long)C * R;
+  for (int t = tid; t <= cnt; t += THREADS)
+    sh.ends[t] = last_at_most(d_sorted + w * n, n, b0 + t);
+  __syncthreads();
+  FoldShared<F>& s = sh.slots[group];
+  const GroupSync sync{((1u << G) - 1u) << (tid % 32 / G * G)};
+  for (int o = group; o <= cnt; o += GROUPS) {
+    const long e = sh.ends[o], g = e < 0 ? 0 : e, r = g / C;
+    P a, b;  // lane 0's
+    if (lane == 0) {
+      a = load_point<Curve>(rows + (w * n + g % C * R + r) * 3 * F::L16, 1);
+      b = load_point<Curve>(offs + (long)w * R + r, (long)nw * R);
+    }
+    fold_add<Curve>(a, b, s, lane, G, sync);
+    if (lane == 0) {
+      if (e < 0) a.X = a.Z = FieldIO<F>::zero();
+      sh.pe[o] = a;
+    }
+  }
+  __syncthreads();
+  for (int o = group; o < cnt; o += GROUPS) {
+    P a, b;
+    if (lane == 0) {
+      a = sh.pe[o + 1];
+      b = sh.pe[o];
+      b.Y = neg(b.Y);
+    }
+    fold_add<Curve>(a, b, s, lane, G, sync);
+    if (lane == 0)
+      store_point<Curve>(a, out + (long)w * nb + b0 + o, (long)nw * nb);
+  }
 }
 
 // ---- the leaf prefix, a thread group a chain -------------------------------
@@ -1382,21 +1541,28 @@ struct SlicedPoint {
       Z[t] = add(r[4][t], r[5][t]);
     }
   }
-};
 
-// A block's shared memory of a sliced kernel: dynamic on the card (above
-// 48 KB it needs the attribute, launch_sliced), a static object on the
-// host, one for each block of a cluster (rank).
-template <class S, int CLUSTER = 1>
-GT_INLINE S& sliced_shared(int rank = 0) {
-#ifdef __CUDACC__
-  extern __shared__ __align__(16) unsigned char sliced_bytes[];
-  return *reinterpret_cast<S*>(sliced_bytes);
-#else
-  __shared__ S s[CLUSTER];
-  return s[rank];
-#endif
-}
+  // P = (X Z, Y Z^2, Z), ec_complete.py's to_jacobian: X Z and Z^2, then
+  // Y Z^2, two levels
+  GT_INLINE void jacobian(B* X, B* Y, const B* Z) const {
+    B v[2][KPL], r[2][KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      v[0][t] = X[t];
+      v[1][t] = Z[t];
+    }
+    level<2, 2, 2, opnd(0, 0) | opnd(1, 1), opnd(0, 1) | opnd(1, 1)>(r, v);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      X[t] = r[0][t];
+      v[0][t] = Y[t];
+      v[1][t] = r[1][t];
+    }
+    level<1, 2, 1, opnd(0, 0), opnd(0, 1)>(r, v);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) Y[t] = r[0][t];
+  }
+};
 
 // The block of a sliced kernel whose groups each run their own point
 // operations (the weighted sum, the reduction): b3's columns and the
@@ -1457,6 +1623,8 @@ struct FoldSlicedShared {
 // group, and each lane's columns (at G = 16, four lanes a coefficient,
 // one or two products of 4 base products a level) in place of lane 0's
 // 16-product schoolbook and the additions between levels.
+// SlicedPoint::jacobian maps the sum to (X Z, Y Z^2, Z) before it is
+// stored.
 template <class Curve, int G>
 __global__ void __launch_bounds__(G)
     horner_fold_sliced_kernel(const int64_t* S, int64_t* out, int nw, int c) {
@@ -1482,6 +1650,7 @@ __global__ void __launch_bounds__(G)
     load_sliced(sp, S + w, nw, X2, Y2, Z2);
     sp.padd(X, Y, Z, X2, Y2, Z2);
   }
+  sp.jacobian(X, Y, Z);
   store_sliced(sp, out, 1, X, Y, Z);
 }
 
@@ -1679,6 +1848,83 @@ __global__ void __launch_bounds__(THREADS, 1)
     const B v = r ? coordinate(S[r - 1], e / D).c[e % D]
                   : e == D ? fp_one<P>() : fp_zero<P>();
     store(v, out + (long)w * R + r + (long)e * L * stride, stride);
+  }
+}
+
+// rows, offs, d_sorted, out as buckets_kernel's, and the same function,
+// for F = fp^K: the same boundaries, the same complete additions on the
+// same operands in the same order, the same runs of RUN buckets a block.
+// Each addition runs on one group of G lanes (SlicedPoint): every lane
+// reads its coefficients of the row and the offset (or of the two
+// prefixes), the group runs padd, and each coefficient's first copy
+// writes its coefficients of the prefix to shared memory (or of the
+// bucket to out).  The prefixes and the buckets are two rounds of one
+// loop, so padd is inlined once (ptxas -O3 miscompiles the fp4 product
+// called as a function, ops/inline_check.py).  The template's lane 0
+// would hold two 120-word points and deal 16 base products a product
+// through an 11.5 KB slot; a group's PointSlots are 2.9 KB.  Launch bounds
+// of one block an SM: left to itself ptxas capped the other sliced
+// kernels at 128 registers and spilled.
+template <class Curve, int G, int THREADS>
+struct BucketsSlicedShared {
+  using SP = SlicedPoint<Curve, G>;
+  XSlot<typename SP::P> kb3[SP::K];  // b3's columns
+  BucketsBlock<typename SP::Slots, typename SP::Pt, THREADS / G> run;
+};
+
+template <class Curve, int G, int THREADS>
+__global__ void __launch_bounds__(THREADS, 1)
+    buckets_sliced_kernel(const int64_t* rows, const int64_t* offs,
+                          const int64_t* d_sorted, int64_t* out, int nw,
+                          int C, int R, int nb) {
+  using SP = SlicedPoint<Curve, G>;
+  using B = typename SP::B;
+  using Block = BucketsSlicedShared<Curve, G, THREADS>;
+  constexpr int KPL = SP::KPL, GROUPS = THREADS / G;
+  constexpr int RUN = buckets_run(GROUPS);
+  constexpr int L16 = Curve::F::L16;
+  static_assert(G <= 16 && 32 % G == 0 && THREADS % G == 0,
+                "a group lies inside one warp");
+  Block& sh = sliced_shared<Block>();
+  const int per = (nb + RUN - 1) / RUN;  // blocks a window
+  const int w = blockIdx.x / per, b0 = blockIdx.x % per * RUN;
+  const int cnt = nb - b0 < RUN ? nb - b0 : RUN;
+  const int tid = threadIdx.x, lane = tid % G, group = tid / G;
+  const long n = (long)C * R;
+  for (int m = tid; m < SP::K; m += THREADS) slot_put(sh.kb3[m], SP::b3_column(m));
+  for (int t = tid; t <= cnt; t += THREADS)
+    sh.run.ends[t] = last_at_most(d_sorted + w * n, n, b0 + t);
+  __syncthreads();
+  const SP sp{sh.run.slots[group], sh.kb3, lane % SP::SPAN, lane / SP::SPAN,
+              GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+  B X[KPL], Y[KPL], Z[KPL], X2[KPL], Y2[KPL], Z2[KPL];
+  // round 0: the prefixes PE_o, o = 0 .. cnt; round 1: the buckets
+#pragma unroll 1
+  for (int round = 0; round < 2; ++round) {
+    for (int o = group; o < cnt + 1 - round; o += GROUPS) {
+      long e = 0;
+      if (round == 0) {
+        e = sh.run.ends[o];
+        const long g = e < 0 ? 0 : e, r = g / C;
+        load_sliced(sp, rows + (w * n + g % C * R + r) * 3 * L16, 1, X, Y, Z);
+        load_sliced(sp, offs + (long)w * R + r, (long)nw * R, X2, Y2, Z2);
+      } else {
+        sp.get(sh.run.pe[o + 1], X, Y, Z);
+        sp.get(sh.run.pe[o], X2, Y2, Z2);
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) Y2[t] = neg(Y2[t]);
+      }
+      sp.padd(X, Y, Z, X2, Y2, Z2);
+      if (round == 0) {
+        if (e < 0)
+#pragma unroll
+          for (int t = 0; t < KPL; ++t) X[t] = Z[t] = fp_zero<typename SP::P>();
+        sp.put(sh.run.pe[o], X, Y, Z);
+      } else {
+        store_sliced(sp, out + (long)w * nb + b0 + o, (long)nw * nb, X, Y, Z);
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -2230,15 +2476,41 @@ int launch_ladder(const void* xs, const void* ys, const void* inf,
 }
 
 template <class Curve>
-int launch_horner_fold(const void* S, void* out, int nw, int c, void* stream) {
+int launch_horner_fold(const void* S, void* out, int nw, int c,
+                       void* stream) {
   if constexpr (FpKTraits<typename Curve::F>::SLICED) {
     return launch_horner_fold_sliced<Curve, Curve::FOLD_GROUP>(S, out, nw, c,
-                                                              stream);
+                                                               stream);
   } else {
     horner_fold_kernel<Curve><<<1, FOLD_THREADS, 0, (cudaStream_t)stream>>>(
         (const int64_t*)S, (int64_t*)out, nw, c);
     return (int)cudaGetLastError();
   }
+}
+
+// The bucket step of a curve at group width G in blocks of THREADS:
+// buckets_sliced_kernel over fp^K, buckets_kernel otherwise; a block a run
+// of RUN buckets of one window, its shared memory dynamic (G2's above 48
+// KB).
+template <class Curve, int G, int THREADS>
+int launch_buckets(const void* rows, const void* offs, const void* d_sorted,
+                   void* out, int nw, int C, int R, int nb, void* stream) {
+  using F = typename Curve::F;
+  constexpr int RUN = buckets_run(THREADS / G);
+  const int blocks = nw * ((nb + RUN - 1) / RUN);
+  const auto* r = (const int64_t*)rows;
+  const auto* o = (const int64_t*)offs;
+  const auto* d = (const int64_t*)d_sorted;
+  if constexpr (FpKTraits<F>::SLICED)
+    return launch_clusters<(int)sizeof(BucketsSlicedShared<Curve, G, THREADS>),
+                           THREADS, 1>(
+        buckets_sliced_kernel<Curve, G, THREADS>, blocks, stream, r, o, d,
+        (int64_t*)out, nw, C, R, nb);
+  else
+    return launch_clusters<
+        (int)sizeof(BucketsBlock<FoldShared<F>, Point<F>, THREADS / G>),
+        THREADS, 1>(buckets_kernel<Curve, G, THREADS>, blocks, stream, r, o,
+                    d, (int64_t*)out, nw, C, R, nb);
 }
 
 #define GNARK_MSM_LAUNCHERS(NAME, CURVE)                                      \
@@ -2262,8 +2534,15 @@ int launch_horner_fold(const void* S, void* out, int nw, int c, void* stream) {
                                CURVE::WSUM_CLUSTER>(bk, out, scratch, nw, nb, \
                                                     stream);                  \
   }                                                                           \
-  extern "C" int gnark_msm_horner_fold_##NAME(const void* S, void* out,       \
-                                              int nw, int c, void* stream) {  \
+  extern "C" int gnark_msm_buckets_##NAME(                                    \
+      const void* rows, const void* offs, const void* d_sorted, void* out,    \
+      int nw, int C, int R, int nb, void* stream) {                           \
+    return launch_buckets<CURVE, CURVE::BUCKETS_GROUP,                        \
+                          CURVE::BUCKETS_THREADS>(rows, offs, d_sorted, out,  \
+                                                  nw, C, R, nb, stream);      \
+  }                                                                           \
+  extern "C" int gnark_msm_horner_fold_##NAME(                                \
+      const void* S, void* out, int nw, int c, void* stream) {                \
     return launch_horner_fold<CURVE>(S, out, nw, c, stream);                  \
   }                                                                           \
   extern "C" int gnark_msm_ladder_##NAME(                                    \

@@ -49,7 +49,8 @@ _SOURCES = {
     "microbench": ("field.cuh", "microbench.cu"),
 }
 
-WINDOW_KERNELS = ("leaf_prefix", "lane_offsets", "weighted_sum", "horner_fold")
+WINDOW_KERNELS = ("leaf_prefix", "lane_offsets", "buckets", "weighted_sum",
+                  "horner_fold")
 KERNELS = WINDOW_KERNELS + ("ladder", "reduce")
 REDUCE_LANES = 256       # msm_kernels.cu's reduce_kernel
 # the kinds (msm_kernels.cu's curve structs G1, G2, G1Bls24, G2Bls24) and
@@ -73,13 +74,16 @@ _L16 = {"g1": 16, "g2": 32,     # 16-bit limb planes of one coordinate
 # ladder's threads a chain, threads a block and blocks an SM, the fold's
 # threads, and the reduction's threads an accumulator, threads a block
 # and blocks a chunk (LadderShape: 1, 16 LADDER_POINTS, LADDER_BLOCKS, one
-# warp, and 1, REDUCE_LANES, 1 for the template kernels)
+# warp, and 1, REDUCE_LANES, 1 for the template kernels), and the bucket
+# step's threads an addition, threads a block and buckets a block
+# (BUCKETS_GROUP, BUCKETS_THREADS, buckets_run)
 SHAPE = ("words", "degree", "prod_s", "b3_product", "leaf_group",
          "wsum_group", "wsum_threads", "wsum_cluster", "lanes_group",
          "lanes_threads", "lanes_cluster", "ladder_points", "point_bytes",
          "leaf_threads", "leaf_sliced", "ladder_group", "ladder_threads",
          "ladder_blocks", "fold_group", "reduce_group", "reduce_threads",
-         "reduce_cluster")
+         "reduce_cluster", "buckets_group", "buckets_threads",
+         "buckets_run")
 LADDER_CHUNKS = 16       # msm_kernels.cu's ladder_kernel: chunks a
 LADDER_WINDOW = 4        # scalar, bits a window
 # microbench.cu's enum Op, in order; then the two kernels of their own
@@ -171,6 +175,7 @@ def _bind_msm(lib, library):
         for name, args in (
                 ("leaf_prefix", [vp, vp, vp, ci, ci, ci, vp]),
                 ("lane_offsets", [vp, vp, vp, ci, ci, vp]),
+                ("buckets", [vp, vp, vp, vp, ci, ci, ci, ci, vp]),
                 ("weighted_sum", [vp, vp, vp, ci, ci, vp]),
                 ("horner_fold", [vp, vp, ci, ci, vp]),
                 ("ladder", [vp, vp, vp, vp, vp, ci, ci, vp]),
@@ -303,6 +308,21 @@ def lane_offsets(tot, kind):
     return out
 
 
+def buckets(rows, offs, d_sorted, C, R, nb, kind):
+    """[3L, nw, nb]: bucket b of each window, from the leaf rows [nw, C R,
+    3L], the lane offsets [3L, nw, R] and the sorted digits [nw, C R]
+    (msm_kernels.cu's buckets_kernel: one launch)."""
+    nw = rows.shape[0]
+    L3 = 3 * _L16[kind]
+    _check(rows, (nw, C * R, L3), "rows")
+    _check(offs, (L3, nw, R), "offsets")
+    _check(d_sorted, (nw, C * R), "sorted digits")
+    out = torch.empty((L3, nw, nb), dtype=torch.int64, device=rows.device)
+    _launch("buckets", kind, rows.data_ptr(), offs.data_ptr(),
+            d_sorted.data_ptr(), out.data_ptr(), nw, C, R, nb)
+    return out
+
+
 def weighted_sum(bk, kind):
     _, nw, nb = bk.shape
     L3 = 3 * _L16[kind]
@@ -318,6 +338,7 @@ def weighted_sum(bk, kind):
 
 
 def horner_fold(S, c, kind):
+    """[3L, 1] = sum_w 2^(cw) S_w in the Jacobian form (X Z, Y Z^2, Z)."""
     nw = S.shape[1]
     L3 = 3 * _L16[kind]
     _check(S, (L3, nw), "window sums")

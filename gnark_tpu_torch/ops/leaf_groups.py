@@ -478,7 +478,7 @@ def fold_cases(libs, rng, device):
                             plan.c),
                            (f"chunks nw={T.shape[1]} c=16", T, 16)):
         sums = sums.contiguous()
-        want = M.horner_fold_plain(sums, c, GC)
+        want = M.horner_fold_jacobian_plain(sums, c, GC)
         fns = {f"G={g}": _bind(_trials(libs), f"fold_trial_{kind}_{g}", 2,
                                ptrs=2) for g in FOLD_GROUPS}
         if "baseline" in libs:

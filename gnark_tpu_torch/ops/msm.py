@@ -1,6 +1,6 @@
 """Multi-scalar multiplication: the signed windowed Pippenger plan of
 gnark_tpu/ops/msm.py (``MSM._run_window_pallas``) and its double-and-add
-ladder (``MSM._run_ladder_pallas``), in PyTorch with six kernels in CUDA.
+ladder (``MSM._run_ladder_pallas``), in PyTorch with seven kernels in CUDA.
 
 ``msm`` sends fewer than LADDER_MAX points to the ladder: each scalar cut
 into K chunks of B bits, and per (point, chunk) the chunk's multiple of
@@ -17,9 +17,11 @@ negation):
   3. lane offsets: exclusive scan of the R lane totals (a
      Brent-Kung scan, R a power of two)                         [kernel]
   4. bucket sums as differences of global prefixes at the digit
-     boundaries (searchsorted and row gathers, plain torch);
+     boundaries (a binary search, a leaf row plus its lane's
+     offset)                                                     [kernel]
   5. S_w = sum_b b * bucket_b by a halving fold                 [kernel]
-then a Horner fold over the windows                             [kernel].
+then a Horner fold over the windows, its sum leaving in the Jacobian
+form the MSM returns                                            [kernel].
 Steps 1-5 run on the windows in chunks (gnark_tpu's window chunking,
 msm.py:248-285): a chunk's sorted points and leaf rows, about
 n_pad x 5L int64 a window, stay under a share of the card's memory, and
@@ -193,7 +195,44 @@ def lane_offsets(tot, GC: CompleteOps):
     return lane_offsets_plain(tot, GC)
 
 
-# ---- kernel 3: weighted bucket sum ------------------------------------------
+# ---- kernel 3: the bucket step -----------------------------------------------
+
+def buckets_plain(rows, offs, d_sorted, C: int, R: int, nb: int,
+                  GC: CompleteOps):
+    """rows: [nw, C*R, 3L] leaf rows, offs: [3L, nw, R] lane offsets,
+    d_sorted: [nw, C*R] each window's sorted digits -> [3L, nw, nb]
+    buckets (gnark_tpu's _window_chunk, msm.py:887-909).  Bucket b =
+    (global prefix at the end of digit b) minus (at the end of digit
+    b - 1): one boundary array E_b, b = 0..nb, from searchsorted; a global
+    prefix is a leaf row plus its lane's offset."""
+    _count_plain(rows, "buckets")
+    L = GC.F.L
+    nw = rows.shape[0]
+    bvals = torch.arange(nb + 1, device=rows.device).expand(
+        nw, nb + 1).contiguous()
+    ends = torch.searchsorted(d_sorted, bvals, right=True) - 1
+    gi = ends.clamp(min=0)
+    w = torch.arange(nw, device=rows.device).unsqueeze(1)
+    P = split_points(rows[w, (gi % C) * R + gi // C].permute(2, 0, 1), L)
+    orows = offs.permute(1, 2, 0)                       # [nw, R, 3L]
+    O = split_points(orows[w, gi // C].permute(2, 0, 1), L)
+    T = GC.add(P, O)
+    # nothing at or below this digit -> the identity class (X = Z = 0;
+    # Y is a point's Y, nonzero)
+    valid = (ends >= 0).unsqueeze(0)
+    PE = (torch.where(valid, T[0], 0), T[1], torch.where(valid, T[2], 0))
+    bk = GC.add(tuple(a[..., 1:] for a in PE),
+                GC.neg(tuple(a[..., :-1] for a in PE)))
+    return torch.cat(bk).contiguous()
+
+
+def buckets(rows, offs, d_sorted, C: int, R: int, nb: int, GC: CompleteOps):
+    if _device_route(rows, "buckets"):
+        return _cuda.buckets(rows, offs, d_sorted, C, R, nb, _cuda.kind_of(GC))
+    return buckets_plain(rows, offs, d_sorted, C, R, nb, GC)
+
+
+# ---- kernel 4: weighted bucket sum ------------------------------------------
 
 def weighted_sum_plain(bk, GC: CompleteOps):
     """bk: [3L, nw, nb] buckets (bucket j holds digit j + 1; nb a power of
@@ -233,13 +272,14 @@ def weighted_sum(bk, GC: CompleteOps):
     return weighted_sum_plain(bk, GC)
 
 
-# ---- kernel 4: Horner fold ----------------------------------------------------
+# ---- kernel 5: Horner fold ----------------------------------------------------
 
-def horner_fold_plain(S, c: int, GC: CompleteOps):
+def horner_fold_plain(S, c: int, GC: CompleteOps, jacobian=False):
     """S: [3L, nw] window sums -> [3L, 1] = sum_w 2^(cw) S_w (most
     significant window first: c doublings, then one add).  The fold starts
     at the highest window that is not the identity (Z != 0), or at window
-    0 when all are, as the kernel does."""
+    0 when all are, as the kernel does.  With ``jacobian`` the sum comes
+    out as GC.to_jacobian gives it, (XZ, YZ^2, Z)."""
     _count_plain(S, "horner_fold")
     L = GC.F.L
     X, Y, Z = split_points(S, L)
@@ -250,16 +290,22 @@ def horner_fold_plain(S, c: int, GC: CompleteOps):
         for _ in range(c):
             acc = GC.double(acc)
         acc = GC.add(acc, (X[:, w:w + 1], Y[:, w:w + 1], Z[:, w:w + 1]))
-    return torch.cat(acc)
+    return torch.cat(GC.to_jacobian(acc) if jacobian else acc)
+
+
+# the kernel's plain version: the fold in the Jacobian form
+horner_fold_jacobian_plain = functools.partial(horner_fold_plain,
+                                               jacobian=True)
 
 
 def horner_fold(S, c: int, GC: CompleteOps):
+    """The Horner fold in the Jacobian form (X Z, Y Z^2, Z)."""
     if _device_route(S, "horner_fold"):
         return _cuda.horner_fold(S, c, _cuda.kind_of(GC))
-    return horner_fold_plain(S, c, GC)
+    return horner_fold_jacobian_plain(S, c, GC)
 
 
-# ---- kernel 5: the chunked, windowed ladder ----------------------------------
+# ---- kernel 6: the chunked, windowed ladder ----------------------------------
 
 # 16 chunks of 16 bits: 16 n threads (65,536 at 4096 points, enough to fill
 # the card), and 4-bit windows (a table of 16 entries, 4 windows a chunk)
@@ -332,7 +378,7 @@ def ladder(xs, ys, inf_mask, scalars, GC: CompleteOps):
     return ladder_plain(xs, ys, inf_mask, scalars, GC)
 
 
-# ---- kernel 6: the per-chunk sums of the ladder's points --------------------------
+# ---- kernel 7: the per-chunk sums of the ladder's points --------------------------
 
 def reduce_plain(pts, GC: CompleteOps):
     """pts: [3L, K, n] projective points -> [3L, K], each chunk's sum (the
@@ -378,7 +424,7 @@ def ladder_msm(G: CurveOps, xs, ys, inf_mask, scalars):
     P = ladder(xs.contiguous(), ys.contiguous(), inf_mask.contiguous(),
                scalars.contiguous(), GC)
     S = horner_fold(reduce(P, GC), chunk_bits(scalars.shape[0]), GC)
-    return GC.to_jacobian(split_points(S, G.F.L))
+    return split_points(S, G.F.L)
 
 
 # ---- the windowed plan ---------------------------------------------------------
@@ -461,17 +507,18 @@ class MSM:
         return self.run(xs, ys, inf_mask, scalars, WRAPPERS)
 
     def run(self, xs, ys, inf_mask, scalars, impl, step=None):
-        """The plan with the four steps taken from ``impl`` (WRAPPERS, or
+        """The plan with the five steps taken from ``impl`` (WRAPPERS, or
         PLAIN to time the plain versions on a device): recode once, the
         windows chunk by chunk (sort and gather, the leaf, the lane
         offsets, the buckets and the weighted sum, each intermediate
         released once the next step has read it), then one Horner fold
-        over every window's sum.  A window's sum does not depend on its
-        chunk, so the limbs are the one-chunk plan's.  ``step(name, fn)``,
-        when given, runs each step as ``fn()`` and returns its output (the
-        smoke run times the steps and keeps the kernels' inputs so)."""
+        over every window's sum, into the Jacobian form.  A window's sum
+        does not depend on its chunk, so the limbs are the one-chunk
+        plan's.  ``step(name, fn)``, when given, runs each step as
+        ``fn()`` and returns its output (the smoke run times the steps and
+        keeps the kernels' inputs so)."""
         step = step or _call
-        leaf, lanes, wsum, horner = impl
+        leaf, lanes, bucket, wsum, horner = impl
         GC = self.GC
         ptrows, digits, signs = step("recode", lambda: self._prep_window(
             xs, ys, inf_mask, scalars))
@@ -483,14 +530,14 @@ class MSM:
             del sx, sy
             offs = step("lane_offsets", lambda: lanes(
                 self.lane_totals(rows), GC))
-            bk = step("buckets", lambda: self._buckets(rows, offs, ds))
+            bk = step("buckets", lambda: bucket(
+                rows, offs, ds, self.C, self.R, self.nb, GC))
             del rows, offs, ds
             S.append(step("weighted_sum", lambda: wsum(bk, GC)))
             del bk
         S = torch.cat(S, 1)
         P = step("horner_fold", lambda: horner(S, self.c, GC))
-        return step("to_jacobian", lambda: GC.to_jacobian(
-            split_points(P, self.G.F.L)))
+        return split_points(P, self.G.F.L)
 
     def lane_totals(self, rows):
         """Leaf rows -> [3L, nw, R] lane totals (the rows of step C-1)."""
@@ -535,34 +582,14 @@ class MSM:
         return sx, sy, d_sorted
 
     def _buckets(self, rows, offs, d_sorted):
-        """Bucket b = (global prefix at the end of digit b) minus (at the
-        end of digit b - 1): one boundary array E_b, b = 0..nb, from
-        searchsorted; a global prefix is a leaf row plus its lane's
-        offset.  Returns [3L, nw, nb]."""
-        GC, C, R = self.GC, self.C, self.R
-        L = self.G.F.L
-        nw = rows.shape[0]
-        bvals = torch.arange(self.nb + 1, device=rows.device).expand(
-            nw, self.nb + 1).contiguous()
-        ends = torch.searchsorted(d_sorted, bvals, right=True) - 1
-        gi = ends.clamp(min=0)
-        w = torch.arange(nw, device=rows.device).unsqueeze(1)
-        P = split_points(rows[w, (gi % C) * R + gi // C].permute(2, 0, 1), L)
-        orows = offs.permute(1, 2, 0)                       # [nw, R, 3L]
-        O = split_points(orows[w, gi // C].permute(2, 0, 1), L)
-        T = GC.add(P, O)
-        # nothing at or below this digit -> the identity class (X = Z = 0;
-        # Y is a point's Y, nonzero)
-        valid = (ends >= 0).unsqueeze(0)
-        PE = (torch.where(valid, T[0], 0), T[1], torch.where(valid, T[2], 0))
-        bk = GC.add(tuple(a[..., 1:] for a in PE),
-                    GC.neg(tuple(a[..., :-1] for a in PE)))
-        return torch.cat(bk).contiguous()
+        """The bucket step's wrapper at this plan's C, R and nb."""
+        return buckets(rows, offs, d_sorted, self.C, self.R, self.nb,
+                       self.GC)
 
 
-WRAPPERS = (leaf_prefix, lane_offsets, weighted_sum, horner_fold)
-PLAIN = (leaf_prefix_plain, lane_offsets_plain, weighted_sum_plain,
-         horner_fold_plain)
+WRAPPERS = (leaf_prefix, lane_offsets, buckets, weighted_sum, horner_fold)
+PLAIN = (leaf_prefix_plain, lane_offsets_plain, buckets_plain,
+         weighted_sum_plain, horner_fold_jacobian_plain)
 
 
 def _next_pow2(n: int) -> int:

@@ -11,7 +11,12 @@ The file imports no jax, so it runs where the port runs:
     2 buckets, and with nine windows in ten all the identity;
   * the lane offsets at the 2^16 plan's lane totals (24 windows of 512
     lanes) and at their first 1, 2 and 8 lanes;
-  * each of the four windowed-MSM kernels, the ladder kernel, the
+  * the bucket step at the 4,096-point plan with edge digits (no digit
+    0, all digits 0, the largest digit at the last index, a boundary at a
+    lane's last step, empty buckets), G1 and G2 of both curves, BLS24-315
+    G2's launched twice;
+  * each of the five windowed-MSM kernels (the fold in the Jacobian
+    form), the ladder kernel, the
     per-chunk reduction kernel and the fold of the chunk sums against its
     plain version on the same CUDA tensors, G1 and G2, bit for bit, one
     launch each: at the small proof's 4096 points (the four windowed
@@ -131,8 +136,10 @@ def _windowed_kernels_match_plain(dev, kind, n, seed):
                                      for k in _cuda.KERNELS}
     assert torch.equal(rows, M.leaf_prefix_plain(sx, sy, GC))
     assert torch.equal(offs, M.lane_offsets_plain(tot, GC))
+    assert torch.equal(bk, M.buckets_plain(rows, offs, d_sorted, plan.C,
+                                           plan.R, plan.nb, GC))
     assert torch.equal(S, M.weighted_sum_plain(bk, GC))
-    assert torch.equal(P, M.horner_fold_plain(S, plan.c, GC))
+    assert torch.equal(P, M.horner_fold_jacobian_plain(S, plan.c, GC))
     return plan
 
 
@@ -238,6 +245,61 @@ def test_weighted_sum_matches_plain_on_cuda(dev, kind, case):
     assert torch.equal(S, M.weighted_sum_plain(bk, GC))
 
 
+def _bucket_inputs(kind, dev):
+    """The bucket step's inputs along the 4,096-point plan (the leaf and
+    lane offsets kernels on oracle inputs), the sorted digits of windows
+    0-3 replaced: no digit 0 and the largest digit nb last; all digits 0;
+    C zeros (E_0 = C - 1, a lane's last step), then two digits, then nb
+    (empty buckets); ones and nb last.  -> (plan, rows, offs, digits)."""
+    G, (xs, ys, inf, sc), _ = _oracle_inputs(kind, dev, 19)
+    plan = M.MSM(G, N, BN254.fr.L)
+    sx, sy, d = plan._sort_gather(*plan._prep_window(xs, ys, inf, sc))
+    rows = M.leaf_prefix(sx, sy, plan.GC)
+    offs = M.lane_offsets(plan.lane_totals(rows), plan.GC)
+    n, nb, C = plan.n_pad, plan.nb, plan.C
+    rng = np.random.default_rng(23)
+    d = d.clone()
+    d[0] = torch.from_numpy(np.sort(rng.integers(1, nb + 1, n))).to(dev)
+    d[0, -1] = nb
+    d[1] = 0
+    d[2] = 3
+    d[2, :C] = 0
+    d[2, n // 2:] = 5
+    d[2, -7:] = nb
+    d[3] = 1
+    d[3, -1] = nb
+    return plan, rows, offs, d.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_buckets_match_plain_on_cuda_edges(dev, kind):
+    """The bucket step (buckets_kernel; fp4: buckets_sliced_kernel) at the
+    4,096-point plan, with edge digits in four windows beside the plan's
+    own: one launch (two over fp4, each equal to the other), bit for bit
+    against the plain version; the empty buckets are the identity class
+    (0 : Y : 0)."""
+    plan, rows, offs, d = _bucket_inputs(kind, dev)
+    args = (rows, offs, d, plan.C, plan.R, plan.nb, plan.GC)
+    if kind == "g2_bls24315":
+        bk, again, n = _twice(M.buckets, *args)
+        assert n == 2 and torch.equal(bk, again)
+    else:
+        before = _cuda.launches[f"buckets_{kind}"]
+        bk = M.buckets(*args)
+        torch.cuda.synchronize()
+        assert _cuda.launches[f"buckets_{kind}"] == before + 1
+    assert torch.equal(bk, M.buckets_plain(*args))
+    bvals = torch.arange(plan.nb + 1, device=dev).expand(
+        d.shape[0], plan.nb + 1).contiguous()
+    ends = torch.searchsorted(d, bvals, right=True) - 1
+    empty = ends[:, 1:] == ends[:, :-1]
+    assert int(ends[0, 0]) == -1 and int(ends[2, 0]) == plan.C - 1
+    assert bool(empty[1].all()) and int(empty[2].sum()) >= plan.nb - 3
+    X, Y, Z = M.split_points(bk, plan.GC.F.L)
+    assert bool((X[:, empty] == 0).all() and (Z[:, empty] == 0).all())
+
+
 _TOTALS = {}
 
 
@@ -307,7 +369,7 @@ def _ladder_on_cuda(G, args):
                 f"horner_fold_{kind}": 1}
     assert torch.equal(out, M.ladder_plain(*args, GC))
     assert torch.equal(tot, M.reduce_plain(out, GC))
-    assert torch.equal(S, M.horner_fold_plain(tot, B, GC))
+    assert torch.equal(S, M.horner_fold_jacobian_plain(tot, B, GC))
 
 
 @pytest.mark.cuda
@@ -372,7 +434,8 @@ def test_fp4_fold_sliced_matches_plain_on_cuda(dev, live):
     """BLS24-315 G2's Horner fold, horner_fold_sliced_kernel (one group
     of FOLD_GROUP lanes), at the ladder's chunk fold (16 sums of 4,096
     points' chunks, c = 16), the top 16 - ``live`` sums the identity,
-    launched twice: each launch equals the plain fold bit for bit."""
+    launched twice: each launch equals the plain fold in the Jacobian form
+    bit for bit."""
     G, args, _ = _oracle_inputs("g2_bls24315", dev, 17)
     GC = M.complete_ops(G)
     T = M.reduce_plain(M.ladder_plain(*args, GC), GC)
@@ -381,7 +444,7 @@ def test_fp4_fold_sliced_matches_plain_on_cuda(dev, live):
     first, again, n = _twice(M.horner_fold, S, 16, GC)
     assert n == 2
     assert torch.equal(first, again)
-    assert torch.equal(first, M.horner_fold_plain(S, 16, GC))
+    assert torch.equal(first, M.horner_fold_jacobian_plain(S, 16, GC))
 
 
 @pytest.mark.cuda

@@ -200,11 +200,11 @@ class _Run:
         GC = plan.GC
         ptrows, dg, sg = plan._prep_window(self.xs, self.ys,
                                            torch.from_numpy(inf), self.sc)
-        self.sx, self.sy, d_sorted = plan._sort_gather(ptrows, dg, sg)
+        self.sx, self.sy, self.d_sorted = plan._sort_gather(ptrows, dg, sg)
         self.rows = M.leaf_prefix_plain(self.sx, self.sy, GC)
         self.tot = plan.lane_totals(self.rows)
         self.offs = M.lane_offsets_plain(self.tot, GC)
-        self.bk = plan._buckets(self.rows, self.offs, d_sorted)
+        self.bk = plan._buckets(self.rows, self.offs, self.d_sorted)
         self.S = M.weighted_sum_plain(self.bk, GC)
         self.P = M.horner_fold_plain(self.S, plan.c, GC)
         self.result = points_to_host(
@@ -311,6 +311,19 @@ template <class Cv> static void grid_fold(const int64_t* S, int64_t* o, int nw, 
   else
     horner_fold_kernel<Cv>(S, o, nw, c);
 }
+// the bucket step, a group of one thread a block, a block a bucket
+template <class Cv> static void grid_buckets(const int64_t* rows,
+    const int64_t* offs, const int64_t* d, int64_t* o, int nw, int C, int R,
+    int nb) {
+  blockDim.x = 1; threadIdx.x = 0;
+  for (long b = 0; b < (long)nw * nb; ++b) {
+    blockIdx.x = (unsigned)b;
+    if constexpr (FpKTraits<typename Cv::F>::SLICED)   // fp4's shipped step
+      buckets_sliced_kernel<Cv, 1, 1>(rows, offs, d, o, nw, C, R, nb);
+    else
+      buckets_kernel<Cv, 1, 1>(rows, offs, d, o, nw, C, R, nb);
+  }
+}
 template <class Cv> static void grid_wsum(const int64_t* b, int64_t* o, int nw, int nb) {
   std::vector<Point<typename Cv::F>> s((long)nw * (nb + nb / 2));
   blockDim.x = 1; threadIdx.x = 0;
@@ -327,6 +340,9 @@ template <class Cv> static void grid_wsum(const int64_t* b, int64_t* o, int nw, 
       int64_t* o, int nw, int C, int R) { grid_leaf<CV>(a, b, o, nw, C, R); } \
   extern "C" void host_lane_offsets_##NAME(const int64_t* a, int64_t* o,      \
       int nw, int R) { grid_lanes<CV>(a, o, nw, R); }                         \
+  extern "C" void host_buckets_##NAME(const int64_t* rows,                   \
+      const int64_t* offs, const int64_t* d, int64_t* o, int nw, int C,       \
+      int R, int nb) { grid_buckets<CV>(rows, offs, d, o, nw, C, R, nb); }    \
   extern "C" void host_weighted_sum_##NAME(const int64_t* a, int64_t* o,      \
       int nw, int nb) { grid_wsum<CV>(a, o, nw, nb); }                        \
   extern "C" void host_horner_fold_##NAME(const int64_t* a, int64_t* o,       \
@@ -592,6 +608,34 @@ extern "C" int host_fold_sliced_threads(int G, const int64_t* S, int64_t* out,
   }
   return -1;
 }
+// the bucket step at group width G in blocks of T host threads, a block
+// (a run of buckets of one window) at a time: the shipped shape, or over
+// fp4 (buckets_sliced_kernel) any of the trial shapes
+template <class Cv, int G = Cv::BUCKETS_GROUP, int T = Cv::BUCKETS_THREADS>
+static int grid_buckets_threads(const int64_t* rows, const int64_t* offs,
+                                const int64_t* d, int64_t* out, int nw, int C,
+                                int R, int nb) {
+  constexpr int RUN = buckets_run(T / G);
+  bad_masks = 0;
+  for (int b = 0; b < nw * ((nb + RUN - 1) / RUN); ++b)
+    run_cluster((unsigned)b, 1, T, G, [=] {
+      if constexpr (FpKTraits<typename Cv::F>::SLICED)   // fp4's shipped step
+        buckets_sliced_kernel<Cv, G, T>(rows, offs, d, out, nw, C, R, nb);
+      else
+        buckets_kernel<Cv, G, T>(rows, offs, d, out, nw, C, R, nb);
+    });
+  return bad_masks;
+}
+#define BUCKETS_SHAPE(G, T)                                                   \
+  if (g == G && t == T)                                                       \
+    return grid_buckets_threads<G2Bls24, G, T>(rows, offs, d, out, nw, C, R,  \
+                                               nb);
+extern "C" int host_buckets_sliced_threads(int g, int t, const int64_t* rows,
+    const int64_t* offs, const int64_t* d, int64_t* out, int nw, int C, int R,
+    int nb) {
+  BUCKETS_SHAPE(4, 128) BUCKETS_SHAPE(8, 256) BUCKETS_SHAPE(16, 256)
+  return -1;
+}
 // the weighted sum at its shipped group width, block size and blocks a
 // window, a window's cluster at a time
 template <class Cv, int G = Cv::WSUM_GROUP, int T = Cv::WSUM_THREADS,
@@ -691,7 +735,13 @@ extern "C" int host_lanes_sliced_threads(int g, int t, int cl,
       int nw, int nb) { return grid_wsum_threads<CV>(a, o, nw, nb); }         \
   extern "C" int host_wsum_group_##NAME() { return CV::WSUM_GROUP; }          \
   extern "C" int host_wsum_block_##NAME() { return CV::WSUM_THREADS; }        \
-  extern "C" int host_wsum_cluster_##NAME() { return CV::WSUM_CLUSTER; }
+  extern "C" int host_wsum_cluster_##NAME() { return CV::WSUM_CLUSTER; }     \
+  extern "C" int host_buckets_threads_##NAME(const int64_t* rows,           \
+      const int64_t* offs, const int64_t* d, int64_t* o, int nw, int C,       \
+      int R, int nb) {                                                        \
+    return grid_buckets_threads<CV>(rows, offs, d, o, nw, C, R, nb); }        \
+  extern "C" int host_buckets_shape_##NAME(int i) {                           \
+    return i ? CV::BUCKETS_THREADS : CV::BUCKETS_GROUP; }
 SHAPES(g1, G1)
 SHAPES(g2, G2)
 SHAPES(g1_bls24315, G1Bls24)
@@ -940,7 +990,8 @@ def test_ladder_sliced_matches_plain_on_host_threads(threaded_leaf,
 
 @pytest.fixture(scope="module")
 def fp4_folds(runs):
-    """{live: (S, c, the plain fold)}: five window sums of the run, the
+    """{live: (S, c, the plain fold in the Jacobian form)}: five window
+    sums of the run, the
     top 5 - live of them the identity; and the ladder's chunk fold's
     shape, 16 sums at c = 16."""
     run = runs["g2_bls24315"]
@@ -949,7 +1000,7 @@ def fp4_folds(runs):
                                torch.cat(GC.inf(5 - live, "cpu"))], 1), c)
              for live in (0, 1, 3)}
     cases["chunks nw=16, c=16"] = (run.S[:, :16].contiguous(), 16)
-    return {k: (S, c, M.horner_fold_plain(S, c, GC))
+    return {k: (S, c, M.horner_fold_jacobian_plain(S, c, GC))
             for k, (S, c) in cases.items()}
 
 
@@ -961,7 +1012,7 @@ def test_fold_sliced_matches_plain_on_host_threads(threaded_leaf, fp4_folds,
     host threads: five window sums, the top 5 - ``live`` of them the
     identity (the fold starts at the highest live one), or the ladder's
     chunk fold's shape (16 sums, c = 16); bit for bit against the plain
-    fold."""
+    fold in the Jacobian form (SlicedPoint::jacobian's two more levels)."""
     S, c, want = fp4_folds[live]
     out = torch.empty_like(want)
     assert threaded_leaf.host_fold_sliced_threads(
@@ -1246,6 +1297,149 @@ def test_lane_offsets_sliced_matches_plain_on_host_threads(
             ship["lanes_cluster"]) in LANES_HOST_SHAPES
 
 
+# ---- the bucket step -----------------------------------------------------------
+
+def _buckets_edges(run):
+    """(rows, offs, d_sorted) of the run, the sorted digits of its first
+    four windows replaced (n_pad = 48, C = 6, nb = 32): window 0 has no
+    digit 0 (E_0 = -1) and ends in the largest digit nb; window 1's
+    digits are all 0; window 2's first C are 0 (E_0 = C - 1, a lane's last
+    step), then 3s and 5s, then nb, so most of its buckets are empty;
+    window 3 is 1s but its last, nb (E_0 = -1, E_nb = n_pad - 1).  The
+    kernel's function takes any sorted digits beside any rows."""
+    nb, n = run.plan.nb, run.plan.n_pad
+    C = run.plan.C
+    d = run.d_sorted.clone()
+    rng = np.random.default_rng(61)
+    d[0] = torch.from_numpy(np.sort(rng.integers(1, nb + 1, n)))
+    d[0, -1] = nb
+    d[1] = 0
+    d[2] = torch.tensor([0] * C + [3] * 20 + [5] * 18 + [nb] * (n - C - 38))
+    d[3] = 1
+    d[3, -1] = nb
+    return run.rows, run.offs, d.contiguous()
+
+
+def _check_bucket_edges(run, d, bk):
+    """The edge cases are in the digits, and the empty buckets of the
+    plain version's output are the identity class (0 : Y : 0), Y != 0."""
+    nb, n, C = run.plan.nb, run.plan.n_pad, run.plan.C
+    L = run.G.F.L
+    bvals = torch.arange(nb + 1).expand(d.shape[0], nb + 1).contiguous()
+    ends = torch.searchsorted(d, bvals, right=True) - 1
+    assert int(ends[0, 0]) == -1 and int(ends[3, 0]) == -1   # no digit 0
+    assert bool((ends[1] == n - 1).all())                   # all digits 0
+    assert bool((d == nb).any(1)[[0, 2, 3]].all())          # the largest
+    assert bool(((ends >= 0) & (ends % C == C - 1)).any())  # a lane's end
+    assert int(ends[2, 0]) == C - 1 and int(ends[0, -1]) == n - 1
+    empty = ends[:, 1:] == ends[:, :-1]                      # [nw, nb]
+    assert int(empty[2].sum()) >= nb - 3 and bool(empty[1].all())
+    X, Y, Z = M.split_points(bk, L)
+    assert bool((X[:, empty] == 0).all() and (Z[:, empty] == 0).all())
+    assert bool((Y[:, empty] != 0).any(0).all())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_buckets_source_matches_plain_on_host_edges(runs, host_kernels, kind):
+    """The bucket step's source on one thread (a group of one, a bucket a
+    block) against the plain version, bit for bit, on the edge digits of
+    _buckets_edges: no digit 0, all digits 0, the largest digit nb at the
+    last index n_pad - 1, a boundary at a lane's last step, and empty
+    buckets, which come out as the identity class.  (The run's own digits:
+    test_kernel_source_matches_plain_on_host.)"""
+    run = runs[kind]
+    rows, offs, d = _buckets_case(run, "edges")
+    plan = run.plan
+    want = M.buckets_plain(rows, offs, d, plan.C, plan.R, plan.nb, plan.GC)
+    _check_bucket_edges(run, d, want)
+    out = torch.empty_like(want)
+    getattr(host_kernels, f"host_buckets_{kind}")(
+        _ptr(rows), _ptr(offs), _ptr(d), _ptr(out), d.shape[0], plan.C,
+        plan.R, plan.nb)
+    assert torch.equal(out, want)
+
+
+def _buckets_case(run, case):
+    """The bucket step's inputs on the first 8 windows: the run's own, or
+    the edge digits of _buckets_edges."""
+    rows, offs, d = (_buckets_edges(run) if case == "edges"
+                     else (run.rows, run.offs, run.d_sorted))
+    return (rows[:8].contiguous(), offs[:, :8].contiguous(),
+            d[:8].contiguous())
+
+
+@pytest.mark.parametrize("case", ["run", "edges"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_buckets_groups_match_plain_on_host_threads(runs, threaded_leaf, kind,
+                                                    case):
+    """The bucket step at the card's group width and block size
+    (BUCKETS_GROUP, BUCKETS_THREADS; fp4: buckets_sliced_kernel), every
+    lane on a host thread, a block's run of buckets at a time (its
+    prefixes, a block barrier, its buckets), bit for bit against the plain
+    version."""
+    run = runs[kind]
+    rows, offs, d = _buckets_case(run, case)
+    plan = run.plan
+    want = M.buckets_plain(rows, offs, d, plan.C, plan.R, plan.nb, plan.GC)
+    out = torch.empty_like(want)
+    fn = getattr(threaded_leaf, f"host_buckets_threads_{kind}")
+    assert fn(_ptr(rows), _ptr(offs), _ptr(d), _ptr(out), d.shape[0], plan.C,
+              plan.R, plan.nb) == 0   # group masks
+    assert torch.equal(out, want)
+    shape = getattr(threaded_leaf, f"host_buckets_shape_{kind}")
+    ship = _shape(threaded_leaf, kind)
+    assert [shape(0), shape(1)] == [ship["buckets_group"],
+                                    ship["buckets_threads"]]
+
+
+# the fp4 bucket step's shapes in the threaded harness (G, threads a
+# block): a lane a coefficient (G = 4), a lane pair (8, the shipped one)
+# and four lanes (16) a coefficient
+BUCKETS_HOST_SHAPES = [(4, 128), (8, 256), (16, 256)]
+
+
+@pytest.mark.parametrize("case", ["run", "edges"])
+@pytest.mark.parametrize("shape", BUCKETS_HOST_SHAPES,
+                         ids=[f"G={g},T={t}" for g, t in BUCKETS_HOST_SHAPES])
+def test_buckets_sliced_matches_plain_on_host_threads(runs, threaded_leaf,
+                                                      shape, case):
+    """The fp4 bucket step (buckets_sliced_kernel: each addition on a
+    group of G lanes, a lane's coefficients of the row and the offset, or
+    of two prefixes in shared memory) at three group widths, every lane on
+    a host thread, bit for bit against the plain version."""
+    run = runs["g2_bls24315"]
+    rows, offs, d = _buckets_case(run, case)
+    plan = run.plan
+    want = M.buckets_plain(rows, offs, d, plan.C, plan.R, plan.nb, plan.GC)
+    out = torch.empty_like(want)
+    assert threaded_leaf.host_buckets_sliced_threads(
+        *shape, _ptr(rows), _ptr(offs), _ptr(d), _ptr(out), d.shape[0],
+        plan.C, plan.R, plan.nb) == 0   # group masks
+    assert torch.equal(out, want)
+    ship = _shape(threaded_leaf, "g2_bls24315")
+    assert (ship["buckets_group"], ship["buckets_threads"]) in \
+        BUCKETS_HOST_SHAPES
+
+
+def test_buckets_wrapper_routes_by_device(runs):
+    """The bucket step's wrapper: the plain version on CPU tensors, no
+    launch, nothing counted on the card; a device with neither raises;
+    the plan's _buckets takes its C, R and nb."""
+    run = runs["g1"]
+    plan = run.plan
+    args = (run.rows, run.offs, run.d_sorted, plan.C, plan.R, plan.nb,
+            plan.GC)
+    before = dict(_cuda.launches)
+    assert torch.equal(M.buckets(*args), run.bk)
+    assert torch.equal(plan._buckets(*args[:3]), run.bk)
+    assert _cuda.launches == before
+    assert not any(M.plain_on_cuda.values())
+    with pytest.raises(ValueError):
+        M.buckets(run.rows.to("meta"), *args[1:])
+    assert M.WRAPPERS[2] is M.buckets and M.PLAIN[2] is M.buckets_plain
+    assert _cuda.WINDOW_KERNELS.index("buckets") == 2
+
+
 def test_lane_offsets_need_a_power_of_two():
     """A lane count that is not a power of two raises, in the plan and in
     the plain version."""
@@ -1279,7 +1473,7 @@ def test_leaf_prefix_source_all_infinite_lane_on_host(runs, host_kernels,
     assert torch.equal(out, want)
 
 
-@pytest.mark.parametrize("kernel", ["leaf_prefix", "lane_offsets",
+@pytest.mark.parametrize("kernel", ["leaf_prefix", "lane_offsets", "buckets",
                                     "weighted_sum", "horner_fold"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_kernel_source_matches_plain_on_host(runs, host_kernels, kind, kernel):
@@ -1294,14 +1488,19 @@ def test_kernel_source_matches_plain_on_host(runs, host_kernels, kind, kernel):
         out = torch.empty_like(run.tot)
         fn(_ptr(run.tot), _ptr(out), nw, R)
         want = run.offs
+    elif kernel == "buckets":
+        out = torch.empty_like(run.bk)
+        fn(_ptr(run.rows), _ptr(run.offs), _ptr(run.d_sorted), _ptr(out), nw,
+           C, R, run.plan.nb)
+        want = run.bk
     elif kernel == "weighted_sum":
         out = torch.empty_like(run.S)
         fn(_ptr(run.bk), _ptr(out), nw, run.bk.shape[-1])
         want = run.S
     else:
-        out = torch.empty_like(run.P)
+        want = M.horner_fold_jacobian_plain(run.S, run.plan.c, run.plan.GC)
+        out = torch.empty_like(want)
         fn(_ptr(run.S), _ptr(out), run.S.shape[1], run.plan.c)
-        want = run.P
     assert torch.equal(out, want)
 
 
@@ -1311,8 +1510,9 @@ def test_horner_fold_starts_at_highest_live_window(runs, host_kernels, kind,
                                                    live):
     """Five window sums, the top 5 - ``live`` of them the identity: the
     fold starts at the highest that is not (with none, the result is
-    window 0 itself); the plain version against the host sum, the kernel
-    source against the plain version, bit for bit."""
+    window 0 itself); the plain version against the host sum, and its
+    Jacobian form (X Z, Y Z^2, Z: GC.to_jacobian of it) against the kernel
+    source (fp4: horner_fold_sliced_kernel at G = 1), bit for bit."""
     run = runs[kind]
     GC, c, L = run.plan.GC, run.plan.c, run.G.F.L
     S = torch.cat([run.S[:, :live], torch.cat(GC.inf(5 - live, "cpu"))], 1)
@@ -1326,9 +1526,11 @@ def test_horner_fold_starts_at_highest_live_window(runs, host_kernels, kind,
         want]
     if live == 0:
         assert torch.equal(P, S[:, :1])
-    out = torch.empty_like(P)
+    J = M.horner_fold_jacobian_plain(S, c, GC)
+    assert torch.equal(J, torch.cat(GC.to_jacobian(M.split_points(P, L))))
+    out = torch.empty_like(J)
     getattr(host_kernels, f"host_horner_fold_{kind}")(_ptr(S), _ptr(out), 5, c)
-    assert torch.equal(out, P)
+    assert torch.equal(out, J)
 
 
 # ptxas -v lines of the fp4 leaf and a BN254 leaf, as nvcc prints them
@@ -1488,6 +1690,42 @@ def test_ptxas_reports_name_the_fp4_lane_offsets(parser):
     assert list(leaf_groups.kernel_registers(PTXAS_FP4_LANES,
                                              "lane_offsets")) == [
         "G2Bls24 G=8 T=128 CL=4"]
+
+
+# ptxas -v lines of the fp4 bucket step (its shipped shape, launch bounds
+# of one block an SM) and of BN254 G2's, with the registers and stack of
+# run CH
+PTXAS_BUCKETS = """\
+ptxas info    : Compiling entry function '_Z21buckets_sliced_kernelI7G2Bls24Li8ELi256EEvPKlS2_S2_Pliiii' for 'sm_90a'
+ptxas info    : Function properties for _Z21buckets_sliced_kernelI7G2Bls24Li8ELi256EEvPKlS2_S2_Pliiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 205 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z14buckets_kernelI2G2Li8ELi256EEvPKlS2_S2_Pliiii' for 'sm_90a'
+ptxas info    : Function properties for _Z14buckets_kernelI2G2Li8ELi256EEvPKlS2_S2_Pliiii
+    512 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("parser", ["chip_smoke", "leaf_groups"])
+def test_ptxas_reports_name_the_fp4_buckets(parser):
+    """The [ptxas] lines of chip_smoke.py and ops/leaf_groups.py name the
+    coefficient-sliced bucket step with its shape (G, threads) and spills,
+    apart from the template bucket step."""
+    if parser == "chip_smoke":
+        assert _chip_smoke().ptxas_summary(PTXAS_BUCKETS) == [
+            "buckets_sliced_kernel<G2Bls24, 8, 256>: 205 registers; 0 bytes "
+            "stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "buckets_kernel<G2, 8, 256>: 255 registers; 512 bytes stack "
+            "frame, 0 bytes spill stores, 0 bytes spill loads"]
+        return
+    from gnark_tpu_torch.ops import leaf_groups
+    sliced = leaf_groups.kernel_registers(PTXAS_BUCKETS, "buckets_sliced")
+    assert list(sliced) == ["G2Bls24 G=8 T=256"]
+    assert "0 bytes spill stores" in sliced["G2Bls24 G=8 T=256"]
+    assert "Used 205 registers" in sliced["G2Bls24 G=8 T=256"]
+    assert list(leaf_groups.kernel_registers(PTXAS_BUCKETS, "buckets")) == [
+        "G2 G=8 T=256"]
 
 
 def _source_limbs(text, name):

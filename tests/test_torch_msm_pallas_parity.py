@@ -1,12 +1,17 @@
-"""The port's leaf prefix, weighted bucket sum and Horner fold (their plain
-versions, which the CUDA kernels equal bit for bit) against the JAX
-package's Pallas kernels ``MSM._leaf_prefix_pallas``,
+"""The port's leaf prefix, bucket step, weighted bucket sum and Horner fold
+(their plain versions, which the CUDA kernels equal bit for bit) against
+the JAX package's Pallas kernels ``MSM._leaf_prefix_pallas``,
 ``_weighted_sum_pallas`` and ``_horner_fold_pallas``, run in interpret mode
-as the JAX package's own tests run them on a CPU.
+as the JAX package's own tests run them on a CPU, and against the bucket
+step of its ``MSM._window_chunk`` (jitted through XLA there), whose
+weighted sum the test's plan instance replaces by the identity so that
+it hands back its buckets.
 
 The same inputs go through both, made with numpy from a seed: for the leaf,
 sorted point rows with infinity flags (bit 16 of y limb 0) and negative
-digits (bit 17); for the weighted sum and the fold, projective points
+digits (bit 17); for the bucket step, points, 16-bit scalars and
+infinity flags through each package's own recoding, sort and gather,
+leaf and lane offsets; for the weighted sum and the fold, projective points
 (xZ : yZ : Z) with a random Z, some of them the identity (0 : Z : 0),
 one repeating another and one its negation.  The two sides may add in
 another order (the JAX weighted sum pads the buckets to 128 lanes and
@@ -190,8 +195,46 @@ def _horner(case):
     S.assert_same(S.jax_points(out), S.port_points(got))
 
 
-KERNELS = {"leaf_prefix": _leaf, "weighted_sum": _weighted_sum,
-           "horner_fold": _horner}
+def _buckets(case):
+    S = _Sides(case)
+    jplan = S.jplan
+    n = C * R
+    rng = np.random.default_rng(37)
+    pts = [S.host.scalar_mul(S.gen, int(k))
+           for k in rng.integers(1, 1 << 30, size=n)]
+    pts[6] = pts[5]
+    inf = rng.random(n) < 0.15
+    scalars = rng.integers(0, 1 << 16, size=(1, n)).astype(np.uint32)
+    scalars[0, [3, 11]] = 0
+    xs = np.asarray(S.JF.pack([p[0] for p in pts]))
+    ys = np.asarray(S.JF.pack([p[1] for p in pts]))
+    ptrows, dg, sg = jplan._prep_window(
+        jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(inf),
+        jnp.asarray(scalars))
+    # the reference's buckets: its weighted sum (this instance's only)
+    # hands them back
+    jplan._weighted_sum_pallas = lambda buckets, nw: buckets
+    jb = S.run_jax(jplan._window_chunk, ptrows, dg, sg)
+    # the port's steps on the same rows and digits
+    nb = jplan.nb
+    dg, sg = (torch.from_numpy(np.asarray(a).astype(np.int64))
+              for a in (dg, sg))
+    assert bool((dg == 0).any()) and bool((sg != 0).any())
+    tplan = M.MSM.__new__(M.MSM)
+    tplan.R, tplan.C, tplan.n_pad = R, C, n
+    sx, sy, d = tplan._sort_gather(
+        torch.from_numpy(np.asarray(ptrows).astype(np.int64)), dg, sg)
+    rows = M.leaf_prefix_plain(sx, sy, S.GC)
+    offs = M.lane_offsets_plain(tplan.lane_totals(rows), S.GC)
+    got = M.buckets_plain(rows, offs, d, C, R, nb, S.GC)
+    assert got.shape == (3 * S.L, dg.shape[0], nb)
+    jpts = S.jax_points(jb)
+    assert not all(p[2] % S.q for p in jpts), "no empty bucket"
+    S.assert_same(jpts, S.port_points(got))
+
+
+KERNELS = {"leaf_prefix": _leaf, "buckets": _buckets,
+           "weighted_sum": _weighted_sum, "horner_fold": _horner}
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
