@@ -50,7 +50,15 @@ always measured:
      graph, and the reduction, also get their critical path: the levels of
      products on the longest dependent chain times the latency of one
      dependent product of the curve's base field (the montmul_bn254 or
-     montmul_bls24315 chain launched on one element, in one thread);
+     montmul_bls24315 chain launched on one element, in one thread).
+     Then the fixed-base scan of setup's key batches and the KZG SRS
+     (fixed_base_kernel; over fp4 fixed_base_sliced_kernel) against its
+     plain version, bit for bit, each kind at c = 8 (N_FIXED_BASE
+     columns), BN254's G1 and G2 at the 2^20 key's slice (SETUP_COLUMNS
+     columns at setup's c = 8), each row's bound the mixed additions
+     its digits need and its registers from ptxas, its five edge columns
+     against the host's scalar multiplication, with the kernel's time a
+     column and window and the host's a table entry;
   4. MSMs against a host oracle (point i = 2^(i mod 64) G), G1 and G2: at
      2^16 the windowed plan, kernel path and plain path, in points/s; and
      the ladder against the windowed plan, kernel paths, at 4096 and 2^16
@@ -119,10 +127,11 @@ always measured:
      wrong input; the two outer proves run
      side by side on two host threads while the main thread refuses the
      wrong inner inputs; the host memory after it.  The inner keys' setup
-     and the verifiers' compiles run while nvcc builds the kernels, the
-     two outer keys' setups, one after the other in one worker thread,
-     beside phases 2-11 (phase 12 prints how long it waited for each):
-     none needs a kernel;
+     and the verifiers' compiles run while nvcc builds the kernels
+     (BLS24-315's inner setup, on the fixed-base kernel, once the builds
+     are done), the two outer keys' setups, one after the other in one
+     worker thread, beside phases 2-11 (phase 12 prints how long it
+     waited for each): neither needs a kernel;
  13. the mesh prover (parallel/): phase 5's 2^16 MiMC key and system go
      through key_io and cs_io to two ranks spawned on the one card
      (gloo: two NCCL ranks on one device are refused, so the collectives
@@ -177,7 +186,13 @@ every prove of 5-14 exactly its quotient's NTT launches (``ntt_launches``:
 the passes of each of Groth16's seven transforms and one pointwise
 step, PLONK's five transforms of n and seven of its quotient domain; a
 mesh rank's seven local transforms and its pointwise step), and no
-plain version may run on the card there; no single-card Groth16 prove
+plain version may run on the card there; every setup on the card (in
+5, 6, 7, 9, 10, 12's inner keys and 14) launches the fixed-base kernel
+exactly as ``setup_launches`` says (a Groth16 key's four G1 and one G2
+batch a SETUP_COLUMNS slice, a PLONK SRS one G1 launch, none on the
+native route) and runs no plain scan on the card (``counted_setup``;
+the ``fixed_base_<kind>`` rows' ``launches_<path>``); no single-card
+Groth16 prove
 of 5, 9 and 14 may run FieldOps.to_mont / from_mont on a CUDA tensor
 (``watch_mont``: its quotient's conversions ride on the first and last
 passes of its transforms), and 14 splits each prove's ``compute_h``
@@ -697,6 +712,23 @@ def kernel_work(name, kind, args):
             best = np.minimum(best, win + np.where((d > 1).any(0), table, 0))
         K, n = d.shape
         return int(best.sum()), nbytes + K * n * L3 * 8
+    if name == "fixed_base":
+        # a column's sum: one mixed addition a further window whose entry
+        # is not the identity (the first starts the sum), then the
+        # Jacobian form's X Z, Z^2 and Y Z^2 where two or more were added
+        # (one entry gives (x, y, 1)).  The bytes: the scalars, the
+        # table's point-major copy and the output, each once
+        from gnark_tpu_torch.ops.msm import window_digits
+        table, sc = args
+        d = window_digits(sc, table.c)[:table.nwin]
+        w = torch.arange(table.nwin, device=sc.device)[:, None]
+        live = (~table.tinf[w, d]).sum(0)                          # [n]
+        k = _cuda.shape(kind)["degree"]
+        jac = 3 * 3 ** (k.bit_length() - 1)
+        products = (int((live - 1).clamp(min=0).sum()) * cost["padd_mixed"]
+                    + int((live >= 2).sum()) * jac)
+        return products, (sc.numel() * 8 + table.points.numel() * 4
+                          + L3 * sc.shape[1] * 8)
     if name == "reduce":
         # each chunk's sum: one addition a further point that is not the
         # identity
@@ -794,6 +826,10 @@ def warps_per_sm(name, kind, args):
     elif name == "reduce":
         threads = (t[0].shape[1] * _cuda.shape(kind)["reduce_threads"]
                    * _cuda.shape(kind)["reduce_cluster"])
+    elif name == "fixed_base":
+        block = _cuda.shape(kind)["leaf_threads"]
+        threads = -(-t[0].shape[1] * _cuda.shape(kind)["leaf_group"]
+                    // block) * block
     else:
         raise KeyError(name)
     return -(-threads // 32) / sms
@@ -1113,6 +1149,13 @@ def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
     elif work == "ladder":
         extra = (f"; {shape['ladder_group']} thread(s) a (point, chunk) "
                  f"chain in blocks of {shape['ladder_threads']}{tag}")
+    elif work == "fixed_base":
+        table = args[0]
+        extra = (f"; {table.nwin} windows of c = {table.c} a column, a "
+                 f"chain of mixed additions on a group of "
+                 f"{shape['leaf_group']} threads in blocks of "
+                 f"{shape['leaf_threads']}{tag}; table "
+                 f"{table.points.numel() * 4} bytes")
     elif work == "leaf_prefix":
         adds, lv, rounds, b["critical_path_ms"], by_rounds = \
             leaf_critical_path(kind, args[1], lat)
@@ -1170,6 +1213,138 @@ def compare(kind, name, args, kern, plain, rates, work=None, twice=False):
         f"shape {tuple(out_k.shape)}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, **b}
+
+
+# ---- the fixed-base scan (msm_kernels.cu's fixed_base_kernel) ---------------
+
+FIXED_BASE_REPLACES = "gnark_tpu/ops/fixed_base.py:56"
+# columns of each kind's row at c = 8: BLS24-315's fp4 at 2^14, where its
+# plain version would take about 25 s at 2^16
+N_FIXED_BASE = {"g1": N_MSM, "g2": N_MSM, "g1_bls24315": N_MSM,
+                "g2_bls24315": N_MSM // 4}
+# each kind's kernel in its library's ptxas report
+FIXED_BASE_PTXAS = {
+    "g1": ("msm", "fixed_base_kernel<G1,"),
+    "g2": ("msm", "fixed_base_kernel<G2,"),
+    "g1_bls24315": ("msm_g1_bls24315", "fixed_base_kernel<G1Bls24,"),
+    "g2_bls24315": ("msm_g2_bls24315", "fixed_base_sliced_kernel<G2Bls24,")}
+# the paths whose setups run the scan (counted_setup)
+SETUP_PATHS = ("groth16", "plonk", "rollup", "curves_groth16",
+               "curves_plonk", "recursion", "2e20")
+SETUP_LAUNCHES = {p: {} for p in SETUP_PATHS}
+
+
+def setup_launches(curve, scheme, n_pad=None):
+    """{fixed-base kernel: launches} of one setup over ``curve`` on the
+    card: a Groth16 key's five batches (four G1, one G2) of
+    SETUP_COLUMNS columns a launch, a PLONK SRS one G1 launch; none on
+    the native route."""
+    from gnark_tpu_torch.backend.groth16 import SETUP_COLUMNS, native_route
+    if native_route(curve):
+        return {}
+    kinds = BN254_KINDS if curve.name == "bn254" else BLS24_KINDS
+    if scheme == "plonk":
+        return {f"fixed_base_{kinds[0]}": 1}
+    slices = -(-n_pad // SETUP_COLUMNS)
+    return {f"fixed_base_{kinds[0]}": 4 * slices,
+            f"fixed_base_{kinds[1]}": slices}
+
+
+@contextlib.contextmanager
+def counted_setup(path, curve, scheme="groth16"):
+    """Run a setup inside: its fixed-base launches are added to
+    SETUP_LAUNCHES[path] and must be setup_launches' (a path sets the
+    counts to zero for its proves after its setups).  Yields a dict that
+    the caller fills with the key's n_pad (Groth16).  No plain version
+    of the scan may run on the card inside."""
+    from gnark_tpu_torch.ops import _cuda
+    from gnark_tpu_torch.ops import msm as M
+    keys = [f"fixed_base_{kind}" for kind in _cuda.KINDS]
+    before = {k: _cuda.launches[k] for k in keys}
+    plain = M.plain_on_cuda["fixed_base"]
+    key = {}
+    yield key
+    ran = {k: _cuda.launches[k] - before[k] for k in keys
+           if _cuda.launches[k] > before[k]}
+    want = setup_launches(curve, scheme, key.get("n_pad"))
+    assert ran == want, (path, curve.name, scheme, ran, want)
+    assert M.plain_on_cuda["fixed_base"] == plain, (path, curve.name)
+    for k, v in ran.items():
+        SETUP_LAUNCHES[path][k] = SETUP_LAUNCHES[path].get(k, 0) + v
+
+
+def ptxas_registers(kind):
+    """(registers, the ptxas line) of a kind's fixed-base kernel."""
+    from gnark_tpu_torch.ops import _cuda
+    lib, prefix = FIXED_BASE_PTXAS[kind]
+    lines = [line for line in ptxas_summary(_cuda.build_info[lib]["ptxas"])
+             if line.startswith(prefix)]
+    assert len(lines) == 1, (kind, lines)
+    return int(re.search(r": (\d+) registers", lines[0]).group(1)), lines[0]
+
+
+def fixed_base_scalars(kind, n, c, device, rng):
+    """[16, n] scalar limbs below the kind's r, drawn as 16-bit limbs (the
+    top one below r's), the first five columns 0, 1, r - 1, 2^c - 1 and
+    2^c; and those five as ints."""
+    import torch
+    from gnark_tpu_torch.ops.limbs import ints_to_limbs
+    r = scalar_modulus(kind)
+    limbs = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
+    limbs[15] %= r >> 240
+    edge = [0, 1, r - 1, (1 << c) - 1, 1 << c]
+    limbs[:, :len(edge)] = ints_to_limbs(edge, 16)
+    return torch.from_numpy(limbs).to(device), edge
+
+
+def phase_fixed_base_kernels(device, rates):
+    """The fixed-base scan (setup's key batches and the KZG SRS) against
+    its plain version on the same CUDA tensors, bit for bit, each kind at
+    c = 8 on N_FIXED_BASE columns, and BN254's G1 and G2 at the 2^20
+    key's slice (SETUP_COLUMNS columns at its window width); each row's
+    first five columns (0, 1, r - 1, 2^c - 1, 2^c) against the host
+    curve's scalar multiplication.  Also the kernel's time a column and
+    window and the host's a table entry, the two costs of the window
+    width's model."""
+    from gnark_tpu_torch.backend.groth16 import SETUP_COLUMNS
+    from gnark_tpu_torch.ops import fixed_base as FB
+    from gnark_tpu_torch.ops.ec import points_to_host
+    results = {}
+    rng = np.random.default_rng(SEED + 4)
+    cases = [(kind, N_FIXED_BASE[kind], 8, "") for kind in
+             BN254_KINDS + BLS24_KINDS]
+    cases += [(kind, SETUP_COLUMNS, 8, "_2e21")
+              for kind in BN254_KINDS]
+    for kind, n, c, suffix in cases:
+        G, host, gen = groups((kind,))[kind]
+        t0 = time.perf_counter()
+        table = FB.FixedBaseTable(G, host, gen, 256, device, c)
+        sync()
+        t_table = time.perf_counter() - t0
+        sc, edge = fixed_base_scalars(kind, n, c, device, rng)
+        r = compare(kind, f"fixed_base n={n} c={c}", (table, sc),
+                    FB.fixed_base, FB.fixed_base_plain, rates,
+                    work="fixed_base")
+        out = FB.fixed_base(table, sc)
+        got = points_to_host(G, tuple(t[:, :len(edge)] for t in
+                                      FB.split_points(out, G.F.L)))
+        assert got == [host.scalar_mul(gen, v) for v in edge], kind
+        entries = table.nwin << c
+        regs, line = ptxas_registers(kind)
+        per_cw = r["ms"] * 1e6 / (n * table.nwin)
+        per_entry = t_table * 1e6 / entries
+        log(f"[fixed_base {kind}{suffix}] n={n} c={c}: the five edge "
+            f"columns are the host's scalar multiples; kernel "
+            f"{per_cw:.4g} ns a column and window, host table "
+            f"{t_table:.3f} s for {entries} entries ({per_entry:.4g} us an "
+            f"entry, {per_entry * 1e3 / per_cw:.4g} columns' windows); "
+            f"[ptxas] {line}")
+        results[f"fixed_base_{kind}{suffix}"] = {
+            **r, "columns": n, "c": c, "windows": table.nwin,
+            "registers": regs, "ns_per_column_window": per_cw,
+            "table_s": t_table, "us_per_table_entry": per_entry}
+        del table, sc, out
+    return results
 
 
 # ---- the quotient's kernels (csrc/ntt_kernels.cu) --------------------------
@@ -1650,12 +1825,16 @@ def phase_groth16(device, profile=False, trace=False):
         cs, pre, digest = mimc_chain(n_hashes)
         assert cs.nb_constraints == n_constraints, cs.nb_constraints
         t0 = time.perf_counter()
-        pk, vk = groth16.setup(cs, BN254, rng=random.Random(42),
-                               device=device)
-        sync()
+        parts = {}
+        with counted_setup("groth16", BN254) as key:
+            pk, vk = groth16.setup(cs, BN254, rng=random.Random(42),
+                                   device=device, timings=parts)
+            sync()
+            key["n_pad"] = pk.n_pad
         log(f"[groth16 {name}] setup on the card "
             f"{time.perf_counter() - t0:.2f} s (domain {pk.domain_n}, "
-            f"n_pad {pk.n_pad})")
+            f"n_pad {pk.n_pad}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
         assert pk.n_pad == n_msm, pk.n_pad
         served[name] = (cs, pk, vk, pre, digest)
 
@@ -1679,7 +1858,7 @@ def phase_groth16(device, profile=False, trace=False):
             log(f"[groth16 {name}] launches in this prove: {ran}")
             check_route(ran, BN254, pk.n_pad, pk.domain_n)
     launches = {f"{k}_{kind}": _cuda.launches[f"{k}_{kind}"]
-                for k in _cuda.KERNELS for kind in BN254_KINDS}
+                for k in _cuda.MSM_KERNELS for kind in BN254_KINDS}
     launches.update({f"{k}_fr_bn254": _cuda.launches[f"{k}_fr_bn254"]
                      for k in _cuda.NTT_KERNELS})
     assert all(v > 0 for v in launches.values()), launches
@@ -1756,8 +1935,9 @@ def phase_plonk(device, trace=False):
     from gnark_tpu_torch.ops import msm as M
     cs, x0, y = square_chain(N_PLONK - 4)
     t0 = time.perf_counter()
-    pk, vk = plonk.setup(cs, BN254, rng=random.Random(42), device=device)
-    sync()
+    with counted_setup("plonk", BN254, "plonk"):
+        pk, vk = plonk.setup(cs, BN254, rng=random.Random(42), device=device)
+        sync()
     log(f"[plonk sq16] setup on the card {time.perf_counter() - t0:.2f} s "
         f"(domain {pk.n}, quotient domain {pk.x_E.shape[1]}, SRS of "
         f"{len(pk.srs.g1)} points)")
@@ -1855,9 +2035,11 @@ def phase_rollup(device):
         assert cs.nb_constraints == n_constraints, cs.nb_constraints
         assert n_wires is None or cs.nb_wires == n_wires, cs.nb_wires
         t0 = time.perf_counter()
-        pk, vk = backend.setup(cs, BN254, rng=random.Random(42),
-                               device=device)
-        sync()
+        with counted_setup("rollup", BN254, scheme) as key:
+            pk, vk = backend.setup(cs, BN254, rng=random.Random(42),
+                                   device=device)
+            sync()
+            key["n_pad"] = getattr(pk, "n_pad", None)
         n = pk.domain_n if scheme == "groth16" else pk.n
         log(f"[{scheme} rollup] setup on the card "
             f"{time.perf_counter() - t0:.2f} s (domain {n}"
@@ -2045,13 +2227,17 @@ def phase_curves_groth16(device):
         curve = ALL_CURVES[cname]
         cs, pre, digest = mimc_chain(n_hashes, curve)
         t0 = time.perf_counter()
-        pk, vk = groth16.setup(cs, curve, rng=random.Random(42),
-                               device=device)
-        sync()
+        parts = {}
+        with counted_setup("curves_groth16", curve) as key:
+            pk, vk = groth16.setup(cs, curve, rng=random.Random(42),
+                                   device=device, timings=parts)
+            sync()
+            key["n_pad"] = pk.n_pad
         route = ("native core" if groth16.native_route(curve)
-                 else "the card's fixed-base")
+                 else "the card's fixed-base kernel")
         log(f"[groth16 {name}] setup {time.perf_counter() - t0:.2f} s, key "
-            f"points on {route} (domain {pk.domain_n}, n_pad {pk.n_pad})")
+            f"points on {route} (domain {pk.domain_n}, n_pad {pk.n_pad}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
         assert pk.n_pad == n_msm and pk.device == device, pk.n_pad
         served[name] = (curve, cs, pk, vk, pre, digest, n_msm)
 
@@ -2113,8 +2299,10 @@ def phase_curves_plonk(device):
         curve = ALL_CURVES[cname]
         cs, x0, y = square_chain(N_CURVE_PLONK - 4, curve)
         t0 = time.perf_counter()
-        pk, vk = plonk.setup(cs, curve, rng=random.Random(42), device=device)
-        sync()
+        with counted_setup("curves_plonk", curve, "plonk"):
+            pk, vk = plonk.setup(cs, curve, rng=random.Random(42),
+                                 device=device)
+            sync()
         log(f"[plonk {cname}] setup on the card {time.perf_counter() - t0:.2f}"
             f" s (domain {pk.n}, SRS of {len(pk.srs.g1)} points)")
         assert pk.n == N_CURVE_PLONK and pk.device == device
@@ -2361,12 +2549,13 @@ def recursion_witness(proof, y):
     return [y, *proof.ar, *proof.krs, *proof.bs[0], *proof.bs[1]]
 
 
-def prepare_recursion(device):
-    """The host side of phase 12, which needs no kernel (it runs while
-    nvcc builds them): for each inner curve the cubic circuit's key, set
-    up on the card (BLS12-377 on the native route, BLS24-315 on the card's
-    fixed-base tables); its verifying key through bytes; the in-circuit
-    verifier of that key compiled over the outer curve."""
+def prepare_recursion(device, ready):
+    """The host side of phase 12, which runs while nvcc builds the
+    kernels: for each inner curve the cubic circuit's key, set up on the
+    card (BLS12-377 on the native route; BLS24-315 on the fixed-base
+    kernel, once ``ready()`` has returned: the builds are done); its
+    verifying key through bytes; the in-circuit verifier of that key
+    compiled over the outer curve."""
     from gnark_tpu_torch.backend import groth16, serialize
     from gnark_tpu_torch.curves import ALL_CURVES
     from gnark_tpu_torch.examples.cubic import CubicCircuit
@@ -2377,12 +2566,19 @@ def prepare_recursion(device):
         curve, ocurve = ALL_CURVES[inner], ALL_CURVES[outer]
         tag = f"[recursion {inner} in {outer}]"
         cs_in = compile_circuit(CubicCircuit(), curve)
+        if not groth16.native_route(curve):
+            t0 = time.perf_counter()
+            ready()
+            log(f"{tag} waited {time.perf_counter() - t0:.2f} s for the "
+                f"nvcc builds")
         t0 = time.perf_counter()
-        pk_in, vk_in = groth16.setup(cs_in, curve, rng=random.Random(9),
-                                     device=device)
-        sync()
+        with counted_setup("recursion", curve) as key:
+            pk_in, vk_in = groth16.setup(cs_in, curve, rng=random.Random(9),
+                                         device=device)
+            sync()
+            key["n_pad"] = pk_in.n_pad
         route = ("native core" if groth16.native_route(curve)
-                 else "the card's fixed-base")
+                 else "the card's fixed-base kernel")
         log(f"{tag} inner setup {time.perf_counter() - t0:.2f} s, key "
             f"points on {route} (domain {pk_in.domain_n}, n_pad "
             f"{pk_in.n_pad})")
@@ -2742,7 +2938,8 @@ def phase_sharded(device, served):
                             (l_msm, res["launches_msm"])):
             for k, v in part.items():
                 total[k] = total.get(k, 0) + v
-    need = {f"{k}_{kind}" for k in _cuda.KERNELS for kind in BN254_KINDS}
+    need = {f"{k}_{kind}" for k in _cuda.MSM_KERNELS
+            for kind in BN254_KINDS}
     assert need <= set(l_msm), (need, l_msm)
     log(f"[sharded] each rank's proof is phase 5's {len(want)} bytes; it "
         f"verifies, a wrong public input is rejected; launches in the "
@@ -3010,6 +3207,10 @@ def phase_2e20(device, rates):
                             * (1 if k == "horner_fold" else nchunks[kind])
                             if k in _cuda.WINDOW_KERNELS else 0)
             for k in _cuda.KERNELS for kind in BN254_KINDS}
+    # its setup: five batches of N_2E21 columns, SETUP_COLUMNS a launch
+    want.update(setup_launches(res["pk"].curve, "groth16", N_2E21))
+    SETUP_LAUNCHES["2e20"] = {k: launches[k] for k in want
+                              if k.startswith("fixed_base_")}
     want.update(dict.fromkeys(ntt_part(_cuda.launches), 0))
     want.update({k: n * v for k, v in ntt_launches(
         res["pk"].curve, "groth16", 1 << E2E_LOG).items()})
@@ -3126,11 +3327,12 @@ def main():
     log(f"[env] native solver library: {solver_lib()._name}")
     log(f"[env] host CPU cores: {os.cpu_count()}")
     t0 = time.perf_counter()
-    # phase 12's host side needs no kernel: it runs while nvcc builds them,
-    # and its outer keys' setups, one after the other, beside phases 2-11
+    # phase 12's host side runs while nvcc builds the kernels (its
+    # BLS24-315 inner setup waits for them), and its outer keys' setups,
+    # which need none, one after the other, beside phases 2-11
     pool = concurrent.futures.ThreadPoolExecutor(1)
     build = pool.submit(_cuda.build_all)
-    prepared = prepare_recursion(device)
+    prepared = prepare_recursion(device, build.result)
     log(f"[phase] recursion, host side, during the nvcc builds "
         f"{time.perf_counter() - t0:.1f} s")
     build.result()
@@ -3158,6 +3360,7 @@ def main():
     msm_rates = (peak, rates["mad_wide_u32"]["ops_per_s"],
                  lat["montmul_bn254"], lat["montmul_bls24315"])
     kern = phase_kernels(device, msm_rates)
+    kern_fixed_base = phase_fixed_base_kernels(device, msm_rates)
     kern_ntt = phase_ntt_kernels(device, msm_rates)
     log(f"[phase] kernels vs plain {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3191,6 +3394,15 @@ def main():
     l_recursion = phase_recursion(device, prepared, outer_keys)
     log(f"[phase] recursion {time.perf_counter() - t0:.1f} s")
     log(f"[recursion] host memory after phase 12: {host_memory()}")
+    # phase 13's ranks need the card's memory: the blocks that this
+    # process's allocator keeps from the earlier phases (phase 3's plain
+    # 2^18-column G2 scan alone about 20 GB) go back to the card
+    reserved = torch.cuda.memory_reserved(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sharded] the main process's cached card memory: "
+        f"{reserved / 1e9:.2f} GB reserved, "
+        f"{torch.cuda.memory_reserved(device) / 1e9:.2f} GB after emptying")
     t0 = time.perf_counter()
     l_sharded, l_sharded_msm = phase_sharded(device, groth16_served)
     log(f"[phase] sharded {time.perf_counter() - t0:.1f} s")
@@ -3286,6 +3498,21 @@ def main():
             "source": "gnark_tpu_torch/csrc/ntt_kernels.cu",
             "replaces": NTT_REPLACES[base.split("_fr_")[0]],
             "launches": l_2e20[base], "launches_2e20": l_2e20[base], **r})
+    for key, r in kern_fixed_base.items():
+        # launched in the setups of every path that sets up on the card;
+        # the rows at the 2^20 key's slice on the 2^20 path alone
+        base = key.removesuffix("_2e21")
+        kind = base.removeprefix("fixed_base_")
+        paths = ("2e20",) if key != base else SETUP_PATHS
+        counts = {p: SETUP_LAUNCHES[p].get(base, 0) for p in paths}
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": ("gnark_tpu_torch/csrc/msm_kernels.cu"
+                       if kind in BN254_KINDS else
+                       f"gnark_tpu_torch/csrc/msm_{kind}.cu"),
+            "replaces": FIXED_BASE_REPLACES,
+            "launches": sum(counts.values()),
+            **{f"launches_{p}": v for p, v in counts.items()}, **r})
     for key, r in micro.items():
         entries.append({
             "name": key, "route": "cuda",
@@ -3294,6 +3521,8 @@ def main():
     assert all(e["launches"] > 0 for e in entries), entries
     # a least time that a kernel beats counts more work than its function
     # needs
+    log(f"[setup] fixed-base launches in each path's setups: "
+        f"{SETUP_LAUNCHES}")
     beaten = [e["name"] for e in entries if e["ms"] < e["bound_ms"]]
     assert not beaten, f"kernels faster than their bounds: {beaten}"
     print(json.dumps({"kernels": entries}), flush=True)

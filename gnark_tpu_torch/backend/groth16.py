@@ -45,7 +45,7 @@ from gnark_tpu_torch.curves import ALL_CURVES
 from gnark_tpu_torch.curves.pairing import pairing_for
 from gnark_tpu_torch.fields.spec import W
 from gnark_tpu_torch.ops.ec import CurveOps, points_to_device
-from gnark_tpu_torch.ops.fixed_base import FixedBaseTable, window_width
+from gnark_tpu_torch.ops.fixed_base import FixedBaseTable
 from gnark_tpu_torch.ops.limbs import field_ops, ints_to_limbs, limbs_to_ints
 from gnark_tpu_torch.ops.msm import _next_pow2, msm
 from gnark_tpu_torch.ops.ntt import Domain, bit_reverse_perm, fr_pointwise
@@ -182,12 +182,11 @@ def _qap_at_tau_native(cs, fr_spec, tau: int, n: int, nat):
     return A, B, C, zt
 
 
-# Columns of one fixed-base slice on the device: the plain-torch product
-# of a batch of m elements makes [L^2, m] int64 and float64 temporaries,
-# and a complete mixed addition over fp2 multiplies 18 base elements a
-# column at once, so 2^18 columns keep a G2 slice's temporaries near 20
-# GB (a 2^21-point batch at once would need eight times that).  A
-# column's point does not depend on its slice.
+# Columns of one fixed-base slice: one kernel launch on the card, one
+# batch of the plain version on the CPU, whose [L^2, m] int64 and float64
+# product temporaries (18 fp2 base elements a column at once in a G2
+# addition) come near 20 GB at 2^18 columns.  A column's point does not
+# depend on its slice.
 SETUP_COLUMNS = 1 << 18
 
 
@@ -271,11 +270,12 @@ def setup(cs, curve, rng=None, host: bool = False, *, device="cuda",
             return torch.from_numpy(p).to(device)
 
         scalar_bits = curve.fr.L * W
-        c = window_width(n_pad, scalar_bits)
+        # the table's 8-bit windows at every size, as gnark_tpu's: no
+        # wider window pays for its 2^c host entries at these sizes
         fb1 = FixedBaseTable(K.g1, curve.host_g1, curve.g1_gen, scalar_bits,
-                             device, c)
+                             device)
         fb2 = FixedBaseTable(K.g2, curve.host_g2, curve.g2_gen, scalar_bits,
-                             device, c)
+                             device)
         ph.mark("tables")
 
         def sliced(fb):

@@ -72,7 +72,10 @@ def new_srs(curve, size: int, tau: int | None = None, rng=None,
     the reference's cached test SRS (test/kzg_srs.go:35).  A production SRS
     would come from a ceremony file.  The powers of tau go through the
     fixed-base table on ``device`` (the card unless the caller names
-    another), or with ``host=True`` through the native core."""
+    another), or through the native core with ``host=True`` and, for
+    an SRS still held on ``device``, over a base field of 24 or more
+    16-bit limbs (``groth16.native_route``, the cut of gnark_tpu's
+    commit, kzg.py:124): the fixed-base kernel has no kind there."""
     q = curve.fr.modulus
     if tau is None:
         tau = (rng.randrange(q) if rng is not None else secrets.randbelow(q))
@@ -81,9 +84,10 @@ def new_srs(curve, size: int, tau: int | None = None, rng=None,
         powers.append(t)
         t = t * tau % q
     g2_tau = curve.host_g2.scalar_mul(curve.g2_gen, tau)
-    if host:
+    if host or native_route(curve):
         g1 = native_fixed_base_affine(curve, powers, curve.g1_gen)
-        return SRS(curve=curve, g1=g1, g2_gen=curve.g2_gen, g2_tau=g2_tau)
+        return SRS(curve=curve, g1=g1, g2_gen=curve.g2_gen, g2_tau=g2_tau,
+                   device=None if host else _device(device))
     device = _device(device)
     K = _Groups(curve)
     fb = FixedBaseTable(K.g1, curve.host_g1, curve.g1_gen, curve.fr.L * W,

@@ -1,8 +1,8 @@
 // The kernels of the MSM, for BN254 G1 (over Fp) and G2 (over Fp2), and
 // BLS24-315 G1 (over its 10-word Fp) and G2 (over FpK<.., 4, 13>): the
-// five of the signed windowed Pippenger plan, and the double-and-add
-// ladder that serves small MSMs with the reduction of its output, built
-// with
+// five of the signed windowed Pippenger plan, the double-and-add ladder
+// that serves small MSMs with the reduction of its output, and the
+// fixed-base scan that makes setup's key points, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // and bound through ctypes (gnark_tpu_torch/ops/_cuda.py).  Each kernel
@@ -20,6 +20,9 @@
 //   ladder            MSM._run_ladder_pallas    (msm.py:319)
 //   reduce            _reduce                   (msm.py:124, XLA: the sum
 //                     of the ladder's per-point results, msm.py:384)
+// Kernel              replaces (gnark_tpu/ops/fixed_base.py)
+//   fixed_base        FixedBaseTable._run       (fixed_base.py:56, a
+//                     jitted lax.scan through XLA)
 //
 // What bounds them on the H100: 32-bit integer multiplies (mad.lo/mad.hi),
 // about 2N^2 per field product, N = 8 limbs; memory traffic is small next
@@ -104,6 +107,10 @@
 //     cluster a chunk, an accumulator a lane group, reduce_sliced_kernel).
 //     The fold of the K chunk sums, sum_j 2^(jB) T_j, is horner_fold with
 //     c = B.
+//   * fixed_base: a column's nwin mixed additions of table entries (one a
+//     window digit of its scalar), a chain on a group of LEAF_GROUP threads
+//     as a leaf chain runs (over fp4 by coefficient, as the sliced leaf),
+//     then the Jacobian form; the table stays in L2.
 // The complete formulas (ec_complete.cuh) take the identity, P + P and
 // P + (-P) without a branch, so every lane of a warp runs the same code.
 // None uses wgmma or TMA; the lane offsets and the weighted sum use
@@ -1190,6 +1197,65 @@ struct Sliced {
     }
     sync();
   }
+
+  // This lane's coefficients of the identity (0 : 1 : 0), and this
+  // thread's b3 column constants (the KB3 slots that mul_b3 reads).
+  GT_HD void start(B* X, B* Y, B* Z) const {
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      const int m = coef(t);
+      X[t] = Z[t] = fp_zero<P>();
+      Y[t] = m == 0 ? fp_one<P>() : fp_zero<P>();
+      const B c = Curve::b3().c[Curve::B3_COEF];
+      slot_put(ex[KB3 + t][tid], Curve::B3_COEF > m ? mul_const<NR>(c) : c);
+    }
+  }
+
+  // (X : Y : Z) += (x, y), this lane's coefficients: ec_complete.py's
+  // add_mixed (alg 8) in its order (the projective representative
+  // depends on it; every field operation ends canonical, so the columns'
+  // other formula for a product gives FpKOps.mul's limbs).
+  GT_INLINE void add_mixed(B* X, B* Y, B* Z, const B* x, const B* y) const {
+    B s1[KPL], s2[KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      s1[t] = add(X[t], Y[t]);
+      s2[t] = add(x[t], y[t]);
+    }
+    B t0[KPL], t1[KPL], t3[KPL], t4[KPL], t5[KPL];
+    mul(t0, X, x);
+    mul(t1, Y, y);
+    mul(t3, s1, s2);
+    mul(t4, x, Z);  // X2 Z1
+    mul(t5, y, Z);  // Y2 Z1
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      t3[t] = sub(t3[t], add(t0[t], t1[t]));
+      t4[t] = add(t4[t], X[t]);
+      t5[t] = add(t5[t], Y[t]);
+      t0[t] = add(dbl(t0[t]), t0[t]);  // 3 X1X2
+    }
+    B tz[KPL], Z3[KPL], Y3[KPL];
+    mul_b3(tz, Z, Y3, t4);  // b3 Z1, b3 t4
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      Z3[t] = add(t1[t], tz[t]);
+      t1[t] = sub(t1[t], tz[t]);
+    }
+    B m0[KPL], m1[KPL];
+    mul(m0, t3, t1);
+    mul(m1, t5, Y3);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) X[t] = sub(m0[t], m1[t]);
+    mul(m0, t1, Z3);
+    mul(m1, Y3, t0);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) Y[t] = add(m0[t], m1[t]);
+    mul(m0, Z3, t5);
+    mul(m1, t0, t3);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) Z[t] = add(m0[t], m1[t]);
+  }
 };
 
 // sx, sy: [nw, C, L16, R]; sorted position r*C + cs at (w, cs, :, r).
@@ -1233,20 +1299,13 @@ __global__ void __launch_bounds__(THREADS, BLOCKS)
   const int half = lane / SL::SPAN;
   const SL sl{ex, tid, tid - lane + half * SL::SPAN, lane % SL::SPAN, half,
               GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
-  B X[KPL], Y[KPL], Z[KPL];  // the running sum's coefficients, from (0 : 1 : 0)
-#pragma unroll
-  for (int t = 0; t < KPL; ++t) {
-    const int m = sl.coef(t);
-    X[t] = Z[t] = fp_zero<P>();
-    Y[t] = m == 0 ? fp_one<P>() : fp_zero<P>();
-    const B c = Curve::b3().c[Curve::B3_COEF];
-    slot_put(ex[SL::KB3 + t][tid], Curve::B3_COEF > m ? mul_const<SL::NR>(c) : c);
-  }
+  B X[KPL], Y[KPL], Z[KPL];  // the running sum's coefficients
+  sl.start(X, Y, Z);
   for (int cs = 0; cs < C; ++cs) {
     const long off = ((long)w * C + cs) * F::L16 * R + r;
     const uint32_t flags = (uint32_t)(sy[off] >> 16);
     if (!(flags & 1u)) {
-      B x[KPL], y[KPL], s1[KPL], s2[KPL];
+      B x[KPL], y[KPL];
       uint32_t limb0;  // the flags of coefficient 0, masked off
 #pragma unroll
       for (int t = 0; t < KPL; ++t) {
@@ -1254,42 +1313,8 @@ __global__ void __launch_bounds__(THREADS, BLOCKS)
         x[t] = load<P>(sx + c, R, &limb0);
         y[t] = load<P>(sy + c, R, &limb0);
         if (flags & 2u) y[t] = neg(y[t]);
-        s1[t] = add(X[t], Y[t]);
-        s2[t] = add(x[t], y[t]);
       }
-      B t0[KPL], t1[KPL], t3[KPL], t4[KPL], t5[KPL];
-      sl.mul(t0, X, x);
-      sl.mul(t1, Y, y);
-      sl.mul(t3, s1, s2);
-      sl.mul(t4, x, Z);  // X2 Z1
-      sl.mul(t5, y, Z);  // Y2 Z1
-#pragma unroll
-      for (int t = 0; t < KPL; ++t) {
-        t3[t] = sub(t3[t], add(t0[t], t1[t]));
-        t4[t] = add(t4[t], X[t]);
-        t5[t] = add(t5[t], Y[t]);
-        t0[t] = add(dbl(t0[t]), t0[t]);  // 3 X1X2
-      }
-      B tz[KPL], Z3[KPL], Y3[KPL];
-      sl.mul_b3(tz, Z, Y3, t4);  // b3 Z1, b3 t4
-#pragma unroll
-      for (int t = 0; t < KPL; ++t) {
-        Z3[t] = add(t1[t], tz[t]);
-        t1[t] = sub(t1[t], tz[t]);
-      }
-      B m0[KPL], m1[KPL];
-      sl.mul(m0, t3, t1);
-      sl.mul(m1, t5, Y3);
-#pragma unroll
-      for (int t = 0; t < KPL; ++t) X[t] = sub(m0[t], m1[t]);
-      sl.mul(m0, t1, Z3);
-      sl.mul(m1, Y3, t0);
-#pragma unroll
-      for (int t = 0; t < KPL; ++t) Y[t] = add(m0[t], m1[t]);
-      sl.mul(m0, Z3, t5);
-      sl.mul(m1, t0, t3);
-#pragma unroll
-      for (int t = 0; t < KPL; ++t) Z[t] = add(m0[t], m1[t]);
+      sl.add_mixed(X, Y, Z, x, y);
     }
     if (SL::LPC > 1 && half) continue;  // a coefficient's first lane stores it
     int64_t* row = rows + ((long)w * C * R + (long)cs * R + r) * 3 * F::L16;
@@ -1303,6 +1328,139 @@ __global__ void __launch_bounds__(THREADS, BLOCKS)
         store_word(d + 2 * F::L16 + 2 * i, Z[t].v[i]);
       }
     }
+  }
+}
+
+// ---- the fixed-base scan, a thread group a column ----------------------------
+
+// 32-bit words of one entry of the fixed-base table: x's words, y's words,
+// a flag (nonzero: infinity), padded to whole 16-byte vectors
+// (ops/fixed_base.py's point_major).
+template <class F>
+GT_HD constexpr int fixed_base_entry() { return (2 * F::N + 4) / 4 * 4; }
+
+// Digit w of column j: bits [c w, c w + c) of the scalar's Ls 16-bit limb
+// planes sc [Ls, n], zero above the top limb (ops/msm.py's window_digits;
+// c <= 16, so two limbs hold it).
+GT_HD uint32_t window_digit(const int64_t* sc, long n, long j, int Ls, int c,
+                            int w) {
+  const int bit = c * w, q = bit >> 4, sh = bit & 15;
+  uint32_t v = 0;
+  if (q < Ls) v = (uint32_t)sc[(long)q * n + j];
+  if (q + 1 < Ls) v |= (uint32_t)sc[(long)(q + 1) * n + j] << 16;
+  return (v >> sh) & ((1u << c) - 1u);
+}
+
+// sc: [Ls, n] regular-form 16-bit scalar limbs; table: [nwin, 2^c, E]
+// words, entry (w, d) = d 2^(c w) G (fixed_base_entry); out: [3*L16, n],
+// X over Y over Z.  The plain version (ops/fixed_base.py's
+// fixed_base_plain; gnark_tpu's FixedBaseTable._run, fixed_base.py:56, a
+// jitted lax.scan through XLA): column j starts at (0 : 1 : 0), adds the
+// entry of each window's digit of s_j, w = 0 .. nwin - 1, with the
+// complete mixed addition unless the entry is flagged infinite, and leaves
+// as (X Z, Y Z^2, Z): the same additions of the same operands in the same
+// order, so the same limbs.
+//
+// Column j runs on the G consecutive threads G j .. G j + G - 1, one group
+// inside a warp sharing a FoldShared slot, as a leaf chain does: each
+// window every lane computes the digit and reads the entry's flag (so the
+// skip is the group's), lane 0 reads its x and y words and adds them with
+// fold_add_mixed (the products spread over the group); fold_jacobian at
+// the end, then the group stores the result's 3 W words as 16-bit limbs,
+// lane j words j, j + G, ...  What bounds it: the nwin mixed additions'
+// products a column; the table (0.5 MB for G1 at c = 8) stays in L2 and
+// the digits' limbs are read from device memory once.
+template <class Curve, int G>
+__global__ void __launch_bounds__(LeafBlock<typename Curve::F, G>::THREADS)
+    fixed_base_kernel(const int64_t* sc, const uint32_t* table, int64_t* out,
+                      int n, int Ls, int c, int nwin) {
+  using F = typename Curve::F;
+  constexpr int W = F::N, E = fixed_base_entry<F>();
+  static_assert(G < 32 && 32 % G == 0, "a group lies inside one warp");
+  static_assert(sizeof(FoldShared<F>::A) >= 3 * W * sizeof(uint32_t),
+                "the result fits in the slot");
+  __shared__ FoldShared<F> slots[LeafBlock<F, G>::THREADS / G];
+  const long j = ((long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (j >= n) return;  // the whole group
+  const int lane = threadIdx.x % G;
+  FoldShared<F>& s = slots[threadIdx.x / G];
+  const GroupSync sync{((1u << G) - 1u) << (threadIdx.x % 32 / G * G)};
+  Point<F> acc = identity<Curve>();  // lane 0's
+  for (int w = 0; w < nwin; ++w) {
+    const uint32_t* e =
+        table + (((long)w << c) + window_digit(sc, n, j, Ls, c, w)) * E;
+    if (e[2 * W]) continue;
+    F px, py;
+    if (lane == 0) {
+      words_to(px, e);
+      words_to(py, e + W);
+    }
+    fold_add_mixed<Curve>(acc, px, py, s, lane, G, sync);
+  }
+  fold_jacobian<Curve>(acc, s, lane, G, sync);
+  uint32_t* sum = reinterpret_cast<uint32_t*>(s.A);  // X, Y, Z words
+  if (lane == 0) {
+    words_from(sum, acc.X);
+    words_from(sum + W, acc.Y);
+    words_from(sum + 2 * W, acc.Z);
+  }
+  sync();
+  for (int i = lane; i < 3 * W; i += G) {
+    out[2L * i * n + j] = sum[i] & 0xffffu;
+    out[(2L * i + 1) * n + j] = sum[i] >> 16;
+  }
+}
+
+// The same function as fixed_base_kernel, for F = fp^K: column j on a group
+// of G lanes split by coefficient (Sliced), as leaf_sliced_kernel runs a
+// chain.  Each window every lane reads the flag and its coefficients' words
+// of x and y, then Sliced::add_mixed; at the end X Z, Z^2 and Y Z^2 as
+// three of Sliced's products, and each coefficient's first lane stores its
+// coefficients of X, Y and Z.
+template <class Curve, int G, int THREADS, int BLOCKS>
+__global__ void __launch_bounds__(THREADS, BLOCKS)
+    fixed_base_sliced_kernel(const int64_t* sc, const uint32_t* table,
+                             int64_t* out, int n, int Ls, int c, int nwin) {
+  using F = typename Curve::F;
+  using SL = Sliced<Curve, G, THREADS>;
+  using P = typename SL::P;
+  using B = typename SL::B;
+  constexpr int KPL = SL::KPL, N = Fp<P>::N, L = Fp<P>::L16, W = F::N;
+  constexpr int E = fixed_base_entry<F>();
+  static_assert(G < 32 && 32 % G == 0 && THREADS % 32 == 0,
+                "a group lies inside one warp");
+  __shared__ typename SL::Slots ex;
+  const int tid = threadIdx.x, lane = tid % G;
+  const long j = ((long)blockIdx.x * blockDim.x + tid) / G;
+  if (j >= n) return;  // the whole group
+  const int half = lane / SL::SPAN;
+  const SL sl{ex, tid, tid - lane + half * SL::SPAN, lane % SL::SPAN, half,
+              GroupSync{((1u << G) - 1u) << (tid % 32 / G * G)}};
+  B X[KPL], Y[KPL], Z[KPL];  // the running sum's coefficients
+  sl.start(X, Y, Z);
+  for (int w = 0; w < nwin; ++w) {
+    const uint32_t* e =
+        table + (((long)w << c) + window_digit(sc, n, j, Ls, c, w)) * E;
+    if (e[2 * W]) continue;
+    B x[KPL], y[KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      words_to(x[t], e + sl.coef(t) * N);
+      words_to(y[t], e + W + sl.coef(t) * N);
+    }
+    sl.add_mixed(X, Y, Z, x, y);
+  }
+  B XZ[KPL], ZZ[KPL];
+  sl.mul(XZ, X, Z);
+  sl.mul(ZZ, Z, Z);
+  sl.mul(Y, Y, ZZ);
+  if (SL::LPC > 1 && half) return;  // a coefficient's first lane stores it
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) {
+    int64_t* d = out + (long)sl.coef(t) * L * n + j;
+    store(XZ[t], d, n);
+    store(Y[t], d + (long)F::L16 * n, n);
+    store(Z[t], d + 2L * F::L16 * n, n);
   }
 }
 
@@ -2513,6 +2671,26 @@ int launch_buckets(const void* rows, const void* offs, const void* d_sorted,
                     d, (int64_t*)out, nw, C, R, nb);
 }
 
+// The fixed-base scan of a curve on the leaf's groups and blocks (LEAF_GROUP
+// threads a column, leaf_threads a block; over fp^K LEAF_BLOCKS an SM):
+// fixed_base_sliced_kernel over fp^K, fixed_base_kernel otherwise.
+template <class Curve>
+int launch_fixed_base(const void* sc, const void* table, void* out, int n,
+                      int Ls, int c, int nwin, void* stream) {
+  constexpr int G = Curve::LEAF_GROUP, block = leaf_threads<Curve>();
+  const unsigned blocks = (unsigned)(((long)n * G + block - 1) / block);
+  const auto* s = (const int64_t*)sc;
+  const auto* t = (const uint32_t*)table;
+  auto* o = (int64_t*)out;
+  if constexpr (FpKTraits<typename Curve::F>::SLICED)
+    fixed_base_sliced_kernel<Curve, G, block, Curve::LEAF_BLOCKS>
+        <<<blocks, block, 0, (cudaStream_t)stream>>>(s, t, o, n, Ls, c, nwin);
+  else
+    fixed_base_kernel<Curve, G><<<blocks, block, 0, (cudaStream_t)stream>>>(
+        s, t, o, n, Ls, c, nwin);
+  return (int)cudaGetLastError();
+}
+
 #define GNARK_MSM_LAUNCHERS(NAME, CURVE)                                      \
   extern "C" int gnark_msm_leaf_prefix_##NAME(                                \
       const void* sx, const void* sy, void* rows, int nw, int C, int R,       \
@@ -2554,6 +2732,11 @@ int launch_buckets(const void* rows, const void* offs, const void* d_sorted,
                                          void* scratch, int n, int K,         \
                                          void* stream) {                      \
     return launch_reduce<CURVE>(pts, out, scratch, n, K, stream);             \
+  }                                                                           \
+  extern "C" int gnark_msm_fixed_base_##NAME(                                 \
+      const void* sc, const void* table, void* out, int n, int Ls, int c,     \
+      int nwin, void* stream) {                                               \
+    return launch_fixed_base<CURVE>(sc, table, out, n, Ls, c, nwin, stream);  \
   }                                                                           \
   GNARK_MSM_SHAPE(NAME, CURVE)
 

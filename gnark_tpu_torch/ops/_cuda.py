@@ -16,9 +16,9 @@ the number of kernels they launched (a transform's passes from one
 call, ``ntt_plan``), or minus the error, which raises.
 
 ``launches`` counts kernel launches by name (``leaf_prefix_g1``, ...,
-``ladder_g2_bls24315``, ``ntt_fr_bn254``, ``fr_pointwise_fr_bw6_761``,
-``microbench_mul_u32``, ...); only the wrappers here add to it, where
-they launch.
+``ladder_g2_bls24315``, ``fixed_base_g1``, ``ntt_fr_bn254``,
+``fr_pointwise_fr_bw6_761``, ``microbench_mul_u32``, ...); only the
+wrappers here add to it, where they launch.
 """
 
 from __future__ import annotations
@@ -51,7 +51,9 @@ _SOURCES = {
 
 WINDOW_KERNELS = ("leaf_prefix", "lane_offsets", "buckets", "weighted_sum",
                   "horner_fold")
-KERNELS = WINDOW_KERNELS + ("ladder", "reduce")
+# the MSM's kernels, and the fixed-base scan of setup's key points
+MSM_KERNELS = WINDOW_KERNELS + ("ladder", "reduce")
+KERNELS = MSM_KERNELS + ("fixed_base",)
 REDUCE_LANES = 256       # msm_kernels.cu's reduce_kernel
 # the kinds (msm_kernels.cu's curve structs G1, G2, G1Bls24, G2Bls24) and
 # the library each is built into
@@ -76,7 +78,8 @@ _L16 = {"g1": 16, "g2": 32,     # 16-bit limb planes of one coordinate
 # and blocks a chunk (LadderShape: 1, 16 LADDER_POINTS, LADDER_BLOCKS, one
 # warp, and 1, REDUCE_LANES, 1 for the template kernels), and the bucket
 # step's threads an addition, threads a block and buckets a block
-# (BUCKETS_GROUP, BUCKETS_THREADS, buckets_run)
+# (BUCKETS_GROUP, BUCKETS_THREADS, buckets_run); the fixed-base scan runs
+# on the leaf's leaf_group and leaf_threads
 SHAPE = ("words", "degree", "prod_s", "b3_product", "leaf_group",
          "wsum_group", "wsum_threads", "wsum_cluster", "lanes_group",
          "lanes_threads", "lanes_cluster", "ladder_points", "point_bytes",
@@ -179,7 +182,8 @@ def _bind_msm(lib, library):
                 ("weighted_sum", [vp, vp, vp, ci, ci, vp]),
                 ("horner_fold", [vp, vp, ci, ci, vp]),
                 ("ladder", [vp, vp, vp, vp, vp, ci, ci, vp]),
-                ("reduce", [vp, vp, vp, ci, ci, vp])):
+                ("reduce", [vp, vp, vp, ci, ci, vp]),
+                ("fixed_base", [vp, vp, vp, ci, ci, ci, ci, vp])):
             fn = getattr(lib, f"gnark_msm_{name}_{kind}")
             fn.argtypes = args
             fn.restype = ci
@@ -246,14 +250,14 @@ def fr_kind(spec) -> str:
                               f"curves' scalar fields, not {spec.name}")
 
 
-def _check(t: torch.Tensor, shape, name):
-    if not (t.is_cuda and t.dtype == torch.int64 and t.is_contiguous()):
-        raise ValueError(f"{name}: want a contiguous int64 CUDA tensor, got "
-                         f"{t.dtype} on {t.device}, contiguous="
-                         f"{t.is_contiguous()}")
+def _check(t: torch.Tensor, shape, name, dtype=torch.int64):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: want shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
+    if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()):
+        raise ValueError(f"{name}: want a contiguous {dtype} CUDA tensor, "
+                         f"got {t.dtype} on {t.device}, contiguous="
+                         f"{t.is_contiguous()}")
 
 
 def _launch(name, kind, *args):
@@ -373,6 +377,33 @@ def reduce(pts, kind):
     scratch = _scratch(K * REDUCE_LANES, kind, pts.device)
     _launch("reduce", kind, pts.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             n, K)
+    return out
+
+
+def entry_words(L16) -> int:
+    """32-bit words of one fixed-base table entry over a coordinate field
+    of L16 16-bit limbs: x's words, y's words and the infinity flag,
+    padded to whole 16-byte vectors (msm_kernels.cu's fixed_base_entry)."""
+    return (L16 + 4) // 4 * 4
+
+
+def fixed_base(sc, table, c, kind):
+    """[3L, n]: column j = sum over the windows w of table entry (w, digit
+    w of scalar j), Jacobian (msm_kernels.cu's fixed_base_kernel, or
+    fixed_base_sliced_kernel over fp4: one launch).  sc: [Ls, n]
+    regular-form 16-bit scalar limbs; table: int32 [nwin, 2^c, entry
+    words] (ops/fixed_base.py's point_major); c <= 16."""
+    Ls, n = sc.shape
+    nwin = table.shape[0]
+    if not 1 <= c <= 16:
+        raise ValueError(f"window width {c} is not in 1..16")
+    words = entry_words(_L16[kind])
+    _check(table, (nwin, 1 << c, words), "table", torch.int32)
+    _check(sc, (Ls, n), "scalars")
+    out = torch.empty((3 * _L16[kind], n), dtype=torch.int64,
+                      device=sc.device)
+    _launch("fixed_base", kind, sc.data_ptr(), table.data_ptr(),
+            out.data_ptr(), n, Ls, c, nwin)
     return out
 
 

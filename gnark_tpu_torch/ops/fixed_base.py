@@ -1,5 +1,6 @@
-"""Batch fixed-base scalar multiplication in plain PyTorch (counterpart of
-gnark_tpu/ops/fixed_base.py::FixedBaseTable, which is XLA there too).
+"""Batch fixed-base scalar multiplication (counterpart of
+gnark_tpu/ops/fixed_base.py::FixedBaseTable, whose scan is XLA there),
+with its scan in CUDA.
 
 The per-window multiples of the base are a small host-computed table; on
 the device each scalar becomes nwin digit gathers from the table plus an
@@ -7,33 +8,38 @@ nwin-step loop of mixed adds:
 
     result_j = sum_w table[w][digit_w(s_j)],   table[w][d] = d * 2^(cw) * G
 
-The adds are the complete projective ones (ec_complete.py, alg 8: no
-doubling for the P == Q case, no selects), about two thirds of the
-Jacobian mixed addition's products; the sum is returned as a Jacobian
-batch, the same points.
+``fixed_base`` launches csrc/msm_kernels.cu's fixed_base_kernel (over fp4
+fixed_base_sliced_kernel) on CUDA tensors and runs ``fixed_base_plain``
+on CPU tensors; any other device raises, and there is no fallback from
+the kernel to the plain version.  The adds are the complete projective
+ones (ec_complete.py, alg 8: no doubling for the P == Q case, no
+selects), about two thirds of the Jacobian mixed addition's products;
+the sum is returned as a Jacobian batch, the same points.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gnark_tpu_torch.ops import _cuda
 from gnark_tpu_torch.ops.ec import CurveOps
-from gnark_tpu_torch.ops.msm import complete_ops, window_digits
+from gnark_tpu_torch.ops.msm import (
+    _count_plain, _device_route, complete_ops, split_points, window_digits)
 
 
-# A table entry (a host point addition) costs about as much as 60-100
-# columns of a window on the card: BN254's two tables at c = 8 (16,320
-# entries) took 0.69 s on an H100's host, a window 0.24 us a G1 and 0.97
-# us a G2 column at 2^21 points (chip_smoke.py phase 14)
-ENTRY_COLUMNS = 85
-
-
-def window_width(n: int, scalar_bits: int) -> int:
-    """The window width c in 8..13 that makes an n-point batch cheapest:
-    nwin(c) windows of n columns each, and nwin(c) 2^c host table
-    entries.  8 below about 2^17 points, 12 at 2^21."""
-    return min(range(8, 14), key=lambda c: -(-scalar_bits // c) * (
-        n + ENTRY_COLUMNS * (1 << c)))
+def point_major(tx, ty, tinf):
+    """The kernel's copy of a table ([nwin, L, 2^c] coordinates, [nwin,
+    2^c] flags): int32 [nwin, 2^c, E], entry (w, d) as x's 32-bit words
+    (limbs 2i and 2i + 1 in word i), y's words, the infinity flag and
+    zeros up to E = _cuda.entry_words(L) words."""
+    nwin, L, m = tx.shape
+    out = torch.zeros((nwin, m, _cuda.entry_words(L)), dtype=torch.int64,
+                      device=tx.device)
+    for k, t in enumerate((tx, ty)):
+        out[..., k * L // 2:(k + 1) * L // 2] = (
+            t[:, 0::2] | t[:, 1::2] << 16).transpose(1, 2)
+    out[..., L] = tinf.to(torch.int64)
+    return (out - (out >> 31 << 32)).to(torch.int32)   # two's complement
 
 
 class FixedBaseTable:
@@ -58,22 +64,44 @@ class FixedBaseTable:
             rows_inf.append([p is None for p in pts])
             for _ in range(c):
                 step = host_curve.double(step)
-        # [nwin, L, 2^c] coordinates and [nwin, 2^c] infinity flags
+        # [nwin, L, 2^c] coordinates and [nwin, 2^c] infinity flags (the
+        # plain version's), and on the card the kernel's point-major copy
         self.tx = torch.stack([G.F.pack(r, device) for r in rows_x])
         self.ty = torch.stack([G.F.pack(r, device) for r in rows_y])
         self.tinf = torch.tensor(rows_inf, device=device)
+        self.points = (point_major(self.tx, self.ty, self.tinf)
+                       if self.tx.is_cuda else None)
 
     def __call__(self, scalars):
         """scalars: [Ls, n] regular-form limb planes -> Jacobian batch."""
-        GC = complete_ops(self.G)
-        n = scalars.shape[-1]
-        digits = window_digits(scalars, self.c)[:self.nwin]   # [nwin, n]
-        acc = GC.inf(n, scalars.device)
-        for w in range(self.nwin):
-            d = digits[w]
-            acc = GC.add_mixed(acc, (self.tx[w][:, d], self.ty[w][:, d]),
-                               self.tinf[w][d])
-        return GC.to_jacobian(acc)
+        return split_points(fixed_base(self, scalars), self.G.F.L)
+
+
+def fixed_base_plain(table: FixedBaseTable, scalars):
+    """[3L, n]: column j = sum_w table[w][digit_w(s_j)], Jacobian, X over
+    Y over Z; scalars [Ls, n] regular-form limb planes.  A loop of batched
+    complete mixed additions over every column, window by window."""
+    _count_plain(scalars, "fixed_base")
+    GC = complete_ops(table.G)
+    n = scalars.shape[-1]
+    digits = window_digits(scalars, table.c)[:table.nwin]   # [nwin, n]
+    acc = GC.inf(n, scalars.device)
+    for w in range(table.nwin):
+        d = digits[w]
+        acc = GC.add_mixed(acc, (table.tx[w][:, d], table.ty[w][:, d]),
+                           table.tinf[w][d])
+    return torch.cat(GC.to_jacobian(acc))
+
+
+def fixed_base(table: FixedBaseTable, scalars):
+    """fixed_base_plain's [3L, n] batch: the kernel on CUDA tensors (one
+    launch; the scalars made contiguous, as setup's slices of its planes
+    may not be), the plain version on CPU tensors; raises on any other
+    device."""
+    if _device_route(scalars, "fixed_base"):
+        return _cuda.fixed_base(scalars.contiguous(), table.points, table.c,
+                                _cuda.kind_of(table.G))
+    return fixed_base_plain(table, scalars)
 
 
 def batch_scalar_mul(G: CurveOps, host_curve, base, scalars, c: int = 8):

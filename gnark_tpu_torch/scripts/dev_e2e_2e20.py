@@ -13,6 +13,11 @@ wrong public input (counterpart of scripts/dev_e2e_2e20.py).
   --cache: read the key from .cache/ under the repo root, or write it
           there after setup (key_io's .npz and a pickled verifying key)
 
+It ends by printing the SHA-256 of the last proof's bytes and of the
+verifying key's (backend/serialize.py), so that two versions of the
+package can be held to the same proof: run this file with PYTHONPATH
+naming the other version's tree.
+
 At log2_n = 20 the key holds 2^21 points a batch (2^20 + 1 wires padded
 to a power of two), so every MSM runs the windowed plan at c = 14 in
 window chunks (ops/msm.py).
@@ -20,6 +25,7 @@ window chunks (ops/msm.py).
 
 from __future__ import annotations
 
+import hashlib
 import os
 import pickle
 import random
@@ -28,7 +34,7 @@ import time
 
 import torch
 
-from gnark_tpu_torch.backend import groth16, key_io
+from gnark_tpu_torch.backend import groth16, key_io, serialize
 from gnark_tpu_torch.curves import BLS12_377, BLS12_381, BN254
 from gnark_tpu_torch.frontend.compile import compile_circuit
 from gnark_tpu_torch.frontend.schema import Circuit, Public, Secret
@@ -166,8 +172,13 @@ def main(argv=None):
     args = [a for a in argv if not a.startswith("--")]
     nlog = int(args[0]) if args else 20
     curve = args[1] if len(args) > 1 else "bn254"
-    run(nlog, curve, cache=CACHE if "--cache" in flags else None,
-        log=lambda m: print(m, flush=True))
+    res = run(nlog, curve, cache=CACHE if "--cache" in flags else None,
+              log=lambda m: print(m, flush=True))
+    proof = serialize.proof_to_bytes(res["proof"], CURVES[curve])
+    vk = serialize.vk_to_bytes(res["vk"])
+    print(f"proof sha256 {hashlib.sha256(proof).hexdigest()} "
+          f"({len(proof)} B), verifying key sha256 "
+          f"{hashlib.sha256(vk).hexdigest()} ({len(vk)} B)", flush=True)
     print(f"E2E OK: 2^{nlog} {curve} device prove verified", flush=True)
 
 

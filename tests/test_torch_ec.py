@@ -174,18 +174,19 @@ def test_fixed_base_matches_host_scalar_mul(kind):
 
 
 def test_fixed_base_window_width_and_a_wide_table():
-    """The fixed-base window width is 8 up to 2^17 points (every setup
-    measured before the 2^20 key) and 12 at 2^21; a table of 12-bit
-    windows gives the same points."""
-    from gnark_tpu_torch.ops.fixed_base import window_width
-    assert [window_width(1 << k, 256) for k in (12, 16, 17, 21)] == \
-        [8, 8, 8, 12]
+    """Setup's fixed-base tables take the default 8-bit windows at every
+    size (the table's host additions cost thousands of the kernel's
+    column windows, so a wider one never pays at a key's sizes); a table
+    of 12-bit windows gives the same points."""
     F, b, H, gen, zero = _group("g1")
     G = CurveOps(F, b)
     r = BN254.fr.modulus
     scalars = [0, 1, r - 1, (1 << 240) + 12345, 4095, 4096]
+    setup_table = FixedBaseTable(G, H, gen, BN254.fr.L * 16, "cpu")
+    assert (setup_table.c, setup_table.nwin) == (8, 32)
     table = FixedBaseTable(G, H, gen, BN254.fr.L * 16, "cpu", c=12)
     assert table.nwin == 22
     sc = torch.from_numpy(ints_to_limbs(scalars, BN254.fr.L).astype(np.int64))
-    assert points_to_host(G, table(sc)) == [H.scalar_mul(gen, s)
-                                            for s in scalars]
+    want = [H.scalar_mul(gen, s) for s in scalars]
+    assert points_to_host(G, table(sc)) == want
+    assert points_to_host(G, setup_table(sc)) == want
